@@ -1,8 +1,9 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-The sources in ``csrc/`` are compiled with ``nvcc`` into one shared
-library with a plain C interface and loaded with :mod:`ctypes`.  They
-include no PyTorch header, so a build takes seconds.  The library goes
+The sources in ``csrc/`` are compiled with ``nvcc`` (one process per
+source, all started together, then one link) into one shared library
+with a plain C interface and loaded with :mod:`ctypes`.  They include
+no PyTorch header, so a build takes seconds.  The library goes
 to ``build/kernels/`` at the repository root and is rebuilt whenever the
 sha256 of the sources changes (never by file mtimes, which a checkout
 does not preserve).  A missing ``nvcc`` or a failed build raises: there
@@ -25,10 +26,8 @@ SOURCES = ("segscan.cu", "hamming.cu")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 LIB_NAME = "libaft_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -76,15 +75,28 @@ def build() -> Path:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [str(CSRC / s) for s in SOURCES]
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f".{Path(s).stem}.{os.getpid()}.o" for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    if all(p.returncode == 0 for p in procs):
+        cmds.append([nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)])
+        link = subprocess.run(cmds[-1], capture_output=True, text=True)
+        procs.append(link)
+        outs.append(link.stdout + link.stderr)
     BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.ptxas = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    BuildInfo.ptxas = "".join(outs)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(c, p.returncode) for c, p in zip(cmds, procs) if p.returncode != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{BuildInfo.ptxas}"
+            f"nvcc failed ({failed[0][1]}):\n{' '.join(failed[0][0])}\n{BuildInfo.ptxas}"
         )
     os.replace(tmp, lib_path)
     stamp.write_text(digest)
@@ -105,8 +117,9 @@ def load() -> ctypes.CDLL:
     lib.aft_segscan_min.argtypes = [P, P, I64, I32, P, P]
     lib.aft_segscan_lex.argtypes = [P, P, I64, I32, I32, P, P]
     lib.aft_hamming1.argtypes = [P, I64, P, I64, P, P, P]
+    lib.aft_hamming1_min.argtypes = [P, I64, P, I64, P, P, P]
     for fn in ("aft_segscan_fwd", "aft_segscan_min", "aft_segscan_lex",
-               "aft_hamming1"):
+               "aft_hamming1", "aft_hamming1_min"):
         getattr(lib, fn).restype = I32
     _lib = lib
     return lib

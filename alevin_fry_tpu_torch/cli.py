@@ -1,10 +1,15 @@
-"""Command line of the port: ``generate-permit-list``, ``collate`` and
-``quant``, with the reference's flags (alevin_fry_tpu/cli.py, reference
-src/main.rs) plus ``--device {cuda,cpu}``.
+"""Command line of the port: ``generate-permit-list``, ``collate``,
+``quant`` and the ``atac`` subcommands, with the reference's flags
+(alevin_fry_tpu/cli.py, reference src/main.rs) plus ``--device
+{cuda,cpu}``.
 
     python -m alevin_fry_tpu_torch generate-permit-list -i RAD -d fw -o OUT -u PERMIT.txt
     python -m alevin_fry_tpu_torch collate -i OUT -r RAD
     python -m alevin_fry_tpu_torch quant -i OUT -m T2G.tsv -o QUANT -r cr-like
+    python -m alevin_fry_tpu_torch atac generate-permit-list -i RAD -o OUT -u WL.txt
+    python -m alevin_fry_tpu_torch atac sort -i OUT -r RAD
+    python -m alevin_fry_tpu_torch atac collate -i OUT -r RAD
+    python -m alevin_fry_tpu_torch atac deduplicate -i OUT
 
 The stage JSONs record the command line as ``alevin-fry-tpu <args>``,
 the reference's own form, so either package's artifacts are accepted by
@@ -102,6 +107,30 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--multi-sample-output", choices=["separate", "combined", "both"],
                    default="separate")
     device_flag(q)
+
+    at = sub.add_parser("atac", help="subcommand for processing scATAC-seq RAD files")
+    atsub = at.add_subparsers(dest="atac_command", required=True)
+    ag = atsub.add_parser("generate-permit-list")
+    ag.add_argument("-i", "--input", required=True, type=_existing_dir)
+    ag.add_argument("-o", "--output-dir", required=True, type=Path)
+    ag.add_argument("-t", "--threads", type=int, default=gpl_threads)
+    ag.add_argument("-u", "--unfiltered-pl", required=True, type=_existing_file)
+    ag.add_argument("-m", "--min-reads", type=int, default=10)
+    ag.add_argument("-d", "--permit-bc-ori", choices=["fw", "rc", "FW", "RC"], default="rc")
+    device_flag(ag)
+    for name in ("collate", "sort"):
+        p = atsub.add_parser(name)
+        p.add_argument("-i", "--input-dir", required=True, type=_existing_dir)
+        p.add_argument("-r", "--rad-dir", required=True, type=_existing_dir)
+        p.add_argument("-t", "--threads", type=int, default=collate_threads)
+        p.add_argument("-c", "--compress", action="store_true")
+        p.add_argument("-m", "--max-records", type=int, default=30_000_000)
+        device_flag(p)
+    ad = atsub.add_parser("deduplicate")
+    ad.add_argument("-i", "--input-dir", required=True, type=_existing_dir)
+    ad.add_argument("-t", "--threads", type=int, default=ncpu)
+    ad.add_argument("-d", "--permit-bc-ori", choices=["fw", "rc", "FW", "RC"], default="rc")
+    device_flag(ad)
     return ap
 
 
@@ -204,6 +233,10 @@ def main(argv=None) -> int:
             cmdline,
         )
         return 0
+    if args.command == "atac":
+        from .atac import run as atac_run
+
+        return atac_run.run(args, cmdline, device)
     return _quant(args, cmdline, device)
 
 

@@ -1,6 +1,6 @@
-// Hamming<=1 barcode neighbour search, kernel K4, for Hopper (sm_90a).
+// Hamming<=1 barcode neighbour search, kernels K4 and K5, for Hopper (sm_90a).
 //
-// Replaces the MXU kernel of alevin_fry_tpu/ops/pallas_hamming.py
+// K4 replaces the MXU kernel of alevin_fry_tpu/ops/pallas_hamming.py
 // (_build_mxu_kernel, :145, reached through find_neighbors_mxu :242).  For
 // every query barcode it counts the kept barcodes within Hamming distance 1
 // over the 2-bit base code, and returns the smallest kept index among them
@@ -16,8 +16,9 @@
 //
 // Layout: a block of 256 threads owns 1024 queries, four per thread in
 // registers.  The whole kept table streams through shared memory in tiles of
-// 4096 codes (32 KB), which every thread reads as a broadcast.  Kept codes are
-// visited in ascending index order, so the first hit is the smallest index.
+// 4096 codes (32 KB), which every thread reads as a broadcast.  Each query
+// keeps a running minimum of a key over its neighbours: the kept index (K4)
+// or the kept code (K5), the select policy of the one kernel template.
 // The loop stops at nk: there is no kept padding that could alias a real
 // barcode, and no atomics.
 //
@@ -25,6 +26,18 @@
 // (Q x K pairs; no device-memory traffic beyond one pass over the queries
 // and one pass over the kept table per block).  An int8 one-hot mma version
 // is a later comparison.
+//
+// K5 replaces the brute-force VPU kernel of the same file (_build_kernel, :39,
+// reached through find_neighbors_pallas :371): the same fold and popcount, but
+// it returns the smallest neighbour by unsigned VALUE, so the kept table need
+// not be sorted, and it takes no length: it works on whole 64-bit words.  The
+// TPU kernel split each word into lo / hi u32 halves and tracked the minimum in
+// bias-transformed int32 because Mosaic had no 64-bit or unsigned reductions;
+// here the words and the running minimum are plain unsigned 64-bit registers.
+// The TPU kernel padded the kept table to a multiple of 1024 with the all-C
+// 32-base code, which is itself a barcode within distance 1 of the all-C
+// 31-base one; this loop stops at nk and reads no padding.  It is the K4
+// kernel instantiated with the MinValue policy: same layout, same bound.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -37,21 +50,36 @@ constexpr int kPerThread = 4;
 constexpr int kQueriesPerBlock = kThreads * kPerThread;
 constexpr int kKeptTile = 4096;
 
+// What a kernel keeps of a query's neighbours besides their count: the
+// smallest key(j, k) over every neighbour k at kept index j.
+struct FirstIndex {  // K4: the smallest kept index
+  using T = int;
+  __device__ static T none() { return INT_MAX; }
+  __device__ static T key(long long j, unsigned long long) { return (int)j; }
+};
+struct MinValue {  // K5: the smallest kept code by unsigned value
+  using T = unsigned long long;
+  __device__ static T none() { return ~0ull; }
+  __device__ static T key(long long, unsigned long long k) { return k; }
+};
+
+template <class Sel>
 __global__ void __launch_bounds__(kThreads)
 hamming1_kernel(const unsigned long long* __restrict__ q, long long nq,
                 const unsigned long long* __restrict__ kept, long long nk,
-                int* __restrict__ cnt, int* __restrict__ idx) {
+                int* __restrict__ cnt, typename Sel::T* __restrict__ best_out) {
+  using T = typename Sel::T;
   __shared__ unsigned long long tile[kKeptTile];
   const long long qbase = (long long)blockIdx.x * kQueriesPerBlock + threadIdx.x;
   unsigned long long qv[kPerThread];
   int c[kPerThread];
-  int first[kPerThread];
+  T best[kPerThread];
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
     const long long qi = qbase + (long long)i * kThreads;
     qv[i] = qi < nq ? q[qi] : 0ull;
     c[i] = 0;
-    first[i] = INT_MAX;
+    best[i] = Sel::none();
   }
   for (long long t0 = 0; t0 < nk; t0 += kKeptTile) {
     const int tn = (int)(nk - t0 < kKeptTile ? nk - t0 : kKeptTile);
@@ -60,13 +88,14 @@ hamming1_kernel(const unsigned long long* __restrict__ q, long long nq,
     __syncthreads();
     for (int j = 0; j < tn; ++j) {
       const unsigned long long k = tile[j];
+      const T key = Sel::key(t0 + j, k);
 #pragma unroll
       for (int i = 0; i < kPerThread; ++i) {
         const unsigned long long x = qv[i] ^ k;
         const unsigned long long t = (x | (x >> 1)) & 0x5555555555555555ull;
         if (__popcll(t) <= 1) {
           ++c[i];
-          if (first[i] == INT_MAX) first[i] = (int)(t0 + j);
+          best[i] = key < best[i] ? key : best[i];
         }
       }
     }
@@ -76,7 +105,7 @@ hamming1_kernel(const unsigned long long* __restrict__ q, long long nq,
     const long long qi = qbase + (long long)i * kThreads;
     if (qi < nq) {
       cnt[qi] = c[i];
-      idx[qi] = first[i];
+      best_out[qi] = best[i];
     }
   }
 }
@@ -91,9 +120,21 @@ int aft_hamming1(const void* q, long long nq, const void* kept, long long nk,
                  void* cnt, void* idx, void* stream) {
   if (nq <= 0) return 0;
   const long long blocks = (nq + kQueriesPerBlock - 1) / kQueriesPerBlock;
-  hamming1_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  hamming1_kernel<FirstIndex><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const unsigned long long*)q, nq, (const unsigned long long*)kept, nk,
       (int*)cnt, (int*)idx);
+  return (int)cudaGetLastError();
+}
+
+// K5: cnt[i] as above; rep[i] = smallest such kept code by unsigned value,
+// all ones when cnt[i] == 0.  The kept table may be in any order.
+int aft_hamming1_min(const void* q, long long nq, const void* kept, long long nk,
+                     void* cnt, void* rep, void* stream) {
+  if (nq <= 0) return 0;
+  const long long blocks = (nq + kQueriesPerBlock - 1) / kQueriesPerBlock;
+  hamming1_kernel<MinValue><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const unsigned long long*)q, nq, (const unsigned long long*)kept, nk,
+      (int*)cnt, (unsigned long long*)rep);
   return (int)cudaGetLastError();
 }
 

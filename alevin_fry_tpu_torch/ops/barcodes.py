@@ -6,12 +6,14 @@ highest bits.  Packing and unpacking are host NumPy, as in
 ``alevin_fry_tpu/ops/barcodes.py``.
 
 :func:`find_neighbors` is the unfiltered-permit-list rescue search
-(src/cellfilter.rs:190-233): it always runs kernel K4
-(``ops/hamming.py``) on the device it is given.
+(src/cellfilter.rs:190-233): it runs kernel K4 or K5
+(``ops/hamming.py``) on the device it is given, chosen as the
+reference's dispatcher chooses (``alevin_fry_tpu/ops/barcodes.py``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterable, Tuple
 
 import numpy as np
@@ -67,6 +69,16 @@ def unpack_seqs_to_strings(bcs: np.ndarray, length: int) -> list:
     return [bytes(row).decode() for row in unpack_seqs(bcs, length)]
 
 
+def revcomp_packed(bcs: np.ndarray, length: int) -> np.ndarray:
+    """Reverse-complement 2-bit packed barcodes."""
+    bcs = np.asarray(bcs, np.uint64)
+    out = np.zeros_like(bcs)
+    for i in range(length):
+        comp = ((bcs >> np.uint64(2 * i)) & np.uint64(3)) ^ np.uint64(3)
+        out |= comp << np.uint64(2 * (length - 1 - i))
+    return out
+
+
 def find_neighbors(
     queries: np.ndarray, kept_sorted: np.ndarray, length: int,
     device: torch.device,
@@ -74,10 +86,19 @@ def find_neighbors(
     """For each query barcode: the number of kept barcodes within
     Hamming distance 1 (substitutions, exact match included) and the
     smallest of them (unique where the count is 1, the only case the
-    rescue consumes).  Runs K4 on ``device`` for every non-empty batch."""
-    if len(queries) and len(kept_sorted) and not 2 <= length <= 32:
-        raise NotImplementedError(
-            f"the rescue of {length}-base barcodes needs the brute-force "
-            "kernel K5, which is not ported yet (K4 covers 2..32 bases)"
+    rescue consumes).
+
+    ``AFT_RESCUE_BACKEND`` picks the kernel as it does in the reference:
+    unset, ``auto`` or ``mxu`` runs K4; ``pallas`` runs K5, and so does
+    any barcode length outside K4's 2..32.  The reference's host
+    engines (``host``, ``jax``) are not kernels of the port and raise:
+    its host path is ``--device cpu``."""
+    mode = os.environ.get("AFT_RESCUE_BACKEND") or "auto"
+    if mode not in ("auto", "mxu", "pallas"):
+        raise ValueError(
+            f"AFT_RESCUE_BACKEND={mode!r}: the port's rescue runs kernel K4 "
+            "('auto', 'mxu') or K5 ('pallas'); its host path is --device cpu"
         )
+    if mode == "pallas" or not 2 <= length <= 32:
+        return hamming.find_neighbors_brute(queries, kept_sorted, device)
     return hamming.find_neighbors(queries, kept_sorted, length, device)

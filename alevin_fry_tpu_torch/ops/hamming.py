@@ -1,17 +1,24 @@
-"""Hamming<=1 barcode neighbour search, kernel K4.
+"""Hamming<=1 barcode neighbour search, kernels K4 and K5.
 
 For every query barcode: how many kept barcodes lie within Hamming
-distance 1 over the 2-bit base code, and the smallest kept index among
-them — the contract of
-``alevin_fry_tpu/ops/pallas_hamming.py::find_neighbors_mxu``, which the
-unfiltered-permit-list rescue consumes.
+distance 1 over the 2-bit base code, and the smallest of them — the
+input of the unfiltered-permit-list rescue.
 
-:func:`neighbor_counts` launches the hand-written CUDA kernel
-(``csrc/hamming.cu``: XOR, 2-bit fold, popcount) for CUDA tensors, and
-its plain PyTorch twin :func:`neighbor_counts_twin` for CPU tensors.
-The twin is the TPU formulation: a chunked float32 one-hot matmul,
-exact because every match count is at most 32.  ``LAUNCHES`` counts the
-kernel launches.
+* K4 :func:`neighbor_counts` returns the smallest kept *index* of a
+  sorted kept table, for 2..32-base barcodes — the contract of
+  ``alevin_fry_tpu/ops/pallas_hamming.py::find_neighbors_mxu``.  Its
+  twin :func:`neighbor_counts_twin` is the TPU formulation: a chunked
+  float32 one-hot matmul, exact because every match count is at most 32.
+* K5 :func:`neighbor_counts_brute` returns the smallest kept *value* by
+  unsigned order, over whole 64-bit words of any length and a kept
+  table in any order — the contract of ``find_neighbors_pallas``.  Its
+  twin :func:`neighbor_counts_brute_twin` is chunked int64 XOR and 2-bit
+  fold, with "at most one bit set" as ``t & (t - 1) == 0``.
+
+Both are one hand-written CUDA kernel template (``csrc/hamming.cu``:
+XOR, 2-bit fold, popcount) with two select policies.  A wrapper launches its kernel for CUDA tensors and
+runs its twin only for CPU tensors.  ``LAUNCHES`` counts the kernel
+launches.
 """
 
 from __future__ import annotations
@@ -20,14 +27,19 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from ..interop import barcodes_to_torch
+from ..interop import barcodes_from_torch, barcodes_to_torch
 
 I32_MAX = (1 << 31) - 1
-LAUNCHES = {"K4": 0}
+I64_MIN = -(1 << 63)
+I64_MAX = (1 << 63) - 1
+# the 2-bit fold's mask: one bit per base, bit 63 clear
+_FOLD = 0x5555555555555555
+LAUNCHES = {"K4": 0, "K5": 0}
 
-# the twin's (query chunk x kept) match block stays under this many
-# elements, so the one-hot matmul never needs the whole (Q, K) field
+# the twins' (query chunk x kept) blocks stay under this many elements,
+# so neither ever needs the whole (Q, K) field
 _TWIN_BLOCK_ELEMS = 1 << 26
+_BRUTE_TWIN_BLOCK_ELEMS = 1 << 24
 
 
 def _onehot(codes: torch.Tensor, length: int) -> torch.Tensor:
@@ -61,22 +73,30 @@ def neighbor_counts_twin(queries: torch.Tensor, kept: torch.Tensor, length: int)
     return cnt, idx
 
 
+def _check_codes(key: str, queries: torch.Tensor, kept: torch.Tensor) -> bool:
+    """Validate a kernel's inputs; True when they lie on the CPU (the
+    twin's case), False for contiguous CUDA tensors on one device."""
+    if queries.dtype != torch.int64 or kept.dtype != torch.int64:
+        raise TypeError(f"{key} takes int64 2-bit codes")
+    if queries.dim() != 1 or kept.dim() != 1:
+        raise ValueError(f"{key} takes 1-D query and kept tensors")
+    if queries.device.type == "cpu":
+        return True
+    if (queries.device.type != "cuda" or kept.device != queries.device
+            or not (queries.is_contiguous() and kept.is_contiguous())):
+        raise ValueError(f"{key} takes contiguous CUDA tensors on one device")
+    if len(kept) >= I32_MAX:
+        raise ValueError(f"{key} counts kept codes with int32")
+    return False
+
+
 def neighbor_counts(queries: torch.Tensor, kept: torch.Tensor, length: int):
     """K4 on int64 2-bit codes (``kept`` in ascending unsigned order):
     (count, smallest kept index) per query, both int32."""
     if not 2 <= length <= 32:
         raise ValueError("K4 takes 2..32-base barcodes")
-    if queries.dtype != torch.int64 or kept.dtype != torch.int64:
-        raise TypeError("K4 takes int64 2-bit codes")
-    if queries.dim() != 1 or kept.dim() != 1:
-        raise ValueError("K4 takes 1-D query and kept tensors")
-    if queries.device.type == "cpu":
+    if _check_codes("K4", queries, kept):
         return neighbor_counts_twin(queries, kept, length)
-    if (queries.device.type != "cuda" or kept.device != queries.device
-            or not (queries.is_contiguous() and kept.is_contiguous())):
-        raise ValueError("K4 takes contiguous CUDA tensors on one device")
-    if len(kept) >= I32_MAX:
-        raise ValueError("K4 indexes the kept table with int32")
     lib = _kernels.load()
     nq, nk = len(queries), len(kept)
     cnt = torch.empty(nq, dtype=torch.int32, device=queries.device)
@@ -90,9 +110,66 @@ def neighbor_counts(queries: torch.Tensor, kept: torch.Tensor, length: int):
     return cnt, idx
 
 
+def neighbor_counts_brute_twin(queries: torch.Tensor, kept: torch.Tensor):
+    """Plain PyTorch K5: (count int32, smallest neighbour by unsigned
+    value as int64 bits, all ones where the count is 0) per query.  The
+    arithmetic ``>> 1`` of a word with bit 63 set is harmless: the fold
+    mask clears bit 63.  The unsigned minimum is a signed minimum of the
+    words with bit 63 flipped."""
+    nq, nk = len(queries), len(kept)
+    cnt = torch.zeros(nq, dtype=torch.int32, device=queries.device)
+    rep = torch.full((nq,), -1, dtype=torch.int64, device=queries.device)
+    if nq == 0 or nk == 0:
+        return cnt, rep
+    flipped = kept ^ I64_MIN
+    step = max(1, _BRUTE_TWIN_BLOCK_ELEMS // nk)
+    for s in range(0, nq, step):
+        x = queries[s:s + step, None] ^ kept[None, :]
+        t = (x | (x >> 1)) & _FOLD
+        near = (t & (t - 1)) == 0
+        cnt[s:s + step] = near.sum(1, dtype=torch.int32)
+        rep[s:s + step] = torch.where(near, flipped, I64_MAX).amin(1) ^ I64_MIN
+    return cnt, rep
+
+
+def neighbor_counts_brute(queries: torch.Tensor, kept: torch.Tensor):
+    """K5 on int64 codes (``kept`` in any order, any barcode length):
+    (count int32, smallest neighbour by unsigned value as int64 bits,
+    all ones where the count is 0) per query."""
+    if _check_codes("K5", queries, kept):
+        return neighbor_counts_brute_twin(queries, kept)
+    lib = _kernels.load()
+    nq, nk = len(queries), len(kept)
+    cnt = torch.empty(nq, dtype=torch.int32, device=queries.device)
+    rep = torch.empty(nq, dtype=torch.int64, device=queries.device)
+    if nq:
+        _kernels.check(lib.aft_hamming1_min(
+            queries.data_ptr(), nq, kept.data_ptr(), nk, cnt.data_ptr(),
+            rep.data_ptr(), _kernels.stream_of(queries),
+        ), "K5 hamming1_min")
+        LAUNCHES["K5"] += 1
+    return cnt, rep
+
+
+def find_neighbors_brute(queries: np.ndarray, kept: np.ndarray, device: torch.device):
+    """Rescue search on ``device`` through K5: (neighbour counts int64,
+    smallest neighbour uint64 where the count is >= 1, else 0)."""
+    queries = np.asarray(queries, np.uint64)
+    kept = np.asarray(kept, np.uint64)
+    nq = len(queries)
+    if nq == 0 or len(kept) == 0:
+        return np.zeros(nq, np.int64), np.zeros(nq, np.uint64)
+    cnt, rep = neighbor_counts_brute(
+        barcodes_to_torch(queries).to(device), barcodes_to_torch(kept).to(device)
+    )
+    cnt = cnt.cpu().numpy().astype(np.int64)
+    rep = barcodes_from_torch(rep)
+    return cnt, np.where(cnt > 0, rep, np.uint64(0))
+
+
 def find_neighbors(queries: np.ndarray, kept_sorted: np.ndarray, length: int,
                    device: torch.device):
-    """Rescue search on ``device``: (neighbour counts int64, smallest
+    """Rescue search on ``device`` through K4: (neighbour counts int64, smallest
     neighbour uint64 where the count is >= 1, else 0)."""
     queries = np.asarray(queries, np.uint64)
     kept_sorted = np.sort(np.asarray(kept_sorted, np.uint64))

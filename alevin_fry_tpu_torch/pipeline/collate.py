@@ -1,5 +1,5 @@
 """collate: group reads by corrected cell barcode (port of
-``alevin_fry_tpu/pipeline/collate.py``, single host, in memory).
+``alevin_fry_tpu/pipeline/collate.py``, single host).
 
 Barcodes correct through the permit map; alignments off the expected
 orientation drop, and reads left without alignments drop.  The
@@ -8,6 +8,13 @@ count, src/collate.rs:180-182) with a stable ``torch.sort`` on the
 chosen device.  The byte-level path then gathers whole records with
 the native codec; where that codec does not load, a columnar
 path decodes, reorders and re-encodes the records instead.
+
+When the records exceed ``--max-records`` the collation goes out of
+core (src/collate.rs:584-905): corrected records spill to buckets of
+consecutive cell ranks, each at most ``max_records`` records, and each
+bucket is then ordered on the device and gathered byte-wise.  The ATAC
+collation (``atac/collate.py``) shares the byte-level and out-of-core
+paths, keyed by barcode alone.
 
 Writes the reference's artifacts: ``map.collated.rad`` (one chunk per
 cell), ``unmapped_bc_count_collated.bin`` and ``collate.json``.
@@ -28,15 +35,22 @@ from ..radz import (
 from ..radz import _native
 from ..radz import unmapped as unmappedio
 from ..radz.chunkio import (
-    ReadBatch, _gather_uint, decode_all_chunks, read_chunk_bodies, write_cell_chunks,
+    ReadBatch, _gather_uint, _walk_records_py, decode_all_chunks, encode_records,
+    iter_decoded_blocks, read_chunk_bodies, write_cell_chunks,
 )
 from ..radz.records import RecordSchema
 
 from .. import __version__
+from ..device import refuse_multi_process
 from ..utils import aln_strand_mask, check_version_compat, record_layout, write_json
 from .logging_ import get_logger
+from .progress import stage_timer
 
 log = get_logger("collate")
+
+# reads per streamed block of the out-of-core scatter; smaller than a
+# spill bucket, so decoding stays light while buckets stay large
+COLLATE_BLOCK_RECORDS = 4_000_000
 
 
 def _lookup_map(keys_sorted: np.ndarray, vals: np.ndarray, query: np.ndarray):
@@ -84,27 +98,31 @@ def collation_order(ranks: np.ndarray, n_cells: int, device: torch.device):
     return both[: len(ranks)], both[len(ranks):]
 
 
-def _check_record_type(prelude, ftm) -> None:
+def _check_record_type(prelude, ftm, expect_atac: bool = False) -> None:
     rec_type, _info = record_type_from_prelude(prelude, ftm)
-    if rec_type == KnownRecordType.ATAC:
+    if (rec_type == KnownRecordType.ATAC) != expect_atac:
         raise ValueError(
             'To process atac-seq data, you should use the "atac" sub-command'
+            if rec_type == KnownRecordType.ATAC
+            else "the atac collate sub-command requires an ATAC RAD file"
         )
 
 
 def _collate_in_memory_native(
     input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori,
-    device,
+    device, expect_atac: bool = False,
 ) -> bool:
     """Byte-level collation: walk record boundaries, correct barcodes,
     then gather whole records in cell-rank order with the barcode
     patched in place and alignments orientation-filtered, in one native
-    pass.  Returns False when the schema is not eligible."""
+    pass.  Returns False when the schema is not eligible.  The ATAC
+    collation (``expect_atac``, ``expected_ori='.'``) is the same
+    gather keyed by barcode alone (atac/collate.rs:586-595)."""
     if not _native.available():
         return False
     with open(rad_dir / "map.rad", "rb") as fh:
         prelude, ftm, _ = read_prelude(fh)
-        _check_record_type(prelude, ftm)
+        _check_record_type(prelude, ftm, expect_atac)
         schema = RecordSchema.from_prelude(prelude)
         ori_mode = {"both": 0, ".": 0, "fw": 1, "+": 1, "rc": 2, "-": 2}.get(expected_ori)
         if ori_mode is None or schema.ref_field is None:
@@ -112,6 +130,8 @@ def _collate_in_memory_native(
         if ori_mode != 0 and dict(schema.aln_fields)[schema.ref_field] != 4:
             return False
         bc_off, bc_width, ref_off = record_layout(schema)
+        # ATAC headers may hold num_chunks = 0 (atac/collate.rs:212):
+        # None streams to EOF
         buf, region_starts, chunk_recs = read_chunk_bodies(fh, prelude.hdr.num_chunks or None)
     rec_starts, num_aln = _native.walk_records(
         buf, region_starts, chunk_recs, schema.read_bytes, schema.aln_bytes
@@ -179,15 +199,16 @@ def _collate_in_memory_native(
 
 def _collate_columnar(
     input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori,
-    device,
+    device, expect_atac: bool = False,
 ) -> None:
     """Columnar collation: decode every record, reorder the columns by
-    cell rank, re-encode one chunk per cell."""
+    cell rank, re-encode one chunk per cell.  Reads left without
+    alignments drop, as in the byte-level path."""
     with open(rad_dir / "map.rad", "rb") as fh:
         prelude, ftm, _ = read_prelude(fh)
-        _check_record_type(prelude, ftm)
+        _check_record_type(prelude, ftm, expect_atac)
         schema = RecordSchema.from_prelude(prelude)
-        batch = decode_all_chunks(fh, schema, prelude.hdr.num_chunks)
+        batch = decode_all_chunks(fh, schema, prelude.hdr.num_chunks or None)
     log.info(
         "collating %d reads across %d chunks into %d cells",
         batch.n_reads, prelude.hdr.num_chunks, len(cell_bcs),
@@ -240,40 +261,179 @@ def _collate_columnar(
     log.info("finished collating input rad file; wrote %d cell chunks", n_written)
 
 
-def collate(
-    input_dir: Path,
-    rad_dir: Path,
-    device: torch.device,
-    max_records: int = 30_000_000,
-    compress_out: bool = False,
-    cmdline: str = "",
-    version: str = __version__,
-) -> None:
-    input_dir = Path(input_dir)
-    rad_dir = Path(rad_dir)
-    mdata = check_version_compat(version, input_dir / "generate_permit_list.json")
-    if mdata.get("multi_barcode"):
-        raise NotImplementedError("multi-barcode (Flex) collation is not ported yet")
-    if compress_out:
-        raise NotImplementedError("compressed collate output is not ported yet")
-    if mdata.get("velo_mode"):
-        raise NotImplementedError("velocity mode is not ported yet")
+def _gather_bucket_payload(rec_bytes, ranks, schema, n_cells, device):
+    """One spill bucket's final bytes: its re-encoded records in stable
+    cell-rank order (ordered on ``device``), an 8-byte chunk header in
+    front of each cell.  Returns (bytes, number of chunks)."""
+    if _native.available():
+        rec_starts, num_aln = _native.walk_records(
+            rec_bytes, np.asarray([0], np.int64), np.asarray([len(ranks)], np.int64),
+            schema.read_bytes, schema.aln_bytes,
+        )
+    else:
+        rec_starts, num_aln = _walk_records_py(
+            rec_bytes, [0], [len(ranks)], schema.read_bytes, schema.aln_bytes,
+        )
+    sizes = 4 + schema.read_bytes + num_aln * schema.aln_bytes
+    order, _per_cell = collation_order(ranks.astype(np.int64), n_cells, device)
+    out_sizes = sizes[order]
+    rs = ranks[order]
+    newc = np.ones(len(rs), bool)
+    newc[1:] = rs[1:] != rs[:-1]
+    starts = np.flatnonzero(newc)
+    ends = np.append(starts[1:], len(rs))
+    dst = np.zeros(len(order) + 1, np.int64)
+    np.cumsum(out_sizes, out=dst[1:])
+    rec_dst = dst[:-1] + 8 * np.cumsum(newc)
+    out_buf = np.empty(int(dst[-1]) + 8 * len(starts), np.uint8)
+    if _native.available():
+        _native.gather_records(rec_bytes, rec_starts, sizes, order, rec_dst, out_buf)
+    else:
+        within = np.arange(int(dst[-1])) - np.repeat(dst[:-1], out_sizes)
+        out_buf[np.repeat(rec_dst, out_sizes) + within] = rec_bytes[
+            np.repeat(rec_starts[order], out_sizes) + within
+        ]
+    # chunk headers: [nbytes:u32][nrec:u32] in front of each cell
+    hdr_pos = rec_dst[starts] - 8
+    for field, off in (((dst[ends] - dst[starts] + 8), 0), ((ends - starts), 4)):
+        le = field.astype("<u4").view(np.uint8).reshape(-1, 4)
+        for k in range(4):
+            out_buf[hdr_pos + off + k] = le[:, k]
+    return out_buf, len(starts)
 
-    # permit_freq.bin -> cells ordered by descending read count
+
+def _gather_rank_buckets(out_path, spill_dir, n_buckets, schema, prelude, ftm,
+                         n_cells, device) -> int:
+    """Gather phase of the spill-bucket collation: order each bucket by
+    cell rank and append one chunk per cell to ``out_path``; the
+    header's chunk count is patched at the end.  Returns the number of
+    chunks written."""
+    n_written = 0
+    with open(out_path, "wb") as sink:
+        prelude.hdr.num_chunks = 0
+        nc_pos = prelude.write(sink)
+        prelude.write_file_tag_values(sink, ftm)
+        for b in range(n_buckets):
+            rec_bytes = np.fromfile(spill_dir / f"bucket_{b}.rec", np.uint8)
+            ranks = np.fromfile(spill_dir / f"bucket_{b}.rank", np.uint32)
+            if len(ranks):
+                out_buf, n_chunks = _gather_bucket_payload(
+                    rec_bytes, ranks, schema, n_cells, device
+                )
+                sink.write(memoryview(out_buf.data))
+                n_written += n_chunks
+            (spill_dir / f"bucket_{b}.rec").unlink()
+            (spill_dir / f"bucket_{b}.rank").unlink()
+        sink.seek(nc_pos)
+        sink.write(struct.pack("<Q", n_written))
+    return n_written
+
+
+def _collate_out_of_core(
+    input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori,
+    max_records, device, expect_atac: bool = False,
+) -> None:
+    """Bounded-memory collation (src/collate.rs:584-905): scatter the
+    corrected records, re-encoded once, into spill buckets of
+    consecutive cell ranks holding at most ``max_records`` records
+    each, then gather every bucket with one in-memory ordering.  Shared
+    with the ATAC collation (``expect_atac``, ``expected_ori='.'``)."""
+    with open(rad_dir / "map.rad", "rb") as fh:
+        prelude, ftm, _ = read_prelude(fh)
+        _check_record_type(prelude, ftm, expect_atac)
+        schema = RecordSchema.from_prelude(prelude)
+        # bucket b holds the ranks whose cumulative count starts in
+        # [b * max_records, (b + 1) * max_records)
+        csum = np.zeros(len(cell_cts) + 1, np.int64)
+        np.cumsum(cell_cts.astype(np.int64), out=csum[1:])
+        bucket_of_rank = csum[:-1] // max_records
+        n_buckets = int(bucket_of_rank[-1]) + 1 if len(cell_cts) else 1
+        log.info(
+            "out-of-core collation: %d records into %d spill buckets",
+            int(csum[-1]), n_buckets,
+        )
+        sort_perm = np.argsort(cell_bcs, kind="stable")
+        cell_sorted = cell_bcs[sort_perm]
+        spill_dir = input_dir / "_collate_tmp"
+        spill_dir.mkdir(exist_ok=True)
+        files = [
+            (open(spill_dir / f"bucket_{b}.rec", "wb"),
+             open(spill_dir / f"bucket_{b}.rank", "wb"))
+            for b in range(n_buckets)
+        ]
+        try:
+            with stage_timer(log, "collate scatter", "reads") as pb:
+                # ATAC headers may hold num_chunks = 0: None streams to EOF
+                for batch in iter_decoded_blocks(
+                    fh, schema, prelude.hdr.num_chunks or None,
+                    min(max_records, COLLATE_BLOCK_RECORDS), prefetch=True,
+                ):
+                    pb.update(batch.n_reads)
+                    _scatter_block(batch, schema, map_keys, map_vals, expected_ori,
+                                   sort_perm, cell_sorted, bucket_of_rank, files)
+            for rf, kf in files:
+                rf.close()
+                kf.close()
+            n_written = _gather_rank_buckets(
+                input_dir / "map.collated.rad", spill_dir, n_buckets, schema,
+                prelude, ftm, len(cell_bcs), device,
+            )
+        finally:
+            for rf, kf in files:
+                rf.close()
+                kf.close()
+            for p in spill_dir.glob("bucket_*"):
+                p.unlink(missing_ok=True)
+            spill_dir.rmdir()
+    log.info("finished out-of-core collation; wrote %d cell chunks", n_written)
+
+
+def _scatter_block(batch, schema, map_keys, map_vals, expected_ori, sort_perm,
+                   cell_sorted, bucket_of_rank, files) -> None:
+    """Correct and filter one decoded block and append its records,
+    re-encoded, and their cell ranks to the spill buckets."""
+    corrected, keep_read, keep_aln, new_offsets = correct_and_filter(
+        batch, map_keys, map_vals, expected_ori
+    )
+    kept = np.flatnonzero(keep_read)
+    if len(kept) == 0:
+        return
+    rank = sort_perm[np.searchsorted(cell_sorted, corrected[keep_read])]
+    read_cols = {k: v[kept] for k, v in batch.read_cols.items()}
+    read_cols[schema.barcode_fields[-1]] = corrected[keep_read]
+    refs, dirs = batch.refs[keep_aln], batch.dirs[keep_aln]
+    aln_cols = {k: v[keep_aln] for k, v in batch.aln_cols.items()}
+    bmask = bucket_of_rank[rank]
+    nal = np.diff(new_offsets)
+    for b in np.unique(bmask):
+        sel = np.flatnonzero(bmask == b)
+        offs = np.zeros(len(sel) + 1, np.int64)
+        np.cumsum(nal[sel], out=offs[1:])
+        gather = np.repeat(new_offsets[:-1][sel], nal[sel]) + (
+            np.arange(int(offs[-1])) - np.repeat(offs[:-1], nal[sel])
+        )
+        body = encode_records(
+            schema, {k: v[sel] for k, v in read_cols.items()}, offs,
+            refs[gather], dirs[gather], {k: v[gather] for k, v in aln_cols.items()},
+        )
+        files[int(b)][0].write(memoryview(body.data))
+        files[int(b)][1].write(rank[sel].astype(np.uint32).tobytes())
+
+
+def _read_cells_and_map(input_dir: Path):
+    """The permit list's cells by descending read count (ties by
+    barcode) with their counts, and the correction map's keys and
+    values."""
     _bclen, freq_bc, freq_ct = bincodeio.read_permit_freq(input_dir / "permit_freq.bin")
     order = np.lexsort((freq_bc, -freq_ct.astype(np.int64)))
-    cell_bcs = freq_bc[order]
-    cell_cts = freq_ct[order]
-    total_to_collate = int(freq_ct.sum())
-    if total_to_collate > max_records:
-        raise NotImplementedError(
-            f"out-of-core collation ({total_to_collate} records > "
-            f"--max-records {max_records}) is not ported yet"
-        )
-    expected_ori = mdata["expected_ori"]
     map_keys, map_vals = bincodeio.read_u64_map_file(input_dir / "permit_map.bin")
     log.info("deserialized correction map of length: %d", len(map_keys))
+    return freq_bc[order], freq_ct[order], map_keys, map_vals
 
+
+def _write_collate_sidecars(input_dir, rad_dir, map_keys, map_vals, cmdline, version):
+    """``unmapped_bc_count_collated.bin`` (the unmapped-read counts per
+    corrected barcode) and ``collate.json``."""
     bcs_u, cts_u = unmappedio.read_raw_unmapped(rad_dir / "unmapped_bc_count.bin")
     cb = np.zeros(0, np.uint64)
     agg = np.zeros(0, np.uint64)
@@ -288,12 +448,43 @@ def collate(
     write_json(input_dir / "collate.json", {
         "cmd": cmdline,
         "version_str": version,
-        "compressed_output": compress_out,
+        "compressed_output": False,
     })
 
-    args = (
-        input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori,
-        device,
-    )
-    if not _collate_in_memory_native(*args):
-        _collate_columnar(*args)
+
+def collate(
+    input_dir: Path,
+    rad_dir: Path,
+    device: torch.device,
+    max_records: int = 30_000_000,
+    compress_out: bool = False,
+    cmdline: str = "",
+    version: str = __version__,
+) -> None:
+    input_dir = Path(input_dir)
+    rad_dir = Path(rad_dir)
+    mdata = check_version_compat(version, input_dir / "generate_permit_list.json")
+    refuse_multi_process()
+    if mdata.get("multi_barcode"):
+        raise NotImplementedError("multi-barcode (Flex) collation is not ported yet")
+    if compress_out:
+        raise NotImplementedError("compressed collate output is not ported yet")
+    if mdata.get("velo_mode"):
+        raise NotImplementedError("velocity mode is not ported yet")
+
+    collate_cells(input_dir, rad_dir, mdata["expected_ori"], device, max_records,
+                  cmdline, version)
+
+
+def collate_cells(input_dir, rad_dir, expected_ori, device, max_records, cmdline,
+                  version, expect_atac: bool = False) -> None:
+    """The collation proper, shared with ``atac collate``: the sidecars,
+    then the out-of-core path beyond ``max_records`` records, else the
+    byte-level path, else the columnar one."""
+    cell_bcs, cell_cts, map_keys, map_vals = _read_cells_and_map(input_dir)
+    _write_collate_sidecars(input_dir, rad_dir, map_keys, map_vals, cmdline, version)
+    args = (input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori)
+    if int(cell_cts.sum()) > max_records:
+        _collate_out_of_core(*args, max_records, device, expect_atac)
+    elif not _collate_in_memory_native(*args, device, expect_atac):
+        _collate_columnar(*args, device, expect_atac)

@@ -208,31 +208,25 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
     )
 
 
-def _process_unfiltered(
-    opts: GenPermitListOpts,
+def rescue_and_write(
+    wl_sorted: np.ndarray,
     uniq: np.ndarray,
     counts: np.ndarray,
     bclen: int,
+    min_reads: int,
     num_reads: int,
-    max_ambig: int,
+    device: torch.device,
     out_dir: Path,
 ) -> int:
-    """Keep permit-list barcodes with >= min_reads reads; rescue every
+    """Keep the whitelisted barcodes (``wl_sorted``, unique) of the
+    histogram ``uniq``/``counts`` with >= min_reads reads; rescue every
     other observed barcode that has a unique Hamming-1 kept neighbour
-    (src/cellfilter.rs:105-333)."""
-    wl, first_bclen = read_barcode_file(opts.fmeth.path)
-    if first_bclen != bclen:
-        log.warning(
-            "provided permit list has barcodes of length %d but mapped reads "
-            "have barcodes of length %d", first_bclen, bclen,
-        )
-    wl_sorted = np.unique(wl)
+    (src/cellfilter.rs:105-333, shared by the ATAC gpl); write
+    permit_freq.bin and permit_map.bin.  Returns the number of distinct
+    corrected barcodes."""
     log.info("number of unfiltered bcs read = %d", len(wl_sorted))
-
-    idx = np.searchsorted(wl_sorted, uniq)
-    idx_c = np.minimum(idx, max(len(wl_sorted) - 1, 0))
-    in_wl = (len(wl_sorted) > 0) & (idx < len(wl_sorted)) & (wl_sorted[idx_c] == uniq)
-
+    idx = np.minimum(np.searchsorted(wl_sorted, uniq), max(len(wl_sorted) - 1, 0))
+    in_wl = wl_sorted[idx] == uniq if len(wl_sorted) else np.zeros(len(uniq), bool)
     matched_bc, matched_ct = uniq[in_wl], counts[in_wl]
     unmatched_bc, unmatched_ct = uniq[~in_wl], counts[~in_wl]
     num_unmatched_reads = int(unmatched_ct.sum())
@@ -251,7 +245,7 @@ def _process_unfiltered(
 
     # barcodes below min_reads join the unmatched pool for the rescue
     # (src/cellfilter.rs:124-156)
-    keep = matched_ct >= int(opts.fmeth.min_reads)
+    keep = matched_ct >= int(min_reads)
     kept_bc = matched_bc[keep]
     kept_ct = matched_ct[keep].copy()
     log.info("num_passing = %d", len(kept_bc))
@@ -261,7 +255,7 @@ def _process_unfiltered(
     order = np.argsort(rescue_bc, kind="stable")
     rescue_bc, rescue_ct = rescue_bc[order], rescue_ct[order]
 
-    ncounts, reps = bcops.find_neighbors(rescue_bc, kept_bc, bclen, opts.device)
+    ncounts, reps = bcops.find_neighbors(rescue_bc, kept_bc, bclen, device)
     # a unique single-mismatch neighbour that is not the barcode itself
     rescued = (ncounts == 1) & (reps != rescue_bc)
     num_corrected = int(rescued.sum())
@@ -280,6 +274,31 @@ def _process_unfiltered(
         out_dir / "permit_map.bin",
         np.concatenate([kept_bc, rescue_bc[rescued]]),
         np.concatenate([kept_bc, reps[rescued]]),
+    )
+    return num_corrected
+
+
+def _process_unfiltered(
+    opts: GenPermitListOpts,
+    uniq: np.ndarray,
+    counts: np.ndarray,
+    bclen: int,
+    num_reads: int,
+    max_ambig: int,
+    out_dir: Path,
+) -> int:
+    """Keep permit-list barcodes with >= min_reads reads; rescue every
+    other observed barcode that has a unique Hamming-1 kept neighbour
+    (src/cellfilter.rs:105-333)."""
+    wl, first_bclen = read_barcode_file(opts.fmeth.path)
+    if first_bclen != bclen:
+        log.warning(
+            "provided permit list has barcodes of length %d but mapped reads "
+            "have barcodes of length %d", first_bclen, bclen,
+        )
+    num_corrected = rescue_and_write(
+        np.unique(wl), uniq, counts, bclen, opts.fmeth.min_reads, num_reads,
+        opts.device, out_dir,
     )
     write_json(out_dir / "generate_permit_list.json", {
         "velo_mode": False,

@@ -130,6 +130,30 @@ def _load():
             ctypes.c_void_p, ctypes.c_int64,   # queries, n_q
             ctypes.c_void_p, ctypes.c_void_p,  # hit_out, val_out
         ]
+        lib.radc_encode_records.restype = ctypes.c_int64
+        lib.radc_encode_records.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64,   # buf, len
+            ctypes.c_void_p, ctypes.c_int64,   # rec_starts, n_recs
+            ctypes.c_void_p,                   # num_aln
+            ctypes.c_void_p, ctypes.c_int64,   # read_widths, n
+            ctypes.c_void_p, ctypes.c_int64,   # aln_widths, n
+            ctypes.c_void_p, ctypes.c_void_p,  # read_cols**, aln_cols**
+        ]
+        lib.radc_format_bed.restype = ctypes.c_int64
+        lib.radc_format_bed.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,  # name_bytes, name_offs
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # chrs, starts, ends
+            ctypes.c_void_p, ctypes.c_int64,   # bcs, bc_len
+            ctypes.c_void_p, ctypes.c_int64,   # counts, n
+            ctypes.c_void_p, ctypes.c_int32,   # out, n_threads
+        ]
+        lib.radc_gather_records.restype = None
+        lib.radc_gather_records.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,  # buf, rec_starts
+            ctypes.c_void_p, ctypes.c_void_p,  # sizes, order
+            ctypes.c_int64, ctypes.c_void_p,   # n, dst_off
+            ctypes.c_void_p, ctypes.c_int32,   # out, n_threads
+        ]
         _LIB = lib
     except OSError:
         _LIB = None
@@ -407,3 +431,78 @@ def format_triplets(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray) -> byt
         out.ctypes.data,
     )
     return out[:ln].tobytes()
+
+
+def encode_records_native(
+    out_buf: np.ndarray,
+    rec_starts: np.ndarray,
+    num_aln: np.ndarray,
+    read_widths,
+    aln_widths,
+    read_cols,
+    aln_cols,
+) -> None:
+    """Encode columnar records into ``out_buf`` at ``rec_starts``."""
+    lib = _load()
+    rw = np.asarray(read_widths, np.int64)
+    aw = np.asarray(aln_widths, np.int64)
+    rec_starts = np.ascontiguousarray(rec_starts, np.int64)
+    num_aln = np.ascontiguousarray(num_aln, np.int64)
+    read_cols = [np.ascontiguousarray(c, np.uint64) for c in read_cols]
+    aln_cols = [np.ascontiguousarray(c, np.uint64) for c in aln_cols]
+    rc = lib.radc_encode_records(
+        out_buf.ctypes.data, out_buf.nbytes,
+        rec_starts.ctypes.data, len(rec_starts), num_aln.ctypes.data,
+        rw.ctypes.data, len(rw), aw.ctypes.data, len(aw),
+        _col_ptrs(read_cols), _col_ptrs(aln_cols),
+    )
+    if rc < 0:
+        raise ValueError("record encoding overran the buffer")
+
+
+def format_bed(
+    ref_names, chrs, starts, ends, bcs, bc_len: int, counts, n_threads: int = 1
+) -> bytes:
+    """Render ``chr\tstart\tend\tbarcode\tcount`` BED rows natively;
+    ``ref_names`` is a sequence of str."""
+    lib = _load()
+    encoded = [s.encode() for s in ref_names]
+    name_offs = np.zeros(len(encoded) + 1, np.int64)
+    np.cumsum([len(s) for s in encoded], out=name_offs[1:])
+    name_bytes = b"".join(encoded)
+    nb = np.frombuffer(name_bytes, np.uint8) if name_bytes else np.zeros(1, np.uint8)
+    chrs = np.ascontiguousarray(chrs, np.int64)
+    starts = np.ascontiguousarray(starts, np.int64)
+    ends = np.ascontiguousarray(ends, np.int64)
+    bcs = np.ascontiguousarray(bcs, np.uint64)
+    counts = np.ascontiguousarray(counts, np.int64)
+    n = len(chrs)
+    max_name = int(np.diff(name_offs).max()) if len(encoded) else 0
+    out = np.empty(n * (max_name + bc_len + 65), np.uint8)
+    w = lib.radc_format_bed(
+        nb.ctypes.data, name_offs.ctypes.data,
+        chrs.ctypes.data, starts.ctypes.data, ends.ctypes.data,
+        bcs.ctypes.data, bc_len, counts.ctypes.data, n,
+        out.ctypes.data, n_threads,
+    )
+    return out[:w].tobytes()
+
+
+def gather_records(
+    buf: np.ndarray, rec_starts: np.ndarray, sizes: np.ndarray,
+    order: np.ndarray, dst_off: np.ndarray, out: np.ndarray,
+) -> None:
+    """``out[dst_off[i]:][:sizes[order[i]]]`` = the bytes of record
+    ``order[i]`` (threaded memcpy gather)."""
+    lib = _load()
+    # locals keep every converted buffer alive through the call
+    buf = np.ascontiguousarray(buf, np.uint8)
+    rec_starts = np.ascontiguousarray(rec_starts, np.int64)
+    sizes = np.ascontiguousarray(sizes, np.int64)
+    order = np.ascontiguousarray(order, np.int64)
+    dst_off = np.ascontiguousarray(dst_off, np.int64)
+    lib.radc_gather_records(
+        buf.ctypes.data, rec_starts.ctypes.data, sizes.ctypes.data,
+        order.ctypes.data, len(order), dst_off.ctypes.data, out.ctypes.data,
+        _NTHREADS,
+    )

@@ -41,6 +41,17 @@ def read_u64_map(fh: BinaryIO) -> Tuple[np.ndarray, np.ndarray]:
     return raw[0::2].copy(), raw[1::2].copy()
 
 
+def write_u64_vec(fh: BinaryIO, vals: np.ndarray) -> None:
+    vals = np.asarray(vals, np.uint64)
+    fh.write(struct.pack("<Q", len(vals)))
+    fh.write(vals.tobytes())
+
+
+def read_u64_vec(fh: BinaryIO) -> np.ndarray:
+    (n,) = struct.unpack("<Q", fh.read(8))
+    return np.frombuffer(fh.read(8 * n), dtype=np.uint64).copy()
+
+
 # --- permit_freq.bin / all_freq.bin (src/utils.rs:414-435) ------------------
 
 def write_permit_freq(path: Path, bclen: int, keys: np.ndarray, vals: np.ndarray) -> None:
@@ -70,3 +81,13 @@ def write_u64_map_file(path: Path, keys: np.ndarray, vals: np.ndarray) -> None:
 def read_u64_map_file(path: Path) -> Tuple[np.ndarray, np.ndarray]:
     with open(path, "rb") as fh:
         return read_u64_map(fh)
+
+
+def write_u64_vec_file(path: Path, vals: np.ndarray) -> None:
+    with open(path, "wb") as fh:
+        write_u64_vec(fh, vals)
+
+
+def read_u64_vec_file(path: Path) -> np.ndarray:
+    with open(path, "rb") as fh:
+        return read_u64_vec(fh)

@@ -7,3 +7,10 @@ PERMIT_FILE_VER = 1
 # (reference libradicl utils, used at src/convert.rs:443-444)
 ORI_BIT_U32 = 0x8000_0000       # bit 31: orientation flag
 REF_ID_MASK_U32 = 0x7FFF_FFFF   # low 31 bits: reference id
+
+# fragments of this length and longer are not written to ATAC BED output
+# (reference: src/constants.rs:11)
+MAX_ATAC_FRAG_LEN = 2000
+
+# ATAC genomic bin size in bp (reference: src/atac/cellfilter.rs:367)
+ATAC_BIN_SIZE = 100_000

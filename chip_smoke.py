@@ -8,10 +8,12 @@ Phases, one line each:
 0. the card (nvidia-smi name and power limit), torch and CUDA versions,
    whether the port's native RAD codec (csrc/libradc.so) loaded and
    whether its glibc malloc tuning is on;
-1. builds the CUDA kernels (csrc/*.cu) with nvcc and prints the build
-   seconds and each kernel's registers and shared memory;
-2. runs kernels K1-K4 on the card against their plain PyTorch twins at
-   fixed shapes (exact integer equality), with CUDA-event times;
+1. builds the CUDA kernels (csrc/*.cu, one nvcc per source, in
+   parallel) and prints the build seconds and each kernel's registers
+   and shared memory;
+2. runs kernels K1-K5 on the card against their plain PyTorch twins at
+   fixed shapes (exact integer equality), and K5 against K4 on the same
+   inputs, with CUDA-event times;
 3. generates a 10x-v3-shaped synthetic dataset (tests/synth_hard.py:
    10,000 cells, 20M reads, 20,000 genes, 3-column t2g) and runs the
    port's generate-permit-list -> collate -> quant -r cr-like on the
@@ -20,13 +22,26 @@ Phases, one line each:
    subprocess, tests/reference_host_path.py) and asserts that the eight
    data artifacts match byte for byte and the three stage JSONs field
    for field; then replays each kernel and its twin on the inputs the
-   main path gave it (exact equality, CUDA-event times).
+   main path gave it (exact equality, CUDA-event times);
+5. generates a 10x-scATAC-shaped synthetic dataset
+   (tests/synth_hard.py::make_hard_atac_dataset: 10,000 cells, 20M
+   fragments, 24 chromosomes of 130 Mb, 16-base barcodes, a 744k
+   reverse-complement whitelist) and runs the port's atac
+   generate-permit-list (rescue on K5: AFT_RESCUE_BACKEND=pallas for
+   this phase only) -> sort -> collate -> deduplicate on the card
+   through its CLI, sort and collate out of core (-m 6000000),
+   asserting that K1, K2 and K5 each launched; then the reference's
+   host path on the same data, the eight data artifacts byte for byte,
+   the three stage JSONs and deduplicate's four counters; then K1, K2
+   and K5 each replayed against its twin on the largest input this path
+   gave it.
 
-With --profile, phase 3 also runs each stage under torch.profiler and
-cProfile and prints the device's busy time (the union of its kernel and
-copy intervals), its idle share and the host's largest self times.
+With --profile, phases 3 and 5 also run each stage under torch.profiler
+and cProfile and print the device's busy time (the union of its kernel
+and copy intervals), its idle share and the host's largest self times.
 
-The last lines are the kernels' JSON summary, the card's name and power
+The last lines are the kernels' JSON summary (one row per kernel and
+path, each with that path's launches and shapes), the card's name and power
 limit, and {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before printing a
 result.
@@ -45,16 +60,26 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 N_CELLS, N_READS, N_GENES, THREADS = 10_000, 20_000_000, 20_000, 8
+# the ATAC data: 10x scATAC widths (16-base barcodes, a whitelist the
+# size of 10x's 737K list, about the human genome's 3.1 Gb); only the
+# depth is cut, and -m sends sort and collate out of core as a run of
+# 10^8 fragments does under the default 30M
+ATAC_SEED, ATAC_CELLS, ATAC_FRAGS, ATAC_CHRS, ATAC_CHR_LEN, ATAC_AMBIENT = (
+    11, 10_000, 20_000_000, 24, 130_000_000, 30)
+ATAC_MAX_RECORDS = 6_000_000
 SEGSCAN_SIZES = (1, 4097, 32769, 4_194_304, 12_000_001)
 SEGSCAN_TIMED_N = 4_194_304
 # (queries, kept, bases) of the K4 checks; the first is also timed
 HAMMING_SHAPES = ((65_536, 131_072, 16), (20_000, 30_000, 10), (20_000, 30_000, 24),
                   (20_000, 30_000, 32))
+RNA_KERNELS = ("K1", "K2", "K3", "K4")  # the RNA path's kernels
+ATAC_KERNELS = ("K1", "K2", "K5")     # the ATAC path's kernels
 SOURCES = {
     "K1": ("alevin_fry_tpu_torch/csrc/segscan.cu", "alevin_fry_tpu/ops/pallas_segscan.py:82"),
     "K2": ("alevin_fry_tpu_torch/csrc/segscan.cu", "alevin_fry_tpu/ops/pallas_segscan.py:135"),
     "K3": ("alevin_fry_tpu_torch/csrc/segscan.cu", "alevin_fry_tpu/ops/pallas_segscan.py:226"),
     "K4": ("alevin_fry_tpu_torch/csrc/hamming.cu", "alevin_fry_tpu/ops/pallas_hamming.py:145"),
+    "K5": ("alevin_fry_tpu_torch/csrc/hamming.cu", "alevin_fry_tpu/ops/pallas_hamming.py:39"),
 }
 
 
@@ -94,8 +119,9 @@ def ptxas_summary(text: str) -> list:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            op = re.search(r"(FwdOp|MinOp|LexOp)", m.group(1))
-            kern = re.search(r"(tile_reduce|agg_scan|tile_scan|hamming1)_kernel", m.group(1))
+            op = re.search(r"(FwdOp|MinOp|LexOp|FirstIndex|MinValue)", m.group(1))
+            kern = re.search(r"(tile_reduce|agg_scan|tile_scan|hamming1)_kernel",
+                             m.group(1))
             name = (kern.group(1) if kern else m.group(1)) + (f"<{op.group(1)}>" if op else "")
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m and name:
@@ -198,6 +224,26 @@ def phase2(dev, card: str) -> None:
     print(f"phase 2: K4 equals its twin at (Q, K, L) = {shapes}; at {shapes[0]} "
           f"K4 {a:.3f} ms (twin {b:.3f} ms) [{card}]", flush=True)
 
+    # K5: an unsorted kept table; against its twin and against K4 on
+    # the same inputs (K5's value is the kept barcode at K4's index)
+    for nq, nk, length in shapes:
+        q, k = (t.to(dev) for t in hamming_case(nq, nk, length, length))
+        perm = torch.randperm(len(k), generator=torch.Generator().manual_seed(length)).to(dev)
+        got = hamming.neighbor_counts_brute(q, k[perm])
+        max_abs_err(got, hamming.neighbor_counts_brute_twin(q, k[perm]))
+        cnt4, idx4 = hamming.neighbor_counts(q, k, length)
+        hit = cnt4 > 0
+        if not (torch.equal(got[0], cnt4)
+                and torch.equal(got[1][hit], k[idx4[hit].long()])
+                and bool((got[1][~hit] == -1).all())):
+            raise AssertionError(f"K5 and K4 disagree at {(nq, nk, length)}")
+        if (nq, nk) == shapes[0][:2]:
+            a = event_ms(lambda: hamming.neighbor_counts_brute(q, k[perm]), 5)
+            b = event_ms(lambda: hamming.neighbor_counts_brute_twin(q, k[perm]), 2)
+    torch.cuda.synchronize()
+    print(f"phase 2: K5 equals its twin and K4 at (Q, K, L) = {shapes} (kept unsorted); "
+          f"at {shapes[0]} K5 {a:.3f} ms (twin {b:.3f} ms) [{card}]", flush=True)
+
 
 # --- phase 3 ----------------------------------------------------------------
 
@@ -214,6 +260,7 @@ class Capture:
             (segscan, "scan_min", "K2", lambda a: a[0].numel()),
             (segscan, "scan_lex", "K3", lambda a: a[0].numel()),
             (hamming, "neighbor_counts", "K4", lambda a: a[0].numel() * a[1].numel()),
+            (hamming, "neighbor_counts_brute", "K5", lambda a: a[0].numel() * a[1].numel()),
         ]
         self._orig = []
 
@@ -254,6 +301,7 @@ def device_busy(prof) -> tuple:
         name = e.name
         kind = (" ".join(name.split()[:2]) if name.startswith(("Memcpy", "Memset"))
                 else "K1-K3" if re.search(r"tile_reduce|agg_scan|tile_scan", name)
+                else "K5" if "MinValue" in name
                 else "K4" if "hamming1" in name
                 else "torch sort" if re.search(r"[Ss]ort", name) else "other torch kernels")
         kinds[kind] = kinds.get(kind, 0.0) + (end - start) / 1e3
@@ -273,7 +321,10 @@ def host_self_times(cprof, top: int = 5) -> str:
     return ", ".join(f"{name} {secs:.2f} s" for secs, name in rows)
 
 
-def run_port(data: Path, out: Path, profile: bool = False) -> tuple:
+def run_stages(stages: dict, label: str, profile: bool = False, after=None) -> dict:
+    """Run the port's CLI once per stage (name -> argv) on the card;
+    returns each stage's seconds.  ``after(name)`` runs after a stage,
+    outside its time."""
     import cProfile
     import contextlib
 
@@ -281,15 +332,6 @@ def run_port(data: Path, out: Path, profile: bool = False) -> tuple:
 
     from alevin_fry_tpu_torch.cli import main as port_main
 
-    common = ["-t", str(THREADS), "--device", "cuda"]
-    stages = {
-        "gpl": ["generate-permit-list", "-i", str(data / "rad"), "-d", "fw",
-                "-o", str(out / "gpl"), "-u", str(data / "permit.txt"), "-m", "10",
-                *common],
-        "collate": ["collate", "-i", str(out / "gpl"), "-r", str(data / "rad"), *common],
-        "quant": ["quant", "-i", str(out / "gpl"), "-m", str(data / "t2g_3col.tsv"),
-                  "-o", str(out / "quant"), "-r", "cr-like", *common],
-    }
     secs = {}
     for stage, argv in stages.items():
         tprof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -311,11 +353,27 @@ def run_port(data: Path, out: Path, profile: bool = False) -> tuple:
         if profile:
             busy, kinds = device_busy(tprof)
             table_total = sum(e.self_device_time_total for e in tprof.key_averages()) / 1e3
-            print(f"phase 3 profile: {stage} {secs[stage]:.2f} s; device busy {busy:.1f} ms "
+            print(f"{label} profile: {stage} {secs[stage]:.2f} s; device busy {busy:.1f} ms "
                   f"(idle {100 * (1 - busy / 1e3 / secs[stage]):.1f}%): "
                   + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(kinds.items()))
                   + f"; profiler table's Self CUDA total {table_total:.1f} ms; host self "
                   f"time: {host_self_times(cprof)}", flush=True)
+        if after:
+            after(stage)
+    return secs
+
+
+def run_port(data: Path, out: Path, profile: bool = False) -> tuple:
+    common = ["-t", str(THREADS), "--device", "cuda"]
+    stages = {
+        "gpl": ["generate-permit-list", "-i", str(data / "rad"), "-d", "fw",
+                "-o", str(out / "gpl"), "-u", str(data / "permit.txt"), "-m", "10",
+                *common],
+        "collate": ["collate", "-i", str(out / "gpl"), "-r", str(data / "rad"), *common],
+        "quant": ["quant", "-i", str(out / "gpl"), "-m", str(data / "t2g_3col.tsv"),
+                  "-o", str(out / "quant"), "-r", "cr-like", *common],
+    }
+    secs = run_stages(stages, "phase 3", profile)
     return secs, {k: "alevin-fry-tpu " + " ".join(v) for k, v in stages.items()}
 
 
@@ -335,9 +393,11 @@ def check_outputs(out: Path, n_rows_expected: int) -> int:
 
 # --- phase 4 ----------------------------------------------------------------
 
-def replay(captured: dict, card: str) -> list:
-    """Each kernel and its twin on the largest input the main path gave
-    it: exact equality and CUDA-event times."""
+def replay(captured: dict, keys: tuple, launches: dict, path: str, label: str,
+           card: str) -> list:
+    """Each kernel of ``keys`` and its twin on the largest input the
+    path gave it: exact equality and CUDA-event times; one row of the
+    kernels' JSON line each, with the path's launch count."""
     from alevin_fry_tpu_torch.ops import hamming, segscan
 
     pairs = {
@@ -345,27 +405,114 @@ def replay(captured: dict, card: str) -> list:
         "K2": (segscan.scan_min, segscan.scan_min_twin),
         "K3": (segscan.scan_lex, segscan.scan_lex_twin),
         "K4": (hamming.neighbor_counts, hamming.neighbor_counts_twin),
+        "K5": (hamming.neighbor_counts_brute, hamming.neighbor_counts_brute_twin),
     }
     rows = []
-    for key, (kern, twin) in pairs.items():
+    for key in keys:
+        kern, twin = pairs[key]
         _, args, kw = captured[key]
         got, want = kern(*args, **kw), twin(*args, **kw)
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         err = max_abs_err(got, want)
-        reps = 3 if key == "K4" else 10
-        shape = ([len(args[0]), len(args[1]), args[2]] if key == "K4"
-                 else [args[0].numel()])
+        reps, twin_reps = {"K4": (3, 3), "K5": (3, 1)}.get(key, (10, 10))
+        shape = ([len(args[0]), len(args[1])] + list(args[2:])
+                 if key in ("K4", "K5") else [args[0].numel()])
         rows.append({
-            "name": key, "route": "cuda", "source": SOURCES[key][0],
-            "replaces": SOURCES[key][1], "shape": shape, "max_abs_err": err,
+            "name": key, "path": path, "route": "cuda", "source": SOURCES[key][0],
+            "replaces": SOURCES[key][1], "launches": launches[key], "shape": shape,
+            "max_abs_err": err,
             "ms": event_ms(lambda: kern(*args, **kw), reps),
-            "plain_ms": event_ms(lambda: twin(*args, **kw), reps),
+            "plain_ms": event_ms(lambda: twin(*args, **kw), twin_reps),
         })
-    print("phase 4: replay at main-path shapes: " + ", ".join(
+    print(f"{label}: replay at main-path shapes: " + ", ".join(
         f"{r['name']} {r['shape']} {r['ms']:.4f} ms (twin {r['plain_ms']:.4f} ms)"
         for r in rows) + f" [{card}]", flush=True)
     return rows
+
+
+# --- phase 5 ----------------------------------------------------------------
+
+def atac_phase(work: Path, card: str, profile: bool) -> list:
+    """The port's ATAC path on the card against the reference's host
+    path; returns the replay rows of K1, K2 and K5 on this path's inputs."""
+    import os
+
+    import torch
+
+    from alevin_fry_tpu_torch.atac import dedup
+    from alevin_fry_tpu_torch.ops import hamming, segscan
+    from reference_host_path import (
+        ATAC_DATA_ARTIFACTS, ATAC_STAGE_JSONS, artifact_mismatches, move_sorted_bed,
+    )
+
+    data, out = work / "atac_data", work / "atac_port"
+    t0 = time.perf_counter()
+    made = helper(["make-atac", str(data), "--seed", str(ATAC_SEED),
+                   "--n-cells", str(ATAC_CELLS), "--n-frags", str(ATAC_FRAGS),
+                   "--n-chrs", str(ATAC_CHRS), "--chr-len", str(ATAC_CHR_LEN),
+                   "--ambient-factor", str(ATAC_AMBIENT)])
+    print(f"phase 5: data {made['n_fragments']} fragments / {ATAC_CELLS} cells, whitelist "
+          f"{sum(1 for _ in open(data / 'wl.txt'))} generated in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    gpl = str(out / "gpl")
+    common = ["-t", str(THREADS), "--device", "cuda"]
+    m = ["-m", str(ATAC_MAX_RECORDS)]
+    stages = {
+        "gpl": ["atac", "generate-permit-list", "-i", str(data / "rad"), "-o", gpl,
+                "-u", str(data / "wl.txt"), "-m", "10", *common],
+        "sort": ["atac", "sort", "-i", gpl, "-r", str(data / "rad"), *m, *common],
+        "collate": ["atac", "collate", "-i", gpl, "-r", str(data / "rad"), *m, *common],
+        "deduplicate": ["atac", "deduplicate", "-i", gpl, *common],
+    }
+    stats, peaks = {}, {}
+    real_dedup = dedup.deduplicate
+    dedup.deduplicate = lambda *a, **k: stats.update(real_dedup(*a, **k)) or stats
+
+    def after(stage):
+        peaks[stage] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if stage == "sort":
+            move_sorted_bed(out)
+
+    saved = os.environ.get("AFT_RESCUE_BACKEND")
+    os.environ["AFT_RESCUE_BACKEND"] = "pallas"
+    for counts in (segscan.LAUNCHES, hamming.LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with Capture() as cap:
+            secs = run_stages(stages, "phase 5", profile, after)
+    finally:
+        dedup.deduplicate = real_dedup
+        if saved is None:
+            os.environ.pop("AFT_RESCUE_BACKEND")
+        else:
+            os.environ["AFT_RESCUE_BACKEND"] = saved
+    launches = {**segscan.LAUNCHES, **hamming.LAUNCHES}
+    if not all(launches[k] > 0 for k in ATAC_KERNELS):
+        raise AssertionError(f"a kernel of the ATAC path never launched: {launches}")
+    for stage in stages:
+        print(f"phase 5: port atac {stage} on cuda {secs[stage]:.2f} s; peak device memory "
+              f"{peaks[stage] / 2**20:.0f} MiB [{card}]", flush=True)
+    print(f"phase 5: launches {launches}; deduplicate counters {stats}", flush=True)
+
+    (work / "atac_cmdlines.json").write_text(json.dumps(
+        {k: "alevin-fry-tpu " + " ".join(v) for k, v in stages.items()}))
+    ref = helper(["run-atac", str(data), str(work / "atac_ref"),
+                  str(work / "atac_cmdlines.json"), "--max-records", str(ATAC_MAX_RECORDS),
+                  "--threads", str(THREADS)])
+    bad = artifact_mismatches(out, work / "atac_ref", ATAC_DATA_ARTIFACTS, ATAC_STAGE_JSONS)
+    if bad or ref["dedup"] != stats:
+        raise AssertionError(f"port and reference differ in {bad}, counters {stats} vs "
+                             f"{ref['dedup']}")
+    bed_rows = sum(1 for _ in open(out / "gpl" / "map.bed"))
+    print(f"phase 5: 8 data artifacts byte-identical ({bed_rows} deduplicated BED rows), "
+          "3 stage JSONs and the 4 deduplicate counters equal to the reference host path "
+          "(host CPU: " + ", ".join(f"{k} {v:.2f} s" for k, v in ref["seconds"].items())
+          + ")", flush=True)
+    return replay(cap.inputs, ATAC_KERNELS, launches, "atac", "phase 5", card)
 
 
 def main() -> int:
@@ -412,7 +559,7 @@ def main() -> int:
         secs, cmdlines = run_port(data, work / "port", args.profile)
     launches = {**segscan.LAUNCHES, **hamming.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
-    if not all(launches[k] > 0 for k in SOURCES):
+    if not all(launches[k] > 0 for k in RNA_KERNELS):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     # USA mode: spliced, unspliced and ambiguous columns per gene
     nnz = check_outputs(work / "port", 3 * N_GENES)
@@ -430,10 +577,10 @@ def main() -> int:
     print("phase 4: 8 data artifacts byte-identical and 3 stage JSONs equal to the "
           "reference host path (host CPU: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in ref_secs.items()) + ")", flush=True)
+    rows = replay(cap.inputs, RNA_KERNELS, launches, "rna", "phase 4", card)
+    shutil.rmtree(data, ignore_errors=True)
 
-    rows = replay(cap.inputs, card)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+    rows += atac_phase(work, card, args.profile)
     shutil.rmtree(work, ignore_errors=True)
     # the reference package ran only in helper subprocesses
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "alevin_fry_tpu")]

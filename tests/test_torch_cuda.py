@@ -1,5 +1,6 @@
-"""CUDA kernels K1-K4 of alevin_fry_tpu_torch against their plain
-PyTorch twins, on the card.
+"""CUDA kernels K1-K5 of alevin_fry_tpu_torch against their plain
+PyTorch twins, and the ATAC sort and run-length count on the card
+against its CPU result.
 
 Every test needs a CUDA device and skips without one; whether there is
 one is decided inside the ``cuda`` fixture, never at import.  Outputs
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from alevin_fry_tpu_torch.interop import barcodes_to_torch
-from alevin_fry_tpu_torch.ops import hamming, segscan
+from alevin_fry_tpu_torch.ops import atac_device, hamming, segscan
 
 
 @pytest.fixture
@@ -94,3 +95,39 @@ def test_k4_kernel_matches_twin(cuda, length):
         hamming.neighbor_counts_twin(qt, kt, length),
     ):
         _eq(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [10, 24, 32])
+def test_k5_kernel_matches_twin(cuda, length):
+    rng = np.random.RandomState(100 + length)
+    mask = np.uint64((1 << (2 * length)) - 1) if length < 32 else np.uint64(2**64 - 1)
+    kept = rng.permutation(np.unique(
+        rng.randint(0, 1 << 63, 5000, dtype=np.uint64) * np.uint64(3) & mask))
+    q = np.concatenate([
+        kept[rng.randint(0, len(kept), 700)],
+        kept[rng.randint(0, len(kept), 700)] ^ (np.uint64(1) << np.uint64(2 * rng.randint(0, length))),
+        kept[:50] ^ np.uint64(1), rng.randint(0, 1 << 63, 500, dtype=np.uint64) & mask,
+    ])
+    kept = np.concatenate([kept, kept[:50] ^ np.uint64(5)])
+    qt = barcodes_to_torch(q).to(cuda)
+    kt = barcodes_to_torch(kept).to(cuda)
+    got = hamming.neighbor_counts_brute(qt, kt)
+    torch.cuda.synchronize()
+    for g, w in zip(got, hamming.neighbor_counts_brute_twin(qt, kt)):
+        _eq(g, w)
+    assert bool((got[0] > 1).any()) and bool((got[0] == 1).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5000, 300_000])
+def test_sort_rle_cuda_matches_cpu(cuda, n):
+    rng = np.random.RandomState(n)
+    cols = [rng.randint(0, 20, n), rng.randint(0, 1 << 28, n) % 997,
+            rng.randint(0, 2000, n),
+            rng.randint(0, 1 << 63, n, dtype=np.uint64) % np.uint64(7) << np.uint64(61)]
+    got, cnt = atac_device.sort_rle(cols, cuda)
+    want, want_cnt = atac_device.sort_rle(cols, torch.device("cpu"))
+    np.testing.assert_array_equal(cnt, want_cnt)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

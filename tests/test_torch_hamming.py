@@ -1,7 +1,8 @@
 """The port's Hamming<=1 rescue search (alevin_fry_tpu_torch/ops/hamming.py,
 the wrapper of kernel K4) on the CPU, where it runs its plain PyTorch
 twin, against the reference's MXU kernel in interpret mode and its host
-search.
+search; and the lengths K4 does not take, which go to K5
+(tests/test_torch_hamming_brute.py has K5 itself).
 
 Inputs come from numpy seeds and the outputs are integers, so every
 comparison is exact equality.
@@ -12,10 +13,18 @@ import pytest
 import torch
 
 from alevin_fry_tpu.ops import barcodes as ref_bc
-from alevin_fry_tpu.ops.pallas_hamming import find_neighbors_mxu
+from alevin_fry_tpu.ops.pallas_hamming import find_neighbors_mxu, find_neighbors_pallas
 from alevin_fry_tpu_torch.ops import barcodes, hamming
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True)
+def _port_rescue_env(monkeypatch):
+    """The port reads AFT_RESCUE_BACKEND, where ``host`` raises.  A
+    reference test module imported into the same process may have set
+    it for the reference's goldens, so each test starts without it."""
+    monkeypatch.delenv("AFT_RESCUE_BACKEND", raising=False)
 
 
 def _case(length, seed):
@@ -70,9 +79,31 @@ def test_twin_chunks_agree_with_one_block(monkeypatch):
 
 
 @pytest.mark.parametrize("length", [1, 33])
-def test_rescue_lengths_outside_k4_raise(length):
-    with pytest.raises(NotImplementedError, match="K5"):
-        barcodes.find_neighbors(np.ones(2, np.uint64), np.ones(2, np.uint64), length, CPU)
+def test_rescue_lengths_outside_k4_raise(length, monkeypatch):
+    """Lengths outside K4's 2..32 no longer raise: they reach K5 and
+    equal the reference's brute-force kernel in interpret mode.  A
+    33-base barcode does not fit a 64-bit 2-bit code; both packages
+    compare the words they are given."""
+    rng = np.random.RandomState(length)
+    if length == 1:
+        kept = np.array([2, 1 << 10], np.uint64)
+        queries = np.arange(4, dtype=np.uint64)
+    else:
+        kept = rng.randint(0, 1 << 63, 300, dtype=np.uint64) * np.uint64(3)
+        flips = np.uint64(1) << (np.uint64(2) * rng.randint(0, 32, 100).astype(np.uint64))
+        queries = np.concatenate([kept[:50], kept[50:150] ^ flips,
+                                  rng.randint(0, 1 << 63, 50, dtype=np.uint64)])
+    # no query lies within distance 1 of the reference's kept padding
+    pad = np.uint64(0x5555555555555555)
+    assert (ref_bc.hamming_2bit(queries, np.full(len(queries), pad)) > 1).all()
+    calls = []
+    monkeypatch.setattr(hamming, "neighbor_counts", lambda *a: calls.append("K4"))
+    cnt, rep = barcodes.find_neighbors(queries, kept, length, CPU)
+    assert calls == []
+    p_cnt, p_rep = find_neighbors_pallas(queries, kept, length, interpret=True)
+    np.testing.assert_array_equal(cnt, p_cnt)
+    np.testing.assert_array_equal(rep, p_rep)
+    assert (cnt == 1).any()
 
 
 def test_pack_unpack_match_reference():

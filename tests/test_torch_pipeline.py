@@ -1,8 +1,9 @@
 """The port's whole slice — generate-permit-list (unfiltered, with the
 1-edit rescue) -> collate -> quant (cr-like) through its CLI with
 ``--device cpu`` — against the reference package's host path on the
-same data, plus the boundary of the port: it never imports JAX, nor any
-part of the reference package.
+same data, the out-of-core collate against the in-memory one, plus the
+boundary of the port: neither its RNA nor its ATAC stages import JAX or
+any part of the reference package.
 
 Eight data artifacts must match byte for byte and the three stage JSONs
 field for field once the fields naming each run's directories are
@@ -21,17 +22,27 @@ import numpy as np
 import pytest
 import torch
 
+from alevin_fry_tpu.pipeline.collate import collate as ref_collate
 from alevin_fry_tpu.radz import _native as ref_native
 from alevin_fry_tpu_torch.cli import main as port_main
 from alevin_fry_tpu_torch.device import resolve_device
 from alevin_fry_tpu_torch.ops.barcodes import pack_seq
-from alevin_fry_tpu_torch.pipeline import gpl, quant
+from alevin_fry_tpu_torch.pipeline import collate, gpl, quant
 from alevin_fry_tpu_torch.radz import _native, bincodeio
-from reference_host_path import artifact_mismatches, run_reference
+from reference_host_path import artifact_mismatches, host_policies, run_reference
 from synth import write_rna_rad
 from synth_hard import make_hard_dataset
+from test_torch_atac import _atac_synth_data
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def _port_rescue_env(monkeypatch):
+    """The port reads AFT_RESCUE_BACKEND, where ``host`` raises.  A
+    reference test module imported into the same process may have set
+    it for the reference's goldens, so each test starts without it."""
+    monkeypatch.delenv("AFT_RESCUE_BACKEND", raising=False)
 
 
 @pytest.fixture(scope="module")
@@ -95,21 +106,12 @@ def _check_against_reference(d: Path, tmp: Path, usa: bool, min_reads: int) -> N
     assert len(keys) > len(kept)
 
 
-@pytest.fixture
-def host_env(monkeypatch):
-    # run_reference sets the reference's backends to the host; keep the
-    # change inside the test
-    for k in ("AFT_CRLIKE_BACKEND", "AFT_RESCUE_BACKEND", "AFT_COLLATE_BACKEND",
-              "AFT_GPL_MESH", "AFT_EM_MESH"):
-        monkeypatch.setenv(k, os.environ.get(k, "host"))
-
-
 @pytest.mark.parametrize("usa", [True, False])
-def test_slice_matches_reference_on_synth_hard(hard_data, tmp_path, usa, host_env):
+def test_slice_matches_reference_on_synth_hard(hard_data, tmp_path, usa):
     _check_against_reference(hard_data, tmp_path, usa, min_reads=10)
 
 
-def test_slice_matches_reference_in_small_blocks(hard_data, tmp_path, host_env, monkeypatch):
+def test_slice_matches_reference_in_small_blocks(hard_data, tmp_path, monkeypatch):
     """Streaming the RAD files in many blocks (histograms merged in gpl,
     per-block results merged in quant) changes no byte."""
     monkeypatch.setattr(gpl, "GPL_BLOCK_RECORDS", 30_000)
@@ -118,11 +120,11 @@ def test_slice_matches_reference_in_small_blocks(hard_data, tmp_path, host_env, 
 
 
 @pytest.mark.parametrize("usa", [True, False])
-def test_slice_matches_reference_on_synth(tmp_path, usa, host_env):
+def test_slice_matches_reference_on_synth(tmp_path, usa):
     _check_against_reference(_synth_data(tmp_path / "d"), tmp_path, usa, min_reads=1)
 
 
-def test_slice_matches_reference_without_native_codec(tmp_path, host_env, monkeypatch):
+def test_slice_matches_reference_without_native_codec(tmp_path, monkeypatch):
     """With the native codec unavailable both packages take their NumPy
     paths (the port's columnar collate among them)."""
     for native in (_native, ref_native):
@@ -134,18 +136,25 @@ def test_slice_matches_reference_without_native_codec(tmp_path, host_env, monkey
 
 def test_port_never_imports_jax_or_reference_logic(tmp_path):
     d = _synth_data(tmp_path / "d")
+    a = _atac_synth_data(tmp_path / "a")
     out = tmp_path / "out"
     code = f"""
 import json, sys
 sys.modules["jax"] = None
 from alevin_fry_tpu_torch.cli import main
-d, o = {str(d)!r}, {str(out)!r}
+d, a, o = {str(d)!r}, {str(a)!r}, {str(out)!r}
 dev = ["-t", "2", "--device", "cpu"]
 assert main(["generate-permit-list", "-i", d + "/rad", "-d", "fw", "-o", o + "/gpl",
              "-u", d + "/permit.txt", "-m", "1", *dev]) == 0
 assert main(["collate", "-i", o + "/gpl", "-r", d + "/rad", *dev]) == 0
 assert main(["quant", "-i", o + "/gpl", "-m", d + "/t2g_3col.tsv", "-o", o + "/quant",
              "-r", "cr-like", *dev]) == 0
+g = o + "/agpl"
+assert main(["atac", "generate-permit-list", "-i", a + "/rad", "-o", g,
+             "-u", a + "/wl.txt", "-m", "1", *dev]) == 0
+assert main(["atac", "sort", "-i", g, "-r", a + "/rad", "-m", "20", *dev]) == 0
+assert main(["atac", "collate", "-i", g, "-r", a + "/rad", "-m", "20", *dev]) == 0
+assert main(["atac", "deduplicate", "-i", g, *dev]) == 0
 print(json.dumps(sorted(m for m in sys.modules if m.startswith("alevin_fry_tpu"))))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -156,6 +165,8 @@ print(json.dumps(sorted(m for m in sys.modules if m.startswith("alevin_fry_tpu")
     assert proc.returncode == 0, proc.stderr
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert (out / "quant" / "alevin" / "quants_mat.mtx").exists()
+    assert (out / "agpl" / "map.bed").stat().st_size > 0
+    assert any(m.startswith("alevin_fry_tpu_torch.atac") for m in loaded)
     assert any(m.startswith("alevin_fry_tpu_torch.pipeline") for m in loaded)
     assert any(m.startswith("alevin_fry_tpu_torch.radz") for m in loaded)
     assert [m for m in loaded if m.split(".")[0] == "alevin_fry_tpu"] == []
@@ -170,7 +181,7 @@ def test_resolve_device():
             resolve_device("cuda")
 
 
-def test_unported_options_raise(tmp_path):
+def test_unported_options_raise(tmp_path, monkeypatch):
     d = _synth_data(tmp_path / "d")
     out = tmp_path / "out"
     with pytest.raises(NotImplementedError, match="filtered permit lists"):
@@ -186,6 +197,44 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="compressed"):
         port_main(["collate", "-i", str(out / "gpl"), "-r", str(d / "rad"), "-c",
                    "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        port_main(["collate", "-i", str(out / "gpl"), "-r", str(d / "rad"), "-m", "3",
+    monkeypatch.setenv("AFT_COORDINATOR", "localhost:1234")
+    with pytest.raises(NotImplementedError, match="multi-host"):
+        port_main(["collate", "-i", str(out / "gpl"), "-r", str(d / "rad"),
                    "--device", "cpu"])
+
+
+@pytest.mark.parametrize("max_records", [40, 700, 20_000])
+def test_out_of_core_collate_matches_in_memory_and_reference(hard_data, tmp_path,
+                                                             max_records, monkeypatch):
+    """``--max-records`` below the record count spills to buckets of
+    consecutive cell ranks and writes the in-memory
+    path's bytes, which are the reference's; small scatter blocks change
+    no byte either."""
+    monkeypatch.setattr(collate, "COLLATE_BLOCK_RECORDS", 30_000)
+    cmdlines = _run_port(hard_data, tmp_path / "port", True, min_reads=10)
+    gpl_dir = tmp_path / "port" / "gpl"
+    in_mem = (gpl_dir / "map.collated.rad").read_bytes()
+    assert port_main(["collate", "-i", str(gpl_dir), "-r", str(hard_data / "rad"),
+                      "-m", str(max_records), "-t", "2", "--device", "cpu"]) == 0
+    assert (gpl_dir / "map.collated.rad").read_bytes() == in_mem
+    assert not (gpl_dir / "_collate_tmp").exists()
+    run_reference(hard_data, tmp_path / "ref", cmdlines, True, min_reads=10, threads=2)
+    assert (tmp_path / "ref" / "gpl" / "map.collated.rad").read_bytes() == in_mem
+    with host_policies():
+        ref_collate(tmp_path / "ref" / "gpl", hard_data / "rad", 2, max_records,
+                    cmdline=cmdlines["collate"])
+    assert (tmp_path / "ref" / "gpl" / "map.collated.rad").read_bytes() == in_mem
+
+
+def test_out_of_core_collate_without_native_codec(tmp_path, monkeypatch):
+    """The NumPy record walk and gather of the out-of-core path write
+    the native path's bytes."""
+    d = _synth_data(tmp_path / "d")
+    _run_port(d, tmp_path / "out", True, min_reads=1)
+    gpl_dir = tmp_path / "out" / "gpl"
+    in_mem = (gpl_dir / "map.collated.rad").read_bytes()
+    monkeypatch.setattr(_native, "_LIB", None)
+    monkeypatch.setattr(_native, "_TRIED", True)
+    assert port_main(["collate", "-i", str(gpl_dir), "-r", str(d / "rad"), "-m", "7",
+                      "--device", "cpu"]) == 0
+    assert (gpl_dir / "map.collated.rad").read_bytes() == in_mem
