@@ -12,8 +12,12 @@ Phases, one line each:
    parallel) and prints the build seconds and each kernel's registers
    and shared memory;
 2. runs kernels K1-K5 on the card against their plain PyTorch twins at
-   fixed shapes (exact integer equality), and K5 against K4 on the same
-   inputs, with CUDA-event times;
+   fixed shapes (exact integer equality): K4 and K5 against their
+   brute-force twins and the probe twin, with duplicated kept codes, 32-base
+   codes that use bit 63, a one-code table, tables larger than the
+   kernels' shared-memory sample, and the shape of a 50M-read run (1.7M
+   queries x 1.1M kept, brute-force twins on its first 20,000 queries);
+   K5 against K4 on the same inputs; CUDA-event times;
 3. generates a 10x-v3-shaped synthetic dataset (tests/synth_hard.py:
    10,000 cells, 20M reads, 20,000 genes, 3-column t2g) and runs the
    port's generate-permit-list -> collate -> quant -r cr-like on the
@@ -22,7 +26,9 @@ Phases, one line each:
    subprocess, tests/reference_host_path.py) and asserts that the eight
    data artifacts match byte for byte and the three stage JSONs field
    for field; then replays each kernel and its twin on the inputs the
-   main path gave it (exact equality, CUDA-event times);
+   main path gave it (exact equality, CUDA-event times, the bound from
+   the bytes each kernel must move, and the time of the one PyTorch
+   call that computes the same function where there is one);
 5. generates a 10x-scATAC-shaped synthetic dataset
    (tests/synth_hard.py::make_hard_atac_dataset: 10,000 cells, 20M
    fragments, 24 chromosomes of 130 Mb, 16-base barcodes, a 744k
@@ -69,9 +75,17 @@ ATAC_SEED, ATAC_CELLS, ATAC_FRAGS, ATAC_CHRS, ATAC_CHR_LEN, ATAC_AMBIENT = (
 ATAC_MAX_RECORDS = 6_000_000
 SEGSCAN_SIZES = (1, 4097, 32769, 4_194_304, 12_000_001)
 SEGSCAN_TIMED_N = 4_194_304
-# (queries, kept, bases) of the K4 checks; the first is also timed
-HAMMING_SHAPES = ((65_536, 131_072, 16), (20_000, 30_000, 10), (20_000, 30_000, 24),
-                  (20_000, 30_000, 32))
+# (queries, kept, bases, duplicated kept codes) of the K4 and K5 checks;
+# the first is also timed.  30,000 and more kept codes exceed the
+# kernels' shared-memory sample (8,191 codes).
+HAMMING_SHAPES = ((65_536, 131_072, 16, False), (20_000, 30_000, 10, False),
+                  (20_000, 30_000, 24, False), (20_000, 30_000, 32, False),
+                  (20_000, 30_000, 32, True), (20_000, 1, 16, False))
+# a 50M-read run's rescue (1.7M queries x 1.1M kept); the brute-force
+# twins run on its first BRUTE_QUERIES queries
+HAMMING_50M, BRUTE_QUERIES = (1_700_000, 1_100_000, 16, False), 20_000
+# H100 SXM device memory rate (NVIDIA's data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
 RNA_KERNELS = ("K1", "K2", "K3", "K4")  # the RNA path's kernels
 ATAC_KERNELS = ("K1", "K2", "K5")     # the ATAC path's kernels
 SOURCES = {
@@ -115,17 +129,25 @@ def max_abs_err(got, want) -> int:
 
 
 def ptxas_summary(text: str) -> list:
-    out, name = [], None
+    """Registers, static shared memory and spills per kernel from
+    ptxas -v (the probe kernels' sample is dynamic shared memory: phase 1
+    prints it from the search plan)."""
+    out, name, spill = [], None, "0"
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             op = re.search(r"(FwdOp|MinOp|LexOp|FirstIndex|MinValue)", m.group(1))
-            kern = re.search(r"(tile_reduce|agg_scan|tile_scan|hamming1)_kernel",
+            kern = re.search(r"(tile_reduce|agg_scan|tile_scan|hamming1_probe)_kernel",
                              m.group(1))
             name = (kern.group(1) if kern else m.group(1)) + (f"<{op.group(1)}>" if op else "")
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            spill = "0"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name:
-            out.append(f"{name}: {m.group(1)} regs, {m.group(2)} B smem")
+            out.append(f"{name}: {m.group(1)} regs, {m.group(2) or 0} B static smem, "
+                       f"{spill} B spilled")
             name = None
     return out
 
@@ -170,7 +192,10 @@ def segscan_outputs(x, start, val, mark, grp_ord):
     )
 
 
-def hamming_case(nq: int, nk: int, length: int, seed: int):
+def hamming_case(nq: int, nk: int, length: int, seed: int, dups: bool = False):
+    """Kept codes in ascending unsigned order (with ``dups``, a quarter of
+    them again and one 40 times more) and queries: kept codes,
+    one-substitution mutants and random codes."""
     import numpy as np
     import torch
 
@@ -178,6 +203,9 @@ def hamming_case(nq: int, nk: int, length: int, seed: int):
     full = (1 << (2 * length)) - 1
     draw = lambda k: rng.randint(0, 1 << 63, k, dtype=np.uint64) * np.uint64(3) & np.uint64(full)
     kept = np.unique(draw(nk))
+    if dups:
+        kept = np.sort(np.concatenate([kept, kept[rng.randint(0, len(kept), len(kept) // 4)],
+                                       np.repeat(kept[len(kept) // 2], 40)]))
     pos = rng.randint(0, length, nq // 3).astype(np.uint64)
     mut = kept[rng.randint(0, len(kept), nq // 3)] ^ (np.uint64(1) << (np.uint64(2) * pos))
     q = np.concatenate([
@@ -208,41 +236,60 @@ def phase2(dev, card: str) -> None:
           + ", ".join(f"{k} {a:.4f} ms (twin {b:.4f} ms)" for k, (a, b) in ms.items())
           + f" [{card}]", flush=True)
 
-    shapes = HAMMING_SHAPES
-    for nq, nk, length in shapes:
-        q, k = (t.to(dev) for t in hamming_case(nq, nk, length, length))
+    times = {}
+    for nq, nk, length, dups in HAMMING_SHAPES + (HAMMING_50M,):
+        big = (nq, nk, length, dups) == HAMMING_50M
+        q, k = (t.to(dev) for t in hamming_case(nq, nk, length, length, dups))
         if length == 32 and not bool((k < 0).any()):
             raise AssertionError("no 32-base kept barcode uses bit 63")
-        got = hamming.neighbor_counts(q, k, length)
-        max_abs_err(got, hamming.neighbor_counts_twin(q, k, length))
-        if not bool((got[0] == 1).any()):
-            raise AssertionError("K4 case has no unique neighbour")
-        if (nq, nk) == shapes[0][:2]:
-            a = event_ms(lambda: hamming.neighbor_counts(q, k, length), 5)
-            b = event_ms(lambda: hamming.neighbor_counts_twin(q, k, length), 2)
-    torch.cuda.synchronize()
-    print(f"phase 2: K4 equals its twin at (Q, K, L) = {shapes}; at {shapes[0]} "
-          f"K4 {a:.3f} ms (twin {b:.3f} ms) [{card}]", flush=True)
-
-    # K5: an unsorted kept table; against its twin and against K4 on
-    # the same inputs (K5's value is the kept barcode at K4's index)
-    for nq, nk, length in shapes:
-        q, k = (t.to(dev) for t in hamming_case(nq, nk, length, length))
         perm = torch.randperm(len(k), generator=torch.Generator().manual_seed(length)).to(dev)
-        got = hamming.neighbor_counts_brute(q, k[perm])
-        max_abs_err(got, hamming.neighbor_counts_brute_twin(q, k[perm]))
-        cnt4, idx4 = hamming.neighbor_counts(q, k, length)
-        hit = cnt4 > 0
-        if not (torch.equal(got[0], cnt4)
-                and torch.equal(got[1][hit], k[idx4[hit].long()])
-                and bool((got[1][~hit] == -1).all())):
-            raise AssertionError(f"K5 and K4 disagree at {(nq, nk, length)}")
-        if (nq, nk) == shapes[0][:2]:
-            a = event_ms(lambda: hamming.neighbor_counts_brute(q, k[perm]), 5)
-            b = event_ms(lambda: hamming.neighbor_counts_brute_twin(q, k[perm]), 2)
+        hamming_check(q, k, length, perm, BRUTE_QUERIES if big else None)
+        if big or (nq, nk) == HAMMING_SHAPES[0][:2]:
+            # the rescue passes its queries sorted (pipeline/gpl.py); time
+            # that order and the shuffled one hamming_case builds
+            ku, qs = k[perm], hamming.sort_unsigned(q)
+            times[(nq, nk, length)] = (
+                event_ms(lambda: hamming.neighbor_counts(qs, k, length), 10),
+                event_ms(lambda: hamming.neighbor_counts_brute(qs, ku), 10),
+                event_ms(lambda: hamming.neighbor_counts(q, k, length), 10),
+                event_ms(lambda: hamming.neighbor_counts_brute(q, ku), 10),
+                event_ms(lambda: hamming.neighbor_probe_twin(qs, k, length), 3),
+                None if big else event_ms(lambda: hamming.neighbor_counts_twin(q, k, length), 2),
+                None if big else event_ms(lambda: hamming.neighbor_counts_brute_twin(q, ku), 2),
+            )
     torch.cuda.synchronize()
-    print(f"phase 2: K5 equals its twin and K4 at (Q, K, L) = {shapes} (kept unsorted); "
-          f"at {shapes[0]} K5 {a:.3f} ms (twin {b:.3f} ms) [{card}]", flush=True)
+    print(f"phase 2: K4 and K5 (kept shuffled) equal their brute-force twins, the probe "
+          f"twin and each other at (Q, K, L, duplicates) = {HAMMING_SHAPES}, and at "
+          f"{HAMMING_50M} (brute-force twins on the first {BRUTE_QUERIES} queries); "
+          + "; ".join(f"at {shape} sorted queries K4 {t[0]:.4f} ms, K5 {t[1]:.4f} ms, "
+                      f"shuffled K4 {t[2]:.4f} ms, K5 {t[3]:.4f} ms, probe twin {t[4]:.4f} ms"
+                      + (f", brute-force twins {t[5]:.3f} / {t[6]:.3f} ms" if t[5] else "")
+                      for shape, t in times.items()) + f" [{card}]", flush=True)
+
+
+def hamming_check(q, k, length: int, perm, brute=None) -> None:
+    """K4 (``k`` in ascending unsigned order) and K5 (on ``k[perm]``)
+    against the probe twin, their brute-force twins (on the first
+    ``brute`` queries, all by default) and each other: K5's value is the
+    kept code at K4's index.  Raises on any difference."""
+    import torch
+
+    from alevin_fry_tpu_torch.ops import hamming
+
+    got4 = hamming.neighbor_counts(q, k, length)
+    max_abs_err(got4, hamming.neighbor_probe_twin(q, k, length))
+    max_abs_err([g[:brute] for g in got4], hamming.neighbor_counts_twin(q[:brute], k, length))
+    ku = k[perm]
+    got5 = hamming.neighbor_counts_brute(q, ku)
+    max_abs_err(got5, k5_probe_twin(q, ku))
+    max_abs_err([g[:brute] for g in got5], hamming.neighbor_counts_brute_twin(q[:brute], ku))
+    cnt4, idx4 = got4
+    hit = cnt4 > 0
+    if not (torch.equal(got5[0], cnt4) and torch.equal(got5[1][hit], k[idx4[hit].long()])
+            and bool((got5[1][~hit] == -1).all())):
+        raise AssertionError(f"K5 and K4 disagree at {(len(q), len(k), length)}")
+    if not bool((cnt4 == 1).any()):
+        raise AssertionError(f"no query has a unique neighbour at {(len(q), len(k), length)}")
 
 
 # --- phase 3 ----------------------------------------------------------------
@@ -393,20 +440,64 @@ def check_outputs(out: Path, n_rows_expected: int) -> int:
 
 # --- phase 4 ----------------------------------------------------------------
 
+# bytes each segmented-scan kernel moves per row: its inputs read once,
+# its outputs written once (K1: int32 x and bool start in, two int32 out)
+SCAN_BYTES_PER_ROW = {"K1": 13, "K2": 8, "K3": 16}
+
+
+def bound_ms(key: str, args: tuple) -> float:
+    """The least time the card could take for a kernel's work on ``args``:
+    the bytes it must move over the device memory rate.  K4 and K5 read
+    the queries and the kept table and write a count and an index (K4,
+    4 bytes) or a code (K5, 8 bytes) per query; their integer work is no
+    match for that on any pipe, so bytes set the bound."""
+    if key in SCAN_BYTES_PER_ROW:
+        nbytes = args[0].numel() * SCAN_BYTES_PER_ROW[key]
+    else:
+        nbytes = (16 if key == "K4" else 20) * len(args[0]) + 8 * len(args[1])
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def library_call(key: str, args: tuple):
+    """The one PyTorch call that computes a kernel's scan on ``args``
+    (forward; a reverse scan adds two flips to it), or None: K1's pair of
+    scans, K4 and K5 have none."""
+    import torch
+
+    if key == "K2":
+        return lambda: torch.cummin(args[0], 0)
+    if key == "K3":
+        return lambda: (torch.cummax if args[1] else torch.cummin)(args[0], 0)
+    return None
+
+
+def k5_probe_twin(queries, kept):
+    """K5's contract through the probe twin: the kept table sorted in
+    unsigned order, probed at the positions the codes use."""
+    from alevin_fry_tpu_torch.ops import hamming
+
+    kept_sorted = hamming.sort_unsigned(kept)
+    return hamming.neighbor_probe_twin(queries, kept_sorted,
+                                       hamming.used_positions(queries, kept_sorted), values=True)
+
+
 def replay(captured: dict, keys: tuple, launches: dict, path: str, label: str,
            card: str) -> list:
-    """Each kernel of ``keys`` and its twin on the largest input the
-    path gave it: exact equality and CUDA-event times; one row of the
-    kernels' JSON line each, with the path's launch count."""
+    """Each kernel of ``keys`` and its plain version on the largest input
+    the path gave it (K4 and K5 also against their brute-force twins):
+    exact equality, CUDA-event times, the bound and the library call's
+    time; one row of the kernels' JSON line each, with the path's launch
+    count."""
     from alevin_fry_tpu_torch.ops import hamming, segscan
 
     pairs = {
         "K1": (segscan.scan_fwd, segscan.scan_fwd_twin),
         "K2": (segscan.scan_min, segscan.scan_min_twin),
         "K3": (segscan.scan_lex, segscan.scan_lex_twin),
-        "K4": (hamming.neighbor_counts, hamming.neighbor_counts_twin),
-        "K5": (hamming.neighbor_counts_brute, hamming.neighbor_counts_brute_twin),
+        "K4": (hamming.neighbor_counts, hamming.neighbor_probe_twin),
+        "K5": (hamming.neighbor_counts_brute, k5_probe_twin),
     }
+    brute_twins = {"K4": hamming.neighbor_counts_twin, "K5": hamming.neighbor_counts_brute_twin}
     rows = []
     for key in keys:
         kern, twin = pairs[key]
@@ -415,18 +506,28 @@ def replay(captured: dict, keys: tuple, launches: dict, path: str, label: str,
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         err = max_abs_err(got, want)
-        reps, twin_reps = {"K4": (3, 3), "K5": (3, 1)}.get(key, (10, 10))
         shape = ([len(args[0]), len(args[1])] + list(args[2:])
                  if key in ("K4", "K5") else [args[0].numel()])
-        rows.append({
+        lib = library_call(key, args)
+        row = {
             "name": key, "path": path, "route": "cuda", "source": SOURCES[key][0],
             "replaces": SOURCES[key][1], "launches": launches[key], "shape": shape,
             "max_abs_err": err,
-            "ms": event_ms(lambda: kern(*args, **kw), reps),
-            "plain_ms": event_ms(lambda: twin(*args, **kw), twin_reps),
-        })
+            "ms": event_ms(lambda: kern(*args, **kw), 10),
+            "plain_ms": event_ms(lambda: twin(*args, **kw), 10),
+            "bound_ms": bound_ms(key, args), "bound_by": "bytes",
+            "library_ms": event_ms(lib, 10) if lib else None,
+        }
+        if key in brute_twins:
+            brute = brute_twins[key]
+            max_abs_err(got, brute(*args, **kw))
+            row["brute_ms"] = event_ms(lambda: brute(*args, **kw), 1)
+        rows.append(row)
     print(f"{label}: replay at main-path shapes: " + ", ".join(
-        f"{r['name']} {r['shape']} {r['ms']:.4f} ms (twin {r['plain_ms']:.4f} ms)"
+        f"{r['name']} {r['shape']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms"
+        + (f", brute-force twin {r['brute_ms']:.4f} ms" if "brute_ms" in r else "")
+        + f", bound {r['bound_ms']:.5f} ms"
+        + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "") + ")"
         for r in rows) + f" [{card}]", flush=True)
     return rows
 
@@ -542,6 +643,11 @@ def main() -> int:
     print(f"phase 1: nvcc build {_kernels.BuildInfo.seconds:.2f} s "
           f"(rebuilt: {_kernels.BuildInfo.rebuilt}); "
           + "; ".join(ptxas_summary(_kernels.BuildInfo.ptxas)), flush=True)
+    plans = {nk: hamming.search_plan(nk) for nk in (1, 55_471, 131_072, HAMMING_50M[1])}
+    print("phase 1: hamming1_probe search plans (kept codes: every S-th code in shared "
+          "memory, dynamic shared memory per block, resident blocks per SM): " + ", ".join(
+              f"{nk}: S {p['stride']}, {p['smem_bytes']} B, {p['blocks_per_sm']}"
+              for nk, p in plans.items()), flush=True)
 
     phase2(dev, card)
 

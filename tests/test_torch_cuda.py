@@ -76,47 +76,86 @@ def test_segment_toolkit_cuda_matches_cpu(cuda, n):
         _eq(got, want)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("length", [10, 16, 24, 32])
-def test_k4_kernel_matches_twin(cuda, length):
-    rng = np.random.RandomState(length)
-    mask = np.uint64((1 << (2 * length)) - 1) if length < 32 else np.uint64(~0 & 0xFFFFFFFFFFFFFFFF)
-    kept = np.unique(rng.randint(0, 1 << 63, 3000, dtype=np.uint64) * np.uint64(3) & mask)
-    q = np.concatenate([
-        kept[rng.randint(0, len(kept), 500)],
-        kept[rng.randint(0, len(kept), 500)] ^ (np.uint64(1) << np.uint64(2 * rng.randint(0, length))),
-        rng.randint(0, 1 << 63, 500, dtype=np.uint64) & mask,
-        np.zeros(1, np.uint64),
-    ])
-    qt = barcodes_to_torch(q).to(cuda)
-    kt = barcodes_to_torch(kept).to(cuda)
-    for got, want in zip(
-        hamming.neighbor_counts(qt, kt, length),
-        hamming.neighbor_counts_twin(qt, kt, length),
-    ):
-        _eq(got, want)
+# (bases, kept codes, kind): "unique" is a table without duplicates,
+# "duplicates" repeats some codes (one of them 40 times), and 40,000
+# codes exceed the kernels' shared-memory sample (8,191 codes), so their
+# searches finish in device memory
+HAMMING_CASES = [(10, 3000, "unique"), (16, 3000, "unique"), (24, 3000, "unique"),
+                 (32, 3000, "unique"), (2, 6, "unique"), (32, 3000, "duplicates"),
+                 (16, 1, "unique"), (16, 40_000, "unique"), (32, 40_000, "duplicates")]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("length", [10, 24, 32])
-def test_k5_kernel_matches_twin(cuda, length):
-    rng = np.random.RandomState(100 + length)
+def _hamming_case(rng, length, nk, kind):
+    """Kept codes in ascending unsigned order (bit 63 set in some at 32
+    bases) and queries: kept codes, one-substitution mutants at every
+    position and random codes (every code at 2 bases)."""
     mask = np.uint64((1 << (2 * length)) - 1) if length < 32 else np.uint64(2**64 - 1)
-    kept = rng.permutation(np.unique(
-        rng.randint(0, 1 << 63, 5000, dtype=np.uint64) * np.uint64(3) & mask))
+    draw = lambda k: rng.randint(0, 1 << 63, k, dtype=np.uint64) * np.uint64(3) & mask  # noqa: E731
+    kept = np.unique(draw(nk))[:nk]
+    if kind == "duplicates":
+        kept = np.sort(np.concatenate([kept, kept[rng.randint(0, len(kept), len(kept) // 4)],
+                                       np.repeat(kept[len(kept) // 2], 40)]))
+    n = 500 if len(kept) > 1 else 30
+    pos = rng.randint(0, length, n).astype(np.uint64)
+    sub = rng.randint(1, 4, n).astype(np.uint64)
     q = np.concatenate([
-        kept[rng.randint(0, len(kept), 700)],
-        kept[rng.randint(0, len(kept), 700)] ^ (np.uint64(1) << np.uint64(2 * rng.randint(0, length))),
-        kept[:50] ^ np.uint64(1), rng.randint(0, 1 << 63, 500, dtype=np.uint64) & mask,
+        kept[rng.randint(0, len(kept), n)],
+        kept[rng.randint(0, len(kept), n)] ^ (sub << (np.uint64(2) * pos)),
+        draw(n), np.zeros(1, np.uint64),
+        np.arange(16, dtype=np.uint64) if length == 2 else np.zeros(0, np.uint64),
     ])
-    kept = np.concatenate([kept, kept[:50] ^ np.uint64(5)])
+    if length == 32:
+        assert (kept >> np.uint64(63)).any()
+    return q, kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,nk,kind", HAMMING_CASES)
+def test_k4_kernel_matches_twin(cuda, length, nk, kind):
+    """K4 against its brute-force twin and the probe twin."""
+    q, kept = _hamming_case(np.random.RandomState(length + nk), length, nk, kind)
     qt = barcodes_to_torch(q).to(cuda)
     kt = barcodes_to_torch(kept).to(cuda)
-    got = hamming.neighbor_counts_brute(qt, kt)
+    got = hamming.neighbor_counts(qt, kt, length)
     torch.cuda.synchronize()
-    for g, w in zip(got, hamming.neighbor_counts_brute_twin(qt, kt)):
-        _eq(g, w)
-    assert bool((got[0] > 1).any()) and bool((got[0] == 1).any())
+    for want in (hamming.neighbor_counts_twin(qt, kt, length),
+                 hamming.neighbor_probe_twin(qt, kt, length)):
+        for g, w in zip(got, want):
+            _eq(g, w)
+    if len(kept) > 16:
+        assert bool((got[0] == 1).any()) and bool((got[0] == 0).any())
+    if kind == "duplicates":
+        assert bool((got[0] > 1).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,nk,kind", HAMMING_CASES + [(0, 3000, "mixed lengths")])
+def test_k5_kernel_matches_twin(cuda, length, nk, kind):
+    """K5 on a shuffled kept table (codes of 8..16 bases in the mixed
+    case) against its brute-force twin, the probe twin and K4."""
+    rng = np.random.RandomState(100 + length + nk)
+    if kind == "mixed lengths":
+        parts = [_hamming_case(rng, b, nk // 9, "unique") for b in range(8, 17)]
+        q = np.concatenate([p[0] for p in parts])
+        kept = np.unique(np.concatenate([p[1] for p in parts]))
+    else:
+        q, kept = _hamming_case(rng, length, nk, kind)
+    qt = barcodes_to_torch(q).to(cuda)
+    kt = barcodes_to_torch(kept).to(cuda)
+    perm = torch.from_numpy(rng.permutation(len(kept))).to(cuda)
+    got = hamming.neighbor_counts_brute(qt, kt[perm])
+    torch.cuda.synchronize()
+    probe = hamming.neighbor_probe_twin(qt, kt, hamming.used_positions(qt, kt), values=True)
+    for want in (hamming.neighbor_counts_brute_twin(qt, kt[perm]), probe):
+        for g, w in zip(got, want):
+            _eq(g, w)
+    if len(kept) > 16:
+        assert bool((got[0] == 1).any()) and bool((got[0] == 0).any())
+    if length:
+        cnt4, idx4 = hamming.neighbor_counts(qt, kt, length)
+        hit = cnt4 > 0
+        _eq(got[0], cnt4)
+        _eq(got[1][hit], kt[idx4[hit].long()])
 
 
 @pytest.mark.cuda

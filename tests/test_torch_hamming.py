@@ -1,8 +1,9 @@
 """The port's Hamming<=1 rescue search (alevin_fry_tpu_torch/ops/hamming.py,
-the wrapper of kernel K4) on the CPU, where it runs its plain PyTorch
-twin, against the reference's MXU kernel in interpret mode and its host
-search; and the lengths K4 does not take, which go to K5
-(tests/test_torch_hamming_brute.py has K5 itself).
+the wrapper of kernel K4) on the CPU, where it runs the plain PyTorch
+probe twin, against the one-hot and brute-force twins, the reference's
+MXU kernel in interpret mode and its host search; and the lengths K4
+does not take, which go to K5 (tests/test_torch_hamming_brute.py has K5
+itself).
 
 Inputs come from numpy seeds and the outputs are integers, so every
 comparison is exact equality.
@@ -14,7 +15,9 @@ import torch
 
 from alevin_fry_tpu.ops import barcodes as ref_bc
 from alevin_fry_tpu.ops.pallas_hamming import find_neighbors_mxu, find_neighbors_pallas
+from alevin_fry_tpu_torch.interop import barcodes_to_torch
 from alevin_fry_tpu_torch.ops import barcodes, hamming
+from hamming_cases import PROBE_CASES, probe_case
 
 CPU = torch.device("cpu")
 
@@ -67,15 +70,50 @@ def test_rescue_search_empty_inputs(nq, nk):
     assert len(cnt) == len(rep) == nq and not cnt.any() and not rep.any()
 
 
+@pytest.mark.parametrize("kind", PROBE_CASES)
+def test_probe_twin_matches_brute_twins_and_reference(kind):
+    """The probe twin (the kernels' algorithm in plain PyTorch, which the
+    K4 wrapper runs for CPU tensors) equals the one-hot twin, K5's brute
+    twin, the reference's MXU kernel in interpret mode and its host
+    search.  The host search counts a duplicated kept code once, so it
+    is held to the hits and their codes there."""
+    queries, kept, length = probe_case(kind)
+    q, k = barcodes_to_torch(queries), barcodes_to_torch(kept)
+    cnt, idx = hamming.neighbor_counts(q, k, length)
+    for want in (hamming.neighbor_probe_twin(q, k, length),
+                 hamming.neighbor_counts_twin(q, k, length)):
+        assert torch.equal(cnt, want[0]) and torch.equal(idx, want[1])
+    b_cnt, b_rep = hamming.neighbor_counts_brute_twin(q, k)
+    hit = cnt > 0
+    assert torch.equal(cnt, b_cnt) and torch.equal(b_rep[hit], k[idx[hit].long()])
+    assert bool((b_rep[~hit] == -1).all()) and bool((idx[~hit] == hamming.I32_MAX).all())
+    rep = np.where(hit.numpy(), kept[np.minimum(idx.numpy(), len(kept) - 1)], np.uint64(0))
+    m_cnt, m_rep = find_neighbors_mxu(queries, kept, length, interpret=True)
+    np.testing.assert_array_equal(cnt.numpy(), m_cnt)
+    np.testing.assert_array_equal(rep, m_rep)
+    h_cnt, h_rep = ref_bc.find_neighbors_batch(queries, np.unique(kept), length)
+    np.testing.assert_array_equal(hit.numpy(), h_cnt > 0)
+    np.testing.assert_array_equal(rep[h_cnt > 0], h_rep[h_cnt > 0])
+    if kind != "duplicates":
+        np.testing.assert_array_equal(cnt.numpy(), h_cnt)
+    else:
+        assert (cnt.numpy() > h_cnt).any()
+    assert bool((cnt == 1).any()) and (kind == "query_is_kept" or bool((cnt == 0).any()))
+    if kind == "query_is_kept":
+        assert bool((cnt > 1).any()) and bool((cnt >= 1).all())
+
+
 def test_twin_chunks_agree_with_one_block(monkeypatch):
     queries, kept = _case(12, 3)
     q = torch.from_numpy(queries.view(np.int64))
     k = torch.from_numpy(kept.view(np.int64))
-    whole = hamming.neighbor_counts_twin(q, k, 12)
+    whole = hamming.neighbor_counts_twin(q, k, 12), hamming.neighbor_probe_twin(q, k, 12)
     monkeypatch.setattr(hamming, "_TWIN_BLOCK_ELEMS", 7 * len(kept))
-    chunked = hamming.neighbor_counts_twin(q, k, 12)
-    for a, b in zip(whole, chunked):
-        assert torch.equal(a, b)
+    monkeypatch.setattr(hamming, "_PROBE_TWIN_BLOCK_ELEMS", 7 * 37)
+    chunked = hamming.neighbor_counts_twin(q, k, 12), hamming.neighbor_probe_twin(q, k, 12)
+    for w, c in zip(whole, chunked):
+        for a, b in zip(w, c):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("length", [1, 33])

@@ -1,8 +1,9 @@
 """Kernel K5 of the port (``alevin_fry_tpu_torch/ops/hamming.py``:
-:func:`neighbor_counts_brute`, the brute-force Hamming<=1 search that
-returns the smallest neighbour by unsigned value) on the CPU, where its
-plain PyTorch twin runs, against the reference's brute-force Pallas
-kernel in interpret mode and its host search; the dispatch of
+:func:`neighbor_counts_brute`, the Hamming<=1 search over whole words
+that returns the smallest neighbour by unsigned value) on the CPU, where
+the plain PyTorch probe twin runs, against its brute-force twin, the
+reference's brute-force Pallas kernel in interpret mode and its host
+search; the dispatch of
 ``AFT_RESCUE_BACKEND``; and the reference's kept-padding fault, which
 the port does not copy.
 
@@ -16,8 +17,9 @@ import torch
 
 from alevin_fry_tpu.ops import barcodes as ref_bc
 from alevin_fry_tpu.ops.pallas_hamming import find_neighbors_pallas
-from alevin_fry_tpu_torch.interop import barcodes_to_torch
+from alevin_fry_tpu_torch.interop import barcodes_from_torch, barcodes_to_torch
 from alevin_fry_tpu_torch.ops import barcodes, hamming
+from hamming_cases import PROBE_CASES, probe_case
 
 CPU = torch.device("cpu")
 # the reference pads its kept table to a multiple of 1024 with this
@@ -77,8 +79,75 @@ def test_k5_twin_outputs_and_chunks(monkeypatch):
     assert cnt.dtype == torch.int32 and rep.dtype == torch.int64
     assert bool((rep[cnt == 0] == -1).all()) and bool((rep[cnt > 0] < 0).any())
     monkeypatch.setattr(hamming, "_BRUTE_TWIN_BLOCK_ELEMS", 7 * len(kept))
-    for a, b in zip((cnt, rep), hamming.neighbor_counts_brute(q, k)):
-        assert torch.equal(a, b)
+    monkeypatch.setattr(hamming, "_PROBE_TWIN_BLOCK_ELEMS", 7 * 97)
+    for got in (hamming.neighbor_counts_brute(q, k), hamming.neighbor_counts_brute_twin(q, k)):
+        for a, b in zip((cnt, rep), got):
+            assert torch.equal(a, b)
+
+
+K5_CASES = PROBE_CASES + ["mixed_lengths", "top_position_from_queries"]
+
+
+def _k5_case(kind):
+    """(queries, kept in shuffled order, bases) for K5: the probe cases,
+    codes of 8 to 16 bases in one table, and 10-base codes with one
+    query whose 14th base is set, so that the positions the probes
+    cover come from the queries (its one neighbour, ``anchor``, differs
+    from it there); no query within distance 1 of the reference's
+    padding."""
+    rng = np.random.RandomState(sum(map(ord, kind)))
+    anchor = None
+    if kind == "mixed_lengths":
+        length = 16
+        kept = np.unique(np.concatenate([
+            rng.randint(0, 1 << 63, 40, dtype=np.uint64) & np.uint64((1 << (2 * b)) - 1)
+            for b in range(8, 17)]))
+        pos = rng.randint(0, length, 150).astype(np.uint64)
+        queries = np.concatenate([kept[:100], kept[100:250] ^ (np.uint64(2) << (np.uint64(2) * pos)),
+                                  rng.randint(0, 1 << 32, 60, dtype=np.uint64)])
+    elif kind == "top_position_from_queries":
+        length = 14
+        kept = np.unique(rng.randint(0, 1 << 20, 300).astype(np.uint64))
+        anchor = kept[17]
+        pos = rng.randint(0, 10, 100).astype(np.uint64)
+        queries = np.concatenate([kept[:100], kept[100:200] ^ (np.uint64(3) << (np.uint64(2) * pos)),
+                                  rng.randint(0, 1 << 20, 60).astype(np.uint64),
+                                  [anchor ^ np.uint64(2 << 26)]])
+    else:
+        queries, kept, length = probe_case(kind)
+    queries = queries[ref_bc.hamming_2bit(queries, np.full(len(queries), REF_KEPT_PAD)) > 1]
+    return queries, rng.permutation(kept), length, anchor
+
+
+@pytest.mark.parametrize("kind", K5_CASES)
+def test_k5_probe_twin_matches_brute_twin_and_reference(kind):
+    """K5's wrapper on the CPU (the probe twin over the kept table sorted
+    in unsigned order, at the positions the codes use) equals its
+    brute-force twin, the reference's brute-force kernel in interpret
+    mode and its host search (which counts a duplicated kept code once:
+    held to the hits and their codes there)."""
+    queries, kept, length, anchor = _k5_case(kind)
+    q, k = barcodes_to_torch(queries), barcodes_to_torch(kept)
+    cnt, rep = hamming.neighbor_counts_brute(q, k)
+    ks = hamming.sort_unsigned(k)
+    positions = hamming.used_positions(q, ks)
+    for want in (hamming.neighbor_probe_twin(q, ks, positions, values=True),
+                 hamming.neighbor_counts_brute_twin(q, k)):
+        assert torch.equal(cnt, want[0]) and torch.equal(rep, want[1])
+    hit = cnt.numpy() > 0
+    rep = np.where(hit, barcodes_from_torch(rep), np.uint64(0))
+    p_cnt, p_rep = find_neighbors_pallas(queries, kept, length, interpret=True)
+    np.testing.assert_array_equal(cnt.numpy(), p_cnt)
+    np.testing.assert_array_equal(rep, p_rep)
+    h_cnt, h_rep = ref_bc.find_neighbors_batch(queries, np.unique(kept), length)
+    np.testing.assert_array_equal(hit, h_cnt > 0)
+    np.testing.assert_array_equal(rep[hit], h_rep[hit])
+    if kind != "duplicates":
+        np.testing.assert_array_equal(cnt.numpy(), h_cnt)
+    assert hit.any()
+    if anchor is not None:
+        assert (positions, hamming.used_positions(k, ks)) == (14, 10)
+        assert (int(cnt[-1]), int(rep[-1])) == (1, int(anchor))
 
 
 @pytest.mark.parametrize("length", [31, 32])

@@ -141,7 +141,8 @@ def test_non_cpu_tensors_never_reach_a_twin(monkeypatch):
     monkeypatch.setattr(segscan._kernels, "load", _load)
     for name in ("scan_fwd_twin", "scan_min_twin", "scan_lex_twin"):
         monkeypatch.setattr(segscan, name, _refuse)
-    monkeypatch.setattr(hamming, "neighbor_counts_twin", _refuse)
+    for name in ("neighbor_counts_twin", "neighbor_counts_brute_twin", "neighbor_probe_twin"):
+        monkeypatch.setattr(hamming, name, _refuse)
     meta = torch.device("meta")
     i32 = torch.empty(8, dtype=torch.int32, device=meta)
     i64 = torch.empty(8, dtype=torch.int64, device=meta)
@@ -151,6 +152,7 @@ def test_non_cpu_tensors_never_reach_a_twin(monkeypatch):
         lambda: segscan.scan_min(i32, True),
         lambda: segscan.scan_lex(i64, True, False),
         lambda: hamming.neighbor_counts(i64, i64, 16),
+        lambda: hamming.neighbor_counts_brute(i64, i64),
     ]
     for call in calls:
         with pytest.raises((_NoKernels, ValueError)):
