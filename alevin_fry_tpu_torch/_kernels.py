@@ -113,13 +113,14 @@ def load() -> ctypes.CDLL:
     P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.aft_segscan_scratch_bytes.argtypes = [I64]
     lib.aft_segscan_scratch_bytes.restype = I64
+    lib.aft_segscan_tile.argtypes = []
     lib.aft_segscan_fwd.argtypes = [P, P, P, P, I64, P, P]
     lib.aft_segscan_min.argtypes = [P, P, I64, I32, P, P]
     lib.aft_segscan_lex.argtypes = [P, P, I64, I32, I32, P, P]
     lib.aft_hamming1.argtypes = [P, I64, P, I64, I32, P, P, P]
     lib.aft_hamming1_min.argtypes = [P, I64, P, I64, I32, P, P, P]
     lib.aft_hamming1_plan.argtypes = [I64, P]
-    for fn in ("aft_segscan_fwd", "aft_segscan_min", "aft_segscan_lex",
+    for fn in ("aft_segscan_tile", "aft_segscan_fwd", "aft_segscan_min", "aft_segscan_lex",
                "aft_hamming1", "aft_hamming1_min", "aft_hamming1_plan"):
         getattr(lib, fn).restype = I32
     _lib = lib

@@ -17,6 +17,11 @@ The three scans are hand-written CUDA kernels (``csrc/segscan.cu``):
   ``hi << 32 | lo + 2^31``, whose signed order is the pairs'
   lexicographic order.
 
+K1 and K3 are one launch each of a single-pass scan with decoupled
+look-back; K2 is still three launches (reduce, scan the tile totals,
+rescan).  Every launch takes a fresh scratch buffer, which the C entry
+point clears where the single-pass scan needs it.
+
 Each kernel has a plain PyTorch twin (``*_twin``) in this module: the
 cumulative formulas of ``alevin_fry_tpu/ops/crlike_device.py`` over
 int64.  A wrapper takes the twin only for tensors on the CPU; for a

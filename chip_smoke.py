@@ -12,7 +12,9 @@ Phases, one line each:
    parallel) and prints the build seconds and each kernel's registers
    and shared memory;
 2. runs kernels K1-K5 on the card against their plain PyTorch twins at
-   fixed shapes (exact integer equality): K4 and K5 against their
+   fixed shapes (exact integer equality): K1-K3 in every direction up to
+   134,217,731 rows (some 33k tiles of look-back), and the segment
+   toolkit built on them against its CPU result; K4 and K5 against their
    brute-force twins and the probe twin, with duplicated kept codes, 32-base
    codes that use bit 63, a one-code table, tables larger than the
    kernels' shared-memory sample, and the shape of a 50M-read run (1.7M
@@ -28,7 +30,8 @@ Phases, one line each:
    for field; then replays each kernel and its twin on the inputs the
    main path gave it (exact equality, CUDA-event times, the bound from
    the bytes each kernel must move, and the time of the one PyTorch
-   call that computes the same function where there is one);
+   call that computes the same function where there is one; beside K1,
+   torch.cumsum's time on its input as a yardstick of one pass);
 5. generates a 10x-scATAC-shaped synthetic dataset
    (tests/synth_hard.py::make_hard_atac_dataset: 10,000 cells, 20M
    fragments, 24 chromosomes of 130 Mb, 16-base barcodes, a 744k
@@ -73,7 +76,11 @@ N_CELLS, N_READS, N_GENES, THREADS = 10_000, 20_000_000, 20_000, 8
 ATAC_SEED, ATAC_CELLS, ATAC_FRAGS, ATAC_CHRS, ATAC_CHR_LEN, ATAC_AMBIENT = (
     11, 10_000, 20_000_000, 24, 130_000_000, 30)
 ATAC_MAX_RECORDS = 6_000_000
-SEGSCAN_SIZES = (1, 4097, 32769, 4_194_304, 12_000_001)
+# the last is some 33k tiles of the single-pass scan, so its look-back
+# crosses tens of thousands of tiles; the CPU toolkit comparison stops at
+# SEGSCAN_TOOLKIT_MAX_N
+SEGSCAN_SIZES = (1, 4097, 32769, 4_194_304, 12_000_001, 134_217_731)
+SEGSCAN_TOOLKIT_MAX_N = 12_000_001
 SEGSCAN_TIMED_N = 4_194_304
 # (queries, kept, bases, duplicated kept codes) of the K4 and K5 checks;
 # the first is also timed.  30,000 and more kept codes exceed the
@@ -120,7 +127,10 @@ def event_ms(fn, reps: int) -> float:
 
 
 def max_abs_err(got, want) -> int:
-    """Largest |kernel - twin| over the outputs; raises unless 0."""
+    """Largest |kernel - twin| over the outputs (a tensor or a tuple of
+    them); raises unless 0."""
+    if hasattr(got, "cpu"):
+        got, want = (got,), (want,)
     err = max(int((g.cpu().long() - w.cpu().long()).abs().max()) if g.numel() else 0
               for g, w in zip(got, want))
     if err:
@@ -137,8 +147,9 @@ def ptxas_summary(text: str) -> list:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             op = re.search(r"(FwdOp|MinOp|LexOp|FirstIndex|MinValue)", m.group(1))
-            kern = re.search(r"(tile_reduce|agg_scan|tile_scan|hamming1_probe)_kernel",
-                             m.group(1))
+            kern = re.search(
+                r"(tile_reduce|agg_scan|tile_scan|lookback_scan|hamming1_probe)_kernel",
+                m.group(1))
             name = (kern.group(1) if kern else m.group(1)) + (f"<{op.group(1)}>" if op else "")
             spill = "0"
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -214,6 +225,20 @@ def hamming_case(nq: int, nk: int, length: int, seed: int, dups: bool = False):
     return torch.from_numpy(q.view(np.int64)), torch.from_numpy(kept.view(np.int64))
 
 
+def scan_kernels_check(x, start, val, grp_ord) -> None:
+    """K1, K2 (both directions) and K3 (all four) against their twins on
+    the card; raises on any difference."""
+    from alevin_fry_tpu_torch.ops import segscan
+
+    max_abs_err(segscan.scan_fwd(x, start), segscan.scan_fwd_twin(x, start))
+    for rev in (False, True):
+        max_abs_err(segscan.scan_min(val, rev), segscan.scan_min_twin(val, rev))
+    w = segscan.pack_pair(grp_ord, val)
+    for bigger in (False, True):
+        for rev in (False, True):
+            max_abs_err(segscan.scan_lex(w, bigger, rev), segscan.scan_lex_twin(w, bigger, rev))
+
+
 def phase2(dev, card: str) -> None:
     import torch
 
@@ -222,7 +247,10 @@ def phase2(dev, card: str) -> None:
     for n in SEGSCAN_SIZES:
         cpu = segscan_case(n, n % 9973)
         cuda = [t.to(dev) for t in cpu]
-        max_abs_err(segscan_outputs(*cuda), segscan_outputs(*cpu))
+        x, st, val, _, grp = cuda
+        scan_kernels_check(x, st, val, grp)
+        if n <= SEGSCAN_TOOLKIT_MAX_N:
+            max_abs_err(segscan_outputs(*cuda), segscan_outputs(*cpu))
     n = SEGSCAN_TIMED_N
     x, st, val, mark, grp = [t.to(dev) for t in segscan_case(n, 1)]
     w = segscan.pack_pair(grp, val)
@@ -232,7 +260,8 @@ def phase2(dev, card: str) -> None:
         "K3": (lambda: segscan.scan_lex(w, True), lambda: segscan.scan_lex_twin(w, True)),
     }
     ms = {k: (event_ms(a, 20), event_ms(b, 20)) for k, (a, b) in times.items()}
-    print(f"phase 2: K1-K3 equal their twins at n={list(SEGSCAN_SIZES)}; at n={n} "
+    print(f"phase 2: K1-K3 equal their twins at n={list(SEGSCAN_SIZES)}, the segment "
+          f"toolkit its CPU result up to n={SEGSCAN_TOOLKIT_MAX_N}; at n={n} "
           + ", ".join(f"{k} {a:.4f} ms (twin {b:.4f} ms)" for k, (a, b) in ms.items())
           + f" [{card}]", flush=True)
 
@@ -347,7 +376,7 @@ def device_busy(prof) -> tuple:
         spans.append((start, end))
         name = e.name
         kind = (" ".join(name.split()[:2]) if name.startswith(("Memcpy", "Memset"))
-                else "K1-K3" if re.search(r"tile_reduce|agg_scan|tile_scan", name)
+                else "K1-K3" if re.search(r"tile_reduce|agg_scan|tile_scan|lookback_scan", name)
                 else "K5" if "MinValue" in name
                 else "K4" if "hamming1" in name
                 else "torch sort" if re.search(r"[Ss]ort", name) else "other torch kernels")
@@ -488,6 +517,8 @@ def replay(captured: dict, keys: tuple, launches: dict, path: str, label: str,
     exact equality, CUDA-event times, the bound and the library call's
     time; one row of the kernels' JSON line each, with the path's launch
     count."""
+    import torch
+
     from alevin_fry_tpu_torch.ops import hamming, segscan
 
     pairs = {
@@ -503,8 +534,6 @@ def replay(captured: dict, keys: tuple, launches: dict, path: str, label: str,
         kern, twin = pairs[key]
         _, args, kw = captured[key]
         got, want = kern(*args, **kw), twin(*args, **kw)
-        if not isinstance(got, tuple):
-            got, want = (got,), (want,)
         err = max_abs_err(got, want)
         shape = ([len(args[0]), len(args[1])] + list(args[2:])
                  if key in ("K4", "K5") else [args[0].numel()])
@@ -518,6 +547,10 @@ def replay(captured: dict, keys: tuple, launches: dict, path: str, label: str,
             "bound_ms": bound_ms(key, args), "bound_by": "bytes",
             "library_ms": event_ms(lib, 10) if lib else None,
         }
+        if key == "K1":
+            # one CUB single-pass scan over 8 B/row: what one pass reaches on
+            # this card; it does not compute K1's function
+            row["cumsum_ms"] = event_ms(lambda: torch.cumsum(args[0], 0, dtype=torch.int32), 10)
         if key in brute_twins:
             brute = brute_twins[key]
             max_abs_err(got, brute(*args, **kw))
@@ -527,7 +560,8 @@ def replay(captured: dict, keys: tuple, launches: dict, path: str, label: str,
         f"{r['name']} {r['shape']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms"
         + (f", brute-force twin {r['brute_ms']:.4f} ms" if "brute_ms" in r else "")
         + f", bound {r['bound_ms']:.5f} ms"
-        + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "") + ")"
+        + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
+        + (f", torch.cumsum {r['cumsum_ms']:.4f} ms" if "cumsum_ms" in r else "") + ")"
         for r in rows) + f" [{card}]", flush=True)
     return rows
 

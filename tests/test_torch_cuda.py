@@ -52,6 +52,71 @@ def test_k1_k2_k3_kernels_match_twins(cuda, n):
             _eq(segscan.scan_lex(w, bigger, rev), segscan.scan_lex_twin(w, bigger, rev))
 
 
+# n of the single-pass scan checks, from the kernels' tile (elements)
+LOOKBACK_SIZES = {
+    "1": lambda tile: 1, "tile-1": lambda tile: tile - 1, "tile": lambda tile: tile,
+    "tile+1": lambda tile: tile + 1, "3tile+5": lambda tile: 3 * tile + 5,
+    "1000003": lambda tile: 1_000_003, "30000001": lambda tile: 30_000_001,
+}
+REPEATS = 50  # launches held against one twin result, to catch a look-back race
+
+
+def _start_pattern(kind, n, tile, rng):
+    start = np.zeros(n, dtype=bool)
+    if kind == "row 0":
+        start[0] = True
+    elif kind == "every row":
+        start[:] = True
+    elif kind == "tile ends":
+        start[tile - 1::tile] = True
+    else:
+        start = rng.rand(n) < 0.2
+    return start
+
+
+def _same_every_time(launch, want):
+    for _ in range(REPEATS):
+        got = launch()
+        got = got if isinstance(got, tuple) else (got,)
+        want_t = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want_t):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["row 0", "every row", "tile ends", "random"])
+@pytest.mark.parametrize("size", list(LOOKBACK_SIZES))
+def test_k1_k3_single_pass_scan_exact(cuda, size, pattern):
+    """K1 and K3 (the single-pass look-back scan) equal their twins at
+    tile edges and beyond, on views whose pointer sits 4 or 8 bytes off
+    the 16-byte grid (and a K1 mask on another grid than its values),
+    with K3 in all four directions, each launch repeated."""
+    from alevin_fry_tpu_torch import _kernels
+
+    tile = _kernels.load().aft_segscan_tile()
+    n = LOOKBACK_SIZES[size](tile)
+    rng = np.random.RandomState(n % 10007 + len(pattern))
+    start = _start_pattern(pattern, n + 1, tile, rng)
+    x = torch.from_numpy(rng.randint(0, 5, n + 1).astype(np.int32)).to(cuda)
+    st = torch.from_numpy(start).to(cuda)
+    views = {"aligned": (x[:n], st[:n]), "offset": (x[1:], st[1:]),
+             "mask on its own grid": (x[1:], st[1:].clone())}
+    for xv, sv in views.values():
+        want = segscan.scan_fwd_twin(xv, sv)
+        _same_every_time(lambda: segscan.scan_fwd(xv, sv), want)
+
+    grp = torch.from_numpy(np.cumsum(start).astype(np.int32)).to(cuda)
+    lo = torch.from_numpy(rng.randint(-(1 << 31), (1 << 31) - 1, n + 1).astype(np.int32)).to(cuda)
+    rising, falling = segscan.pack_pair(grp, lo), segscan.pack_pair(-grp, lo)
+    for bigger in (False, True):
+        for rev in (False, True):
+            # words that keep changing the running value in the scan's direction
+            w = rising if bigger != rev else falling
+            for wv in (w[:n], w[1:]):
+                want = segscan.scan_lex_twin(wv, bigger, rev)
+                _same_every_time(lambda: segscan.scan_lex(wv, bigger, rev), want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [4097, 40_000])
 def test_segment_toolkit_cuda_matches_cpu(cuda, n):
