@@ -113,7 +113,7 @@ def load() -> ctypes.CDLL:
     P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.aft_segscan_scratch_bytes.argtypes = [I64]
     lib.aft_segscan_scratch_bytes.restype = I64
-    lib.aft_segscan_tile.argtypes = []
+    lib.aft_segscan_tile.argtypes = [I32]
     lib.aft_segscan_fwd.argtypes = [P, P, P, P, I64, P, P]
     lib.aft_segscan_min.argtypes = [P, P, I64, I32, P, P]
     lib.aft_segscan_lex.argtypes = [P, P, I64, I32, I32, P, P]

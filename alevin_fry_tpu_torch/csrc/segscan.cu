@@ -16,7 +16,7 @@
 //
 // On the TPU the grid ran in order on one core and carried the scan state
 // through SMEM between grid steps.  Blocks on the H100 run in parallel and
-// in no order.  K1 and K3 run lookback_scan_kernel, a single-pass scan with
+// in no order.  All three run lookback_scan_kernel, a single-pass scan with
 // decoupled look-back (Merrill and Garland; the scheme of CUB's DeviceScan):
 // every element is read once and every output written once, in one launch.
 //   * A block takes its tile index from an atomicAdd on a counter in the
@@ -34,7 +34,8 @@
 //     counter and the status words on the caller's stream before each
 //     launch, so no flag survives from an earlier call.
 //   * Memory is read and written warp-striped in 16-byte vectors (int4 of
-//     x with the 4 mask bytes as one 32-bit word, longlong2 of K3's words):
+//     K1's x with the 4 mask bytes as one 32-bit word, int4 of K2's values,
+//     longlong2 of K3's words):
 //     lane l of a warp takes the l-th vector of 32 consecutive ones, so
 //     one warp instruction touches one contiguous 512-byte span.  Each
 //     thread scans its vector serially, the warp scans the thread totals
@@ -54,21 +55,17 @@
 //     the back and reverses each vector's elements in registers.
 //   * The combine need not commute (K1's is not): every combine takes the
 //     earlier span first, in the tile and over the look-back window.
-// Bound: device memory.  K1 reads 5 B and writes 8 B per element, K3 reads
-// and writes 8 B.  Tile: 256 threads x 16 elements, the fastest of 8, 12
-// and 16 on the RNA path's inputs (24 and more exceed the 48 KB of static
-// shared memory for K3); PERF.md has the times.
+// Bound: device memory.  K1 reads 5 B and writes 8 B per element, K2 reads
+// and writes 4 B, K3 reads and writes 8 B.  Tile: 256 threads x Op::Items
+// elements.  K1 and K3 take 16, the fastest of 8, 12 and 16 on the RNA
+// path's inputs (24 and more exceed the 48 KB of static shared memory for
+// K3).  K2 moves fewer bytes per element while its look-back waits as
+// long, so a larger tile pays: it takes 32, the fastest of 16, 24 and 32
+// on the paths' inputs (PERF.md has the ranking).
 //
-// K2 still runs the first port's reduce-then-scan in three launches
-// (tile_reduce_kernel, agg_scan_kernel, tile_scan_kernel): each 4096-element
-// tile reduces to one aggregate, one block scans the aggregates, and every
-// tile rescans its elements seeded with its prefix.  It reads the input
-// twice, with scalar accesses 64 bytes apart across a warp.
-//
-// Reverse scans map logical index j to n - 1 - j instead of materialising a
-// flipped copy.  The kernels allocate nothing: the caller passes a scratch
-// buffer of aft_segscan_scratch_bytes(n) bytes, and launches go on the
-// caller's stream.
+// The kernels allocate nothing: the caller passes a scratch buffer of
+// aft_segscan_scratch_bytes(n) bytes, and launches go on the caller's
+// stream.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -77,16 +74,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 16;
-constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-// lookback_scan_kernel: elements per thread and per tile, and the scratch
-// layout (tile counter, one status word per tile, then the aggregates and
-// the inclusive prefixes, 8 bytes each).
-constexpr int kScanItems = 16;
-constexpr int kScanTile = kThreads * kScanItems;
+// lookback_scan_kernel: the fewest elements per thread of any op (the
+// scratch bound follows its tile), and the scratch layout (tile counter,
+// one status word per tile, then the aggregates and the inclusive
+// prefixes, 8 bytes each).
+constexpr int kMinItems = 16;
 constexpr unsigned kStatusX = 0, kStatusA = 1, kStatusP = 2;
 
 __device__ __forceinline__ int wrap_add(int a, int b) {
@@ -109,11 +104,17 @@ __device__ __forceinline__ long long shfl_up(long long v, int d) {
 __device__ __forceinline__ Fwd shfl_up(Fwd v, int d) {
   return Fwd{__shfl_up_sync(kFull, v.s, d), __shfl_up_sync(kFull, v.m, d)};
 }
+__device__ __forceinline__ int shfl_down(int v, int d) {
+  return __shfl_down_sync(kFull, v, d);
+}
 __device__ __forceinline__ long long shfl_down(long long v, int d) {
   return __shfl_down_sync(kFull, v, d);
 }
 __device__ __forceinline__ Fwd shfl_down(Fwd v, int d) {
   return Fwd{__shfl_down_sync(kFull, v.s, d), __shfl_down_sync(kFull, v.m, d)};
+}
+__device__ __forceinline__ int shfl_idx(int v, int src) {
+  return __shfl_sync(kFull, v, src);
 }
 __device__ __forceinline__ long long shfl_idx(long long v, int src) {
   return __shfl_sync(kFull, v, src);
@@ -122,11 +123,19 @@ __device__ __forceinline__ Fwd shfl_idx(Fwd v, int src) {
   return Fwd{__shfl_sync(kFull, v.s, src), __shfl_sync(kFull, v.m, src)};
 }
 
+// A state as the 8-byte aggregate and prefix slots hold it (an int
+// zero-extended).
+__device__ __forceinline__ unsigned long long to_bits(int v) {
+  return (unsigned long long)(unsigned)v;
+}
 __device__ __forceinline__ unsigned long long to_bits(long long v) {
   return (unsigned long long)v;
 }
 __device__ __forceinline__ unsigned long long to_bits(Fwd v) {
   return (unsigned long long)(unsigned)v.s | ((unsigned long long)(unsigned)v.m << 32);
+}
+__device__ __forceinline__ void from_bits(unsigned long long b, int* v) {
+  *v = (int)(unsigned)b;
 }
 __device__ __forceinline__ void from_bits(unsigned long long b, long long* v) {
   *v = (long long)b;
@@ -156,6 +165,7 @@ __device__ __forceinline__ void reverse_lanes(E (&e)[V]) {
 struct FwdOp {
   using T = Fwd;
   static constexpr int V = 4;  // one int4 of x per vector
+  static constexpr int Items = 16;
   struct In {
     int x[V];
     unsigned char f[V];
@@ -229,17 +239,56 @@ struct FwdOp {
 
 struct MinOp {
   using T = int;
+  static constexpr int V = 4;  // one int4 per vector
+  static constexpr int Items = 32;
+  struct alignas(16) In {
+    int e[V];
+  };
+  struct Out {
+    int o[V];
+  };
   const int* e;
   int* out;
+  bool vout;
+
+  void place(int phase) { vout = on_grid(out, 4, V, phase); }
   __device__ T identity() const { return INT_MAX; }
   __device__ T combine(T a, T z) const { return z < a ? z : a; }
-  __device__ T load(long long p) const { return e[p]; }
-  __device__ void store(long long p, T v) const { out[p] = v; }
+  __device__ T elem(const In& in, int k) const { return in.e[k]; }
+  __device__ void put(Out& o, int k, T v) const { o.o[k] = v; }
+  // Elements outside [0, n) read as INT_MAX, the identity.  Vectors load
+  // and store with the evict-first hint (measured faster, as for K1).
+  __device__ void load(In& in, long long j0, bool whole, long long n) const {
+    if (whole) {
+      const int4 v = __ldcs(reinterpret_cast<const int4*>(e + j0));
+      in.e[0] = v.x, in.e[1] = v.y, in.e[2] = v.z, in.e[3] = v.w;
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const long long j = j0 + k;
+      in.e[k] = j >= 0 && j < n ? e[j] : INT_MAX;
+    }
+  }
+  __device__ void store(const Out& o, long long j0, bool whole, long long n) const {
+    if (whole && vout) {
+      __stcs(reinterpret_cast<int4*>(out + j0), make_int4(o.o[0], o.o[1], o.o[2], o.o[3]));
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const long long j = j0 + k;
+      if (j >= 0 && j < n) out[j] = o.o[k];
+    }
+  }
+  __device__ static void flip(In& in) { reverse_lanes<V>(in.e); }
+  __device__ static void flip(Out& o) { reverse_lanes<V>(o.o); }
 };
 
 struct LexOp {
   using T = long long;
   static constexpr int V = 2;  // one longlong2 per vector
+  static constexpr int Items = 16;
   struct alignas(16) In {
     long long w[V];
   };
@@ -285,11 +334,7 @@ struct LexOp {
   __device__ static void flip(Out& o) { reverse_lanes<V>(o.o); }
 };
 
-__device__ __forceinline__ long long phys(long long j, long long n, int reverse) {
-  return reverse ? n - 1 - j : j;
-}
-
-// --- single-pass scan (K1, K3) ------------------------------------------------
+// --- single-pass scan ---------------------------------------------------------
 
 __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
   asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
@@ -383,9 +428,10 @@ __global__ void __launch_bounds__(kThreads)
 lookback_scan_kernel(Op op, long long n, int reverse, int phase, ScanScratch s) {
   using T = typename Op::T;
   constexpr int V = Op::V;
-  constexpr int kSlots = kScanItems / V;  // vectors per thread
-  static_assert(kScanItems % V == 0, "kScanItems must be a multiple of the vector width");
-  static_assert(sizeof(typename Op::In) * kScanTile / V <= 47 * 1024,
+  constexpr int kSlots = Op::Items / V;  // vectors per thread
+  static_assert(Op::Items % V == 0, "Items must be a multiple of the vector width");
+  static_assert(Op::Items >= kMinItems, "the scratch bound assumes at least kMinItems");
+  static_assert(sizeof(typename Op::In) * kSlots * kThreads <= 47 * 1024,
                 "the staged tile must fit the 48 KB of static shared memory");
   __shared__ unsigned long long tile_idx;
   __shared__ T warp_pre[kWarps];
@@ -402,7 +448,7 @@ lookback_scan_kernel(Op op, long long n, int reverse, int phase, ScanScratch s) 
   // vector q holds elements q * V - phase ... q * V - phase + V - 1; logical
   // vector i of the scan is vector i, or nv - 1 - i from the back
   const long long nv = (n + phase + V - 1) / V;
-  const long long first = tile * (kScanTile / V) + (long long)warp * 32 * kSlots + lane;
+  const long long first = tile * (kSlots * kThreads) + (long long)warp * 32 * kSlots + lane;
   typename Op::In in[kSlots];
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
@@ -482,7 +528,8 @@ int run_lookback(Op op, const void* first, int size, long long n, int reverse, v
   const int phase = (int)(((uintptr_t)first / size) % Op::V);
   op.place(phase);
   const long long nv = (n + phase + Op::V - 1) / Op::V;
-  const long long n_tiles = (nv + kScanTile / Op::V - 1) / (kScanTile / Op::V);
+  constexpr long long kTileVectors = (long long)kThreads * Op::Items / Op::V;
+  const long long n_tiles = (nv + kTileVectors - 1) / kTileVectors;
   cudaError_t err = cudaMemsetAsync(scratch, 0, lookback_flag_bytes(n_tiles), st);
   if (err != cudaSuccess) return (int)err;
   lookback_scan_kernel<Op><<<(unsigned)n_tiles, kThreads, 0, st>>>(
@@ -490,137 +537,21 @@ int run_lookback(Op op, const void* first, int size, long long n, int reverse, v
   return (int)cudaGetLastError();
 }
 
-// --- reduce-then-scan in three launches (K2) ----------------------------------
-
-// Exclusive scan of one value per thread across the block (combine order
-// is earlier-then-later, so non-commutative states scan correctly).
-// ``total`` receives the block's inclusive aggregate.
-template <class Op>
-__device__ typename Op::T block_exclusive_scan(const Op& op, typename Op::T v,
-                                               typename Op::T* total) {
-  using T = typename Op::T;
-  __shared__ T warp_tot[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  T inc = warp_inclusive_scan(op, v, lane);
-  if (lane == 31) warp_tot[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    T t = lane < kWarps ? warp_tot[lane] : op.identity();
-#pragma unroll
-    for (int d = 1; d < kWarps; d <<= 1) {
-      T y = shfl_up(t, d);
-      if (lane >= d) t = op.combine(y, t);
-    }
-    if (lane < kWarps) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  T excl = shfl_up(inc, 1);
-  if (lane == 0) excl = op.identity();
-  T result = warp == 0 ? excl : op.combine(warp_tot[warp - 1], excl);
-  if (total != nullptr) *total = warp_tot[kWarps - 1];
-  __syncthreads();
-  return result;
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads)
-tile_reduce_kernel(Op op, long long n, int reverse, typename Op::T* aggs) {
-  using T = typename Op::T;
-  const long long base = (long long)blockIdx.x * kTile + (long long)threadIdx.x * kItems;
-  T v = op.identity();
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long j = base + k;
-    if (j < n) v = op.combine(v, op.load(phys(j, n, reverse)));
-  }
-  T total;
-  block_exclusive_scan(op, v, &total);
-  if (threadIdx.x == 0) aggs[blockIdx.x] = total;
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads)
-agg_scan_kernel(Op op, long long n_tiles, const typename Op::T* aggs,
-                typename Op::T* prefix) {
-  using T = typename Op::T;
-  T carry = op.identity();
-  for (long long start = 0; start < n_tiles; start += kTile) {
-    const long long base = start + (long long)threadIdx.x * kItems;
-    T v = op.identity();
-    for (int k = 0; k < kItems; ++k) {
-      if (base + k < n_tiles) v = op.combine(v, aggs[base + k]);
-    }
-    T total;
-    T run = op.combine(carry, block_exclusive_scan(op, v, &total));
-    for (int k = 0; k < kItems; ++k) {
-      if (base + k < n_tiles) {
-        prefix[base + k] = run;
-        run = op.combine(run, aggs[base + k]);
-      }
-    }
-    carry = op.combine(carry, total);
-  }
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads)
-tile_scan_kernel(Op op, long long n, int reverse, const typename Op::T* prefix) {
-  using T = typename Op::T;
-  const long long base = (long long)blockIdx.x * kTile + (long long)threadIdx.x * kItems;
-  T items[kItems];
-  T v = op.identity();
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long j = base + k;
-    items[k] = j < n ? op.load(phys(j, n, reverse)) : op.identity();
-    v = op.combine(v, items[k]);
-  }
-  T run = op.combine(prefix[blockIdx.x], block_exclusive_scan(op, v, nullptr));
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long j = base + k;
-    run = op.combine(run, items[k]);
-    if (j < n) op.store(phys(j, n, reverse), run);
-  }
-}
-
-template <class Op>
-int run_scan(const Op& op, long long n, int reverse, void* scratch, void* stream) {
-  using T = typename Op::T;
-  if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long n_tiles = (n + kTile - 1) / kTile;
-  T* aggs = (T*)scratch;
-  T* prefix = aggs + n_tiles;
-  tile_reduce_kernel<Op><<<(unsigned)n_tiles, kThreads, 0, s>>>(op, n, reverse, aggs);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  agg_scan_kernel<Op><<<1, kThreads, 0, s>>>(op, n_tiles, aggs, prefix);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  tile_scan_kernel<Op><<<(unsigned)n_tiles, kThreads, 0, s>>>(op, n, reverse, prefix);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Scratch bytes a scan over n elements needs: the larger of the
-// single-pass layout (counter, status words, two 8-byte states per tile
-// at the smallest vector width, plus one tile for the grid's phase) and
-// the three-launch one (two 8-byte states per 4096-element tile).
+// Scratch bytes a scan over n elements needs, for any op: the counter,
+// the status words and two 8-byte states per tile at the smallest tile,
+// plus one tile for the grid's phase.
 long long aft_segscan_scratch_bytes(long long n) {
-  const long long lb_tiles = (n + 8) / kScanTile + 1;
-  const long long rs_tiles = (n + kTile - 1) / kTile;
-  const long long rs = 2 * 8 * (rs_tiles > 0 ? rs_tiles : 1);
-  const long long lb = lookback_bytes(lb_tiles);
-  return lb > rs ? lb : rs;
+  return lookback_bytes((n + 8) / (kThreads * kMinItems) + 1);
 }
 
-// Elements per tile of the single-pass scan (K1, K3).
-int aft_segscan_tile(void) { return kScanTile; }
+// Elements per tile of kernel K<k> (1, 2 or 3).
+int aft_segscan_tile(int k) {
+  return kThreads * (k == 1 ? FwdOp::Items : k == 2 ? MinOp::Items : LexOp::Items);
+}
 
 // K1: c = inclusive cumsum of x; b = running max of where(st, c - x, -1).
 int aft_segscan_fwd(const void* x, const void* st, void* c, void* b, long long n,
@@ -633,7 +564,7 @@ int aft_segscan_fwd(const void* x, const void* st, void* c, void* b, long long n
 int aft_segscan_min(const void* e, void* out, long long n, int reverse,
                     void* scratch, void* stream) {
   MinOp op{(const int*)e, (int*)out};
-  return run_scan(op, n, reverse, scratch, stream);
+  return run_lookback(op, e, 4, n, reverse, scratch, stream);
 }
 
 // K3: running max (bigger != 0) or min of packed int64 words, from the back

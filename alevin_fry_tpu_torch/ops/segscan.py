@@ -17,10 +17,9 @@ The three scans are hand-written CUDA kernels (``csrc/segscan.cu``):
   ``hi << 32 | lo + 2^31``, whose signed order is the pairs'
   lexicographic order.
 
-K1 and K3 are one launch each of a single-pass scan with decoupled
-look-back; K2 is still three launches (reduce, scan the tile totals,
-rescan).  Every launch takes a fresh scratch buffer, which the C entry
-point clears where the single-pass scan needs it.
+Each is one launch of a single-pass scan with decoupled look-back.
+Every launch takes a fresh scratch buffer, whose counter and status
+words the C entry point clears before the kernel runs.
 
 Each kernel has a plain PyTorch twin (``*_twin``) in this module: the
 cumulative formulas of ``alevin_fry_tpu/ops/crlike_device.py`` over

@@ -12,8 +12,9 @@ Phases, one line each:
    parallel) and prints the build seconds and each kernel's registers
    and shared memory;
 2. runs kernels K1-K5 on the card against their plain PyTorch twins at
-   fixed shapes (exact integer equality): K1-K3 in every direction up to
-   134,217,731 rows (some 33k tiles of look-back), and the segment
+   fixed shapes (exact integer equality): K1-K3, each one launch of the
+   single-pass look-back scan, in every direction up to 134,217,731 rows
+   (tens of thousands of tiles of look-back), and the segment
    toolkit built on them against its CPU result; K4 and K5 against their
    brute-force twins and the probe twin, with duplicated kept codes, 32-base
    codes that use bit 63, a one-code table, tables larger than the
@@ -30,8 +31,9 @@ Phases, one line each:
    for field; then replays each kernel and its twin on the inputs the
    main path gave it (exact equality, CUDA-event times, the bound from
    the bytes each kernel must move, and the time of the one PyTorch
-   call that computes the same function where there is one; beside K1,
-   torch.cumsum's time on its input as a yardstick of one pass);
+   call that computes the same function where there is one; beside K1
+   and K2, torch.cumsum's time on their input as a yardstick of one
+   pass);
 5. generates a 10x-scATAC-shaped synthetic dataset
    (tests/synth_hard.py::make_hard_atac_dataset: 10,000 cells, 20M
    fragments, 24 chromosomes of 130 Mb, 16-base barcodes, a 744k
@@ -147,9 +149,7 @@ def ptxas_summary(text: str) -> list:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             op = re.search(r"(FwdOp|MinOp|LexOp|FirstIndex|MinValue)", m.group(1))
-            kern = re.search(
-                r"(tile_reduce|agg_scan|tile_scan|lookback_scan|hamming1_probe)_kernel",
-                m.group(1))
+            kern = re.search(r"(lookback_scan|hamming1_probe)_kernel", m.group(1))
             name = (kern.group(1) if kern else m.group(1)) + (f"<{op.group(1)}>" if op else "")
             spill = "0"
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -376,7 +376,7 @@ def device_busy(prof) -> tuple:
         spans.append((start, end))
         name = e.name
         kind = (" ".join(name.split()[:2]) if name.startswith(("Memcpy", "Memset"))
-                else "K1-K3" if re.search(r"tile_reduce|agg_scan|tile_scan|lookback_scan", name)
+                else "K1-K3" if "lookback_scan" in name
                 else "K5" if "MinValue" in name
                 else "K4" if "hamming1" in name
                 else "torch sort" if re.search(r"[Ss]ort", name) else "other torch kernels")
@@ -547,9 +547,9 @@ def replay(captured: dict, keys: tuple, launches: dict, path: str, label: str,
             "bound_ms": bound_ms(key, args), "bound_by": "bytes",
             "library_ms": event_ms(lib, 10) if lib else None,
         }
-        if key == "K1":
+        if key in ("K1", "K2"):
             # one CUB single-pass scan over 8 B/row: what one pass reaches on
-            # this card; it does not compute K1's function
+            # this card; it computes neither kernel's function
             row["cumsum_ms"] = event_ms(lambda: torch.cumsum(args[0], 0, dtype=torch.int32), 10)
         if key in brute_twins:
             brute = brute_twins[key]

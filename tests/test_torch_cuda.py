@@ -93,7 +93,8 @@ def test_k1_k3_single_pass_scan_exact(cuda, size, pattern):
     with K3 in all four directions, each launch repeated."""
     from alevin_fry_tpu_torch import _kernels
 
-    tile = _kernels.load().aft_segscan_tile()
+    tile = _kernels.load().aft_segscan_tile(1)
+    assert _kernels.load().aft_segscan_tile(3) == tile
     n = LOOKBACK_SIZES[size](tile)
     rng = np.random.RandomState(n % 10007 + len(pattern))
     start = _start_pattern(pattern, n + 1, tile, rng)
@@ -115,6 +116,47 @@ def test_k1_k3_single_pass_scan_exact(cuda, size, pattern):
             for wv in (w[:n], w[1:]):
                 want = segscan.scan_lex_twin(wv, bigger, rev)
                 _same_every_time(lambda: segscan.scan_lex(wv, bigger, rev), want)
+
+
+def _min_values(kind, n, reverse, rng):
+    """K2's int32 inputs: constant; strictly falling in the scan's
+    direction (every element lowers the running min); seg_sum's
+    where(ends, c, I32_MAX); or random over the whole int32 range with
+    INT_MIN and INT_MAX among them."""
+    if kind == "constant":
+        return np.full(n, 7, dtype=np.int32)
+    if kind == "falling":
+        e = -np.arange(n, dtype=np.int32)
+        return e[::-1].copy() if reverse else e
+    if kind == "segment ends":
+        ends = np.append(_segments(rng, n)[1:], True)
+        c = np.cumsum(rng.randint(0, 5, n)).astype(np.int32)
+        return np.where(ends, c, segscan.I32_MAX).astype(np.int32)
+    e = rng.randint(-(1 << 31), 1 << 31, n, dtype=np.int64).astype(np.int32)
+    e[rng.randint(0, n, 3)] = segscan.I32_MAX
+    e[0 if reverse else n - 1] = -(1 << 31)
+    return e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["constant", "falling", "segment ends", "full range"])
+@pytest.mark.parametrize("size", list(LOOKBACK_SIZES))
+def test_k2_single_pass_scan_exact(cuda, size, pattern):
+    """K2 (the single-pass look-back scan) equals its twin in both
+    directions at its tile's edges and beyond, on views whose pointer
+    sits 0, 4, 8 and 12 bytes off the 16-byte grid (so off the grid the
+    output, a fresh aligned tensor, lies on another grid than its
+    input), each launch repeated."""
+    from alevin_fry_tpu_torch import _kernels
+
+    tile = _kernels.load().aft_segscan_tile(2)
+    n = LOOKBACK_SIZES[size](tile)
+    rng = np.random.RandomState(n % 10007 + len(pattern))
+    for rev in (False, True):
+        e = torch.from_numpy(_min_values(pattern, n + 3, rev, rng)).to(cuda)
+        for ev in (e[:n], e[1:], e[2:], e[3:]):
+            want = segscan.scan_min_twin(ev, rev)
+            _same_every_time(lambda: segscan.scan_min(ev, rev), want)
 
 
 @pytest.mark.cuda

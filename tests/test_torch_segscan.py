@@ -84,6 +84,30 @@ def test_last_marked_matches_pallas_and_xla(n, strict):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want_x))
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n", SIZES)
+def test_scan_min_twin_matches_pallas_min_fn(n, reverse):
+    """K2's wrapper (its twin, on the CPU) against ``_min_fn`` on the
+    input the reference's ``seg_sum`` builds for it: flipped first for
+    the reverse scan, padded with I32_MAX to a whole block."""
+    rng = np.random.RandomState(n + 7 * reverse)
+    # values falling in the scan's direction, so the running min keeps
+    # changing, among I32_MAX rows as at seg_sum's segment interiors, and
+    # INT_MIN last
+    step = rng.randint(0, 1 << 12, n) - (np.arange(n) << 12)
+    e = np.where(rng.rand(n) < 0.5, step[::-1] if reverse else step, pallas_segscan.I32_MAX)
+    e = e.astype(np.int32)
+    e[0 if reverse else n - 1] = pallas_segscan.I32_MIN
+    got = segscan.scan_min(_t(e), reverse)
+    pad = -n % pallas_segscan.BLOCK
+    e2 = np.pad(e[::-1] if reverse else e, (0, pad), constant_values=pallas_segscan.I32_MAX)
+    with jax.enable_x64(False):
+        out = pallas_segscan._min_fn((n + pad) // pallas_segscan.LANES, interpret=True)(
+            jnp.asarray(e2.reshape(-1, pallas_segscan.LANES)))
+    want = np.asarray(out).reshape(-1)[:n]
+    np.testing.assert_array_equal(got.numpy(), want[::-1] if reverse else want)
+
+
 @pytest.mark.parametrize("hi,lo", [
     (-(1 << 31), -(1 << 31)), (-1, 0), (0, -1), (7, (1 << 31) - 1),
     ((1 << 31) - 1, (1 << 31) - 1),
