@@ -4,8 +4,9 @@ src/atac/collate.rs), single process.
 The RNA collation keyed by barcode alone (``expected_ori='.'``: ATAC
 records carry no orientation): correct barcodes through the permit map
 and write one chunk per cell, in memory or, beyond ``max_records``
-records, out of core (``pipeline/collate.py``).  The RAD header's chunk
-count may be 0 (atac/collate.rs:212); the readers then stream to EOF.
+records, out of core (``pipeline/collate.py``); with ``-c`` into
+``map.collated.rad.sz``.  The RAD header's chunk count may be 0
+(atac/collate.rs:212); the readers then stream to EOF.
 """
 
 from __future__ import annotations
@@ -32,7 +33,5 @@ def collate(
     input_dir = Path(input_dir)
     check_version_compat(version, input_dir / "generate_permit_list.json")
     refuse_multi_process()
-    if compress_out:
-        raise NotImplementedError("compressed collate output is not ported yet")
-    collate_cells(input_dir, Path(rad_dir), ".", device, max_records, cmdline,
-                  version, expect_atac=True)
+    collate_cells(input_dir, Path(rad_dir), ".", device, max_records, compress_out,
+                  cmdline, version, expect_atac=True)

@@ -1,7 +1,8 @@
 """atac deduplicate (port of ``alevin_fry_tpu/atac/dedup.py``, reference
 src/atac/deduplicate.rs), single process.
 
-Over the collated RAD file (one chunk per cell): keep the uniquely
+Over the collated RAD file (one chunk per cell; ``map.collated.rad.sz``
+when collate wrote it compressed): keep the uniquely
 mapped proper pairs (one alignment of map type 4,
 atac/deduplicate.rs:187), sort each cell's (chr, start, frag_len,
 barcode) rows on the device with the cell as the outer key, count the
@@ -12,7 +13,6 @@ Returns the reference's four counters.
 
 from __future__ import annotations
 
-import json
 from pathlib import Path
 
 import numpy as np
@@ -21,8 +21,8 @@ import torch
 from .. import __version__
 from ..device import refuse_multi_process
 from ..ops.atac_device import sort_rle
+from ..pipeline.collate import open_collated
 from ..pipeline.logging_ import get_logger
-from ..radz import read_prelude
 from ..radz.chunkio import iter_decoded_blocks
 from ..radz.constants import MAX_ATAC_FRAG_LEN
 from ..radz.records import RecordSchema
@@ -39,18 +39,14 @@ def deduplicate(input_dir: Path, device: torch.device, num_threads: int = 8,
                 rev: bool = True, cmdline: str = "", version: str = __version__) -> dict:
     input_dir = Path(input_dir)
     refuse_multi_process()
-    with open(input_dir / "collate.json") as fh:
-        if json.load(fh)["compressed_output"]:
-            raise NotImplementedError("compressed collated input is not ported yet")
     stats = {
         "num_multimapped": 0,
         "num_dedup": 0,
         "num_non_mapped_pair": 0,
         "num_frag_len_over_max": 0,
     }
-    with open(input_dir / "map.collated.rad", "rb") as br, \
+    with open_collated(input_dir) as (br, prelude, ftm), \
             open(input_dir / "map.bed", "wb") as out:
-        prelude, ftm, _ = read_prelude(br)
         schema = RecordSchema.from_prelude(prelude)
         bc_len = int(ftm["cblen"])
         for batch in iter_decoded_blocks(

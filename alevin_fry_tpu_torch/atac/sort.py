@@ -15,12 +15,14 @@ consecutive-bin buckets, concatenated in bin order, equals one global
 sort.  Up to ``max_records`` rows sort in memory; beyond that the rows
 spill to buckets of consecutive bins, planned from the gpl stage's
 ``bin_recs.bin`` (atac/sort.rs:484-512), each then sorted on its own,
-with the same output bytes.
+with the same output bytes.  With ``-c`` the BED goes through gzip into
+``map.bed.gz``.
 """
 
 from __future__ import annotations
 
 import functools
+import gzip
 from pathlib import Path
 
 import numpy as np
@@ -133,8 +135,6 @@ def sort(
     rad_dir = Path(rad_dir)
     mdata = check_version_compat(version, input_dir / "generate_permit_list.json")
     refuse_multi_process()
-    if compress_out:
-        raise NotImplementedError("compressed (gzip) BED output is not ported yet")
     rc = bool(mdata["gpl_options"]["rc"])
     for f in ("bin_recs.bin", "bin_lens.bin"):
         if not (input_dir / f).exists():
@@ -147,8 +147,9 @@ def sort(
         "cmd": cmdline, "version_str": version, "compressed_output": compress_out,
     })
 
-    bed = input_dir / "map.bed"
-    with open(rad_dir / "map.rad", "rb") as fh, open(bed, "wb") as out:
+    bed = input_dir / ("map.bed.gz" if compress_out else "map.bed")
+    with open(rad_dir / "map.rad", "rb") as fh, \
+            (gzip.open(bed, "wb") if compress_out else open(bed, "wb")) as out:
         prelude, ftm, _ = read_prelude(fh)
         schema = RecordSchema.from_prelude(prelude)
         # ATAC headers may hold num_chunks = 0: None streams to EOF

@@ -144,9 +144,6 @@ def _gpl(ap, args, cmdline, device) -> int:
             "exactly one of --knee-distance / --expect-cells / --force-cells / "
             "--valid-bc / --unfiltered-pl is required"
         )
-    if (args.sample_bc_list or args.sample_names
-            or (args.sample_correction_mode, args.sample_bc_ori) != ("exact", "forward")):
-        raise NotImplementedError("multi-barcode (Flex) inputs are not ported yet")
     if args.unfiltered_pl:
         if args.min_reads < 1:
             ap.error(f"min-reads < 1 is not supported, the value {args.min_reads} was provided")
@@ -162,7 +159,10 @@ def _gpl(ap, args, cmdline, device) -> int:
     n = generate_permit_list(GenPermitListOpts(
         input_dir=args.input, output_dir=args.output_dir, fmeth=fmeth,
         expected_ori=args.expected_ori, device=device, threads=args.threads,
-        cmdline=cmdline,
+        cmdline=cmdline, sample_bc_list=args.sample_bc_list,
+        sample_names=args.sample_names,
+        sample_correction_mode=args.sample_correction_mode,
+        sample_bc_ori=args.sample_bc_ori,
     ))
     if n == 0:
         print("warning: found 0 corrected barcodes; please check the input.", file=sys.stderr)
@@ -186,6 +186,15 @@ def _quant(args, cmdline, device) -> int:
             f"Resolution strategy {args.resolution} doesn't currently support "
             f"{edist}-edit UMI resolution", file=sys.stderr,
         )
+        return 1
+    if args.dump_eqclasses and args.resolution == "trivial":
+        print("Gene equivalence classes are not meaningful in case of Trivial "
+              "resolution.", file=sys.stderr)
+        return 1
+    if args.num_bootstraps > 0 and args.resolution not in (
+            "cr-like-em", "parsimony-em", "parsimony-gene-em"):
+        print("bootstrapping can only be used with the cr-like-em, parsimony-em, "
+              "or parsimony-gene-em resolution strategies", file=sys.stderr)
         return 1
     lgt = args.large_graph_thresh
     if lgt is None:

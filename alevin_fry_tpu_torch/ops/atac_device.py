@@ -81,6 +81,18 @@ def unpack_cols(words: Sequence[np.ndarray], layouts, dtypes) -> List[np.ndarray
     return out
 
 
+def lex_order(words: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The permutation that sorts rows of int64 words lexicographically,
+    first word most significant, each word's bits as unsigned: stable
+    sorts from the last word up, each with bit 63 flipped."""
+    perm = None
+    for w in reversed(words):
+        key = (w if perm is None else w[perm]) ^ I64_MIN
+        order = torch.sort(key, stable=True).indices
+        perm = order if perm is None else perm[order]
+    return perm
+
+
 def sort_rle(cols: Sequence[np.ndarray], device: torch.device):
     """Sort the rows of equal-length non-negative integer columns
     lexicographically (first column most significant) on ``device``
@@ -99,11 +111,7 @@ def sort_rle(cols: Sequence[np.ndarray], device: torch.device):
             raise ValueError("sort_rle takes non-negative columns")
     words, layouts = pack_words(cols)
     dev_words = [torch.from_numpy(w.view(np.int64)).to(device) for w in words]
-    perm = None
-    for w in reversed(dev_words):
-        key = (w if perm is None else w[perm]) ^ I64_MIN
-        order = torch.sort(key, stable=True).indices
-        perm = order if perm is None else perm[order]
+    perm = lex_order(dev_words)
     sw = [w[perm] for w in dev_words]
     new = torch.zeros(n, dtype=torch.bool, device=device)
     new[0] = True

@@ -3,7 +3,8 @@
 Barcodes pack as 2-bit codes in a uint64 (A=0, C=1, G=2, T=3, N->A;
 ``cb_string_to_u64``, src/convert.rs:75-89), the first base in the
 highest bits.  Packing and unpacking are host NumPy, as in
-``alevin_fry_tpu/ops/barcodes.py``.
+``alevin_fry_tpu/ops/barcodes.py``, and so is the 1-edit correction
+map of the filtered permit lists (:func:`generate_permitlist_map`).
 
 :func:`find_neighbors` is the unfiltered-permit-list rescue search
 (src/cellfilter.rs:190-233): it runs kernel K4 or K5
@@ -77,6 +78,69 @@ def revcomp_packed(bcs: np.ndarray, length: int) -> np.ndarray:
         comp = ((bcs >> np.uint64(2 * i)) & np.uint64(3)) ^ np.uint64(3)
         out |= comp << np.uint64(2 * (length - 1 - i))
     return out
+
+
+def snp_neighbors(bcs: np.ndarray, length: int) -> np.ndarray:
+    """Every substitution variant of each barcode, the barcode itself
+    among them (where the new base is the old one): (n, 4 * length)
+    uint64, positions counted from the low bits (get_all_snps,
+    src/utils.rs:917-943)."""
+    bcs = np.asarray(bcs, np.uint64)
+    shifts = np.uint64(2) * np.arange(length, dtype=np.uint64)
+    cleared = bcs[:, None] & ~(np.uint64(3) << shifts)[None, :]
+    bases = np.arange(4, dtype=np.uint64)
+    out = cleared[:, :, None] | (bases[None, None, :] << shifts[None, :, None])
+    return out.reshape(len(bcs), 4 * length)
+
+
+def indel_neighbors(bcs: np.ndarray, length: int) -> np.ndarray:
+    """Every 1-indel variant of each barcode at the interior positions
+    1..length-1: an insertion of each base, the low part shifted right,
+    and a deletion, the low part shifted left with each base filling
+    the end (get_all_indels, src/utils.rs:945-981).  (n, 8 * (length -
+    1)) uint64, insertion and deletion interleaved; may hold the
+    barcode itself."""
+    bcs = np.asarray(bcs, np.uint64)
+    out = np.empty((len(bcs), length - 1, 4, 2), np.uint64)
+    for pos in range(1, length):
+        low_mask = np.uint64((1 << (2 * pos)) - 1)
+        upper, lower = bcs & ~low_mask, bcs & low_mask
+        del_mask = ~(np.uint64(3) << np.uint64(2 * pos))
+        for base in range(4):
+            b = np.uint64(base)
+            out[:, pos - 1, base, 0] = (upper | (b << np.uint64(2 * (pos - 1)))
+                                        | (lower >> np.uint64(2)))
+            out[:, pos - 1, base, 1] = upper | b | ((lower & del_mask) << np.uint64(2))
+    return out.reshape(len(bcs), 8 * (length - 1))
+
+
+def generate_permitlist_map(permit_bcs: np.ndarray, length: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The correction map (src/utils.rs:1026-1051): every permitted
+    barcode to itself, and every 1-edit neighbour (substitution or
+    indel) to a permitted barcode.  ``permit_bcs`` comes in priority
+    order: a neighbour of several permitted barcodes maps to the first
+    of them (the reference takes the first in hash order; the JAX
+    package fixes the order, docs/parity.md:48-53), and an exact entry
+    wins over any neighbour.  Returns (keys sorted ascending, values)."""
+    permit_bcs = np.asarray(permit_bcs, np.uint64)
+    k = len(permit_bcs)
+    if k == 0:
+        return np.zeros(0, np.uint64), np.zeros(0, np.uint64)
+    neigh = np.concatenate(
+        [snp_neighbors(permit_bcs, length), indel_neighbors(permit_bcs, length)], axis=1
+    )
+    owner = np.repeat(np.arange(k, dtype=np.int64), neigh.shape[1])
+    flat = neigh.reshape(-1)
+    other = flat != permit_bcs[owner]
+    flat, owner = flat[other], owner[other]
+    keys = np.concatenate([permit_bcs, flat])
+    prio = np.concatenate([np.full(k, -1, np.int64), owner])
+    vals = np.concatenate([permit_bcs, permit_bcs[owner]])
+    order = np.lexsort((prio, keys))
+    keys, vals = keys[order], vals[order]
+    first = np.ones(len(keys), bool)
+    first[1:] = keys[1:] != keys[:-1]
+    return keys[first], vals[first]
 
 
 def find_neighbors(

@@ -3,9 +3,10 @@ the device entry point (port of ``alevin_fry_tpu/ops/crlike.py``).
 
 Each read's alignments project to genes and deduplicate per read on the
 host (NumPy plus the native segmented sort); the (cell, umi,
-gene) triplets then pack into int64 keys, which
-``ops/crlike_device.py`` resolves on the chosen device.  There is no
-host fallback: a device failure raises.
+gene) triplets then pack into int64 keys of at most 62 bits, or, when
+their fields need more (long UMIs), go as one int64 word per field, and
+``ops/crlike_device.py`` resolves them on the chosen device.  There is
+no host fallback: a device failure raises.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from ..radz import _native
 
-from .crlike_device import resolve_crlike_wta_device
+from .crlike_device import PAD, resolve_crlike_wta_device, resolve_crlike_wta_words
 
 
 def _bits_for(n: int) -> int:
@@ -89,11 +90,16 @@ def wta_counts_device(
     cbits = _bits_for(int(c.max()) + 1)
     ubits = _bits_for(int(u.max()) + 1)
     gbits = _bits_for(int(g.max()) + 1)
-    # 62 bits, so that no key reaches INT64_MAX, the resolver's padding
+    # one packed key up to 62 bits, so that no key reaches INT64_MAX,
+    # the resolver's padding; beyond, one word per field
     if cbits + ubits + gbits > 62:
-        raise ValueError(
-            f"(cell, umi, gene) keys need {cbits + ubits + gbits} bits; the "
-            "port packs them into 62"
+        if int(c.max()) * n_rows + n_rows > PAD:
+            raise ValueError(f"{int(c.max()) + 1} cells x {n_rows} columns do "
+                             "not fit the int64 output words")
+        words = (c.astype(np.int64), np.ascontiguousarray(u, np.uint64).view(np.int64),
+                 g.astype(np.int64))
+        return resolve_crlike_wta_words(
+            *(torch.from_numpy(w).to(device) for w in words), gbits, n_rows, usa=usa
         )
     key = (
         (c.astype(np.int64) << (ubits + gbits))

@@ -14,10 +14,21 @@ Semantics follow resolve_num_molecules_crlike_from_vec
 (src/pugutils.rs:644-749) and the USA rules of extract_counts
 (src/utils.rs:656-739, src/quant.rs:516-589).
 
-Keys are int64 with at most 63 bits used; PAD is INT64_MAX, so a signed
-sort puts it last (``interop.py``).  Output is the compact COO
-(rows, cols, counts f32) sorted by (cell, column), selected on the
-device at the run starts and fetched with one copy.
+The (cell, umi, gene) triplets come in one of two forms:
+
+* packed into one int64 key of at most 62 bits (10x: 16-base barcodes,
+  12-base UMIs), sorted with padding PAD = INT64_MAX, which a signed
+  sort puts last (``interop.py``);
+* wider, as three int64 words, one each for cell, UMI and gene, sorted
+  at their exact length with stable ``torch.sort`` passes from the gene
+  up, each word with bit 63 flipped so that a UMI of 32 bases, which
+  uses bit 63, sorts unsigned (as ``ops/atac_device.py`` sorts).
+
+Either way the sort yields the same runs: a triplet starts where any
+field differs, a (cell, umi) group where the cell or the UMI does; the
+resolution after it is shared.  Output is the compact COO (rows, cols,
+counts f32) sorted by (cell, column), selected on the device at the run
+starts and fetched with one copy.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .atac_device import lex_order
 from .segscan import last_marked, seg_reduce, seg_sum
 
 PAD = (1 << 63) - 1
@@ -46,44 +58,61 @@ def _counted(cg: torch.Tensor):
     return cg[start], count[start]
 
 
-def _trip_groups(key: torch.Tensor, gbits: int):
+def _sorted_packed(key: torch.Tensor, ubits: int, gbits: int):
+    """Sort packed keys (PAD last) -> (cell, gene, valid, triplet
+    starts, (cell, umi) group starts) per row."""
     key = torch.sort(key).values
     valid = key != PAD
     trip_start = _starts(key, valid)
     grp_start = _starts(key >> gbits, valid)
+    return key >> (ubits + gbits), key & ((1 << gbits) - 1), valid, trip_start, grp_start
+
+
+def _sorted_words(cell: torch.Tensor, umi: torch.Tensor, gene: torch.Tensor):
+    """Sort (cell, umi, gene) int64 words lexicographically, the UMI as
+    unsigned -> the rows of :func:`_sorted_packed` (every row valid)."""
+    perm = lex_order([cell, umi, gene])
+    cell, umi, gene = cell[perm], umi[perm], gene[perm]
+    grp_start = torch.ones_like(cell, dtype=torch.bool)
+    grp_start[1:] = (cell[1:] != cell[:-1]) | (umi[1:] != umi[:-1])
+    trip_start = grp_start.clone()
+    trip_start[1:] |= gene[1:] != gene[:-1]
+    return cell, gene, torch.ones_like(grp_start), trip_start, grp_start
+
+
+def _trip_groups(valid, trip_start, grp_start):
     grp_ord = torch.cumsum(grp_start, 0, dtype=torch.int32)
     t_count = seg_sum(valid.to(torch.int32), trip_start)
     tc = torch.where(trip_start, t_count, torch.zeros_like(t_count))
     gmax = seg_reduce(tc, trip_start, grp_start, grp_ord)
     winner = trip_start & (tc == gmax)
-    return key, grp_start, grp_ord, winner
+    return grp_ord, winner
 
 
-def _kernel(key: torch.Tensor, ubits: int, gbits: int, n_rows: int):
+def _kernel(rows, n_rows: int):
     """Gene-unique counting: +1 at (cell, gene) for each (cell, umi)
-    whose winner tie set is a single gene."""
-    key, grp_start, _, winner = _trip_groups(key, gbits)
+    whose winner tie set is a single gene.  ``rows`` are the sorted
+    rows of :func:`_sorted_packed` or :func:`_sorted_words`."""
+    cell, gene, valid, trip_start, grp_start = rows
+    _, winner = _trip_groups(valid, trip_start, grp_start)
     tie_sz = seg_sum(winner.to(torch.int32), grp_start)
     unique_win = winner & (tie_sz == 1)
-    cell = key >> (ubits + gbits)
-    gene = key & ((1 << gbits) - 1)
     return _counted(torch.where(unique_win, cell * n_rows + gene, PAD))
 
 
-def _kernel_usa(key: torch.Tensor, ubits: int, gbits: int, n_rows: int):
+def _kernel_usa(rows, n_rows: int):
     """USA slotting: per (cell, umi) the winner tie set maps to a
     spliced / unspliced / ambiguous slot by the reference's len-1 / 2 /
     3..10 rules.  Gene ids are the interleaved USA ids (even spliced,
     odd unspliced); ``n_rows`` is the three-section output space."""
-    if gbits + 1 > 31:
-        raise ValueError("USA gene ids must fit the 31-bit look-back values")
-    key, grp_start, grp_ord, winner = _trip_groups(key, gbits)
+    cell, gene, valid, trip_start, grp_start = rows
+    grp_ord, winner = _trip_groups(valid, trip_start, grp_start)
     tie_sz, wrank = seg_sum(winner.to(torch.int32), grp_start, with_rank=True)
     # one emission row per group, its last winner: winners ascend by gene
     # within the group, so that row's own gene is the group's largest
     last_win = winner & (wrank == tie_sz)
 
-    gi = (key & ((1 << gbits) - 1)).to(torch.int32)
+    gi = gene.to(torch.int32)
     even = (gi & 1) == 0
     uoff = n_rows // 3
     aoff = 2 * (n_rows // 3)
@@ -114,8 +143,24 @@ def _kernel_usa(key: torch.Tensor, ubits: int, gbits: int, n_rows: int):
         l_ == 1, torch.ones_like(ok2),
         torch.where(l_ == 2, ok2, (l_ >= 3) & (l_ <= 10) & ok3),
     )
-    cell = key >> (ubits + gbits)
     return _counted(torch.where(last_win & ok, cell * n_rows + slot.to(torch.int64), PAD))
+
+
+def _resolve(rows, gbits: int, n_rows: int, usa: bool):
+    if usa and gbits + 1 > 31:
+        raise ValueError("USA gene ids must fit the 31-bit look-back values")
+    uniq, cnt = (_kernel_usa if usa else _kernel)(rows, n_rows)
+    both = torch.stack([uniq, cnt.to(torch.int64)]).cpu().numpy()
+    return (
+        both[0] // n_rows,
+        both[0] % n_rows,
+        both[1].astype(np.float32),
+    )
+
+
+def _empty_coo():
+    z = np.zeros(0, np.int64)
+    return z, z, np.zeros(0, np.float32)
 
 
 def resolve_crlike_wta_device(
@@ -128,13 +173,23 @@ def resolve_crlike_wta_device(
     if key.dtype != torch.int64:
         raise TypeError("keys are int64")
     if len(key) == 0:
-        z = np.zeros(0, np.int64)
-        return z, z, np.zeros(0, np.float32)
-    kern = _kernel_usa if usa else _kernel
-    uniq, cnt = kern(key, ubits, gbits, n_rows)
-    both = torch.stack([uniq, cnt.to(torch.int64)]).cpu().numpy()
-    return (
-        both[0] // n_rows,
-        both[0] % n_rows,
-        both[1].astype(np.float32),
-    )
+        return _empty_coo()
+    return _resolve(_sorted_packed(key, ubits, gbits), gbits, n_rows, usa)
+
+
+def resolve_crlike_wta_words(
+    cell: torch.Tensor, umi: torch.Tensor, gene: torch.Tensor, gbits: int,
+    n_rows: int, usa: bool = False,
+):
+    """:func:`resolve_crlike_wta_device` for triplets too wide to pack:
+    deduplicated (cell, umi, gene) as three int64 tensors on one device,
+    the UMI's bits as they are (a UMI of 32 bases is negative), cell and
+    gene non-negative, ``gene < 2**gbits`` and ``cell * n_rows`` below
+    INT64_MAX.  The same COO triplets as the packed form gives."""
+    if not cell.dtype == umi.dtype == gene.dtype == torch.int64:
+        raise TypeError("cell, umi and gene words are int64")
+    if not len(cell) == len(umi) == len(gene):
+        raise ValueError("cell, umi and gene words differ in length")
+    if len(cell) == 0:
+        return _empty_coo()
+    return _resolve(_sorted_words(cell, umi, gene), gbits, n_rows, usa)

@@ -17,12 +17,18 @@ collation (``atac/collate.py``) shares the byte-level and out-of-core
 paths, keyed by barcode alone.
 
 Writes the reference's artifacts: ``map.collated.rad`` (one chunk per
-cell), ``unmapped_bc_count_collated.bin`` and ``collate.json``.
+cell), ``unmapped_bc_count_collated.bin`` and ``collate.json``.  With
+``-c`` the collated file is ``map.collated.rad.sz`` instead, the same
+bytes as one snappy framing stream (``radz/snappyz.py``).  A compressed
+stream cannot be seeked back into, so every path knows its chunk count
+before it writes the header: the cells that kept a read.
 """
 
 from __future__ import annotations
 
-import struct
+import contextlib
+import io
+import json
 from pathlib import Path
 from typing import Tuple
 
@@ -39,6 +45,7 @@ from ..radz.chunkio import (
     iter_decoded_blocks, read_chunk_bodies, write_cell_chunks,
 )
 from ..radz.records import RecordSchema
+from ..radz.snappyz import SnappyFrameReader, SnappyFrameWriter
 
 from .. import __version__
 from ..device import refuse_multi_process
@@ -98,6 +105,52 @@ def collation_order(ranks: np.ndarray, n_cells: int, device: torch.device):
     return both[: len(ranks)], both[len(ranks):]
 
 
+@contextlib.contextmanager
+def _collated_writer(input_dir: Path, compress_out: bool):
+    """A sink for the collated file's bytes: ``map.collated.rad``, or
+    with ``compress_out`` a snappy framing stream into
+    ``map.collated.rad.sz``."""
+    name = "map.collated.rad.sz" if compress_out else "map.collated.rad"
+    with open(input_dir / name, "wb") as fh:
+        if not compress_out:
+            yield fh
+            return
+        frames = SnappyFrameWriter(fh)
+        yield frames
+        frames.flush()
+
+
+@contextlib.contextmanager
+def open_collated(input_dir: Path):
+    """Open the collated RAD file of ``input_dir`` past its prelude:
+    yields (file, prelude, file tag values).  ``collate.json`` says
+    whether it is ``map.collated.rad`` or the snappy stream
+    ``map.collated.rad.sz``, which decompresses as it is read."""
+    with open(input_dir / "collate.json") as fh:
+        compressed = bool(json.load(fh)["compressed_output"])
+    if compressed:
+        br = SnappyFrameReader(open(input_dir / "map.collated.rad.sz", "rb"))
+    else:
+        br = open(input_dir / "map.collated.rad", "rb")
+    with br:
+        prelude, ftm, _ = read_prelude(br)
+        if compressed:
+            # the prelude parser reads ahead and seeks back; past it the
+            # stage reads forward only, so the decoded bytes can go
+            br.drop_history()
+        yield br, prelude, ftm
+
+
+def _prelude_bytes(prelude, ftm, num_chunks: int) -> bytes:
+    """The collated file's header and file tag values, holding its
+    chunk count."""
+    prelude.hdr.num_chunks = num_chunks
+    head = io.BytesIO()
+    prelude.write(head)
+    prelude.write_file_tag_values(head, ftm)
+    return head.getvalue()
+
+
 def _check_record_type(prelude, ftm, expect_atac: bool = False) -> None:
     rec_type, _info = record_type_from_prelude(prelude, ftm)
     if (rec_type == KnownRecordType.ATAC) != expect_atac:
@@ -110,7 +163,7 @@ def _check_record_type(prelude, ftm, expect_atac: bool = False) -> None:
 
 def _collate_in_memory_native(
     input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori,
-    device, expect_atac: bool = False,
+    device, compress_out: bool, expect_atac: bool = False,
 ) -> bool:
     """Byte-level collation: walk record boundaries, correct barcodes,
     then gather whole records in cell-rank order with the barcode
@@ -146,10 +199,14 @@ def _collate_in_memory_native(
     # ranks up front, so the map yields the rank directly
     sort_perm = np.argsort(cell_bcs, kind="stable")
     cell_sorted = cell_bcs[sort_perm]
-    mpos = np.searchsorted(cell_sorted, map_vals)
-    if not (cell_sorted[np.minimum(mpos, len(cell_sorted) - 1)] == map_vals).all():
-        raise ValueError("corrected barcode missing from permit list")
-    hit, rank = _lookup_map(map_keys, sort_perm[mpos].astype(np.uint64), bcs)
+    mpos = np.minimum(np.searchsorted(cell_sorted, map_vals), len(cell_sorted) - 1)
+    # an explicit permit list (-b) may name barcodes that no read with an
+    # alignment of the expected orientation carries; they are not cells,
+    # and the reads their map entries correct are dropped below, so the
+    # entries leave the lookup (the columnar path never looks them up)
+    is_cell = cell_sorted[mpos] == map_vals
+    hit, rank = _lookup_map(map_keys[is_cell], sort_perm[mpos[is_cell]].astype(np.uint64),
+                            bcs)
     if ori_mode == 0:
         kept_per_read = num_aln
     else:
@@ -188,10 +245,8 @@ def _collate_in_memory_native(
         schema.read_bytes, schema.aln_bytes, bc_off, bc_width, ref_off, ori_mode,
     )
     n_written = int((per_cell > 0).sum())
-    prelude.hdr.num_chunks = n_written
-    with open(input_dir / "map.collated.rad", "wb") as out:
-        prelude.write(out)
-        prelude.write_file_tag_values(out, ftm)
+    with _collated_writer(input_dir, compress_out) as out:
+        out.write(_prelude_bytes(prelude, ftm, n_written))
         out.write(memoryview(body.data))
     log.info("finished collating input rad file; wrote %d cell chunks", n_written)
     return True
@@ -199,7 +254,7 @@ def _collate_in_memory_native(
 
 def _collate_columnar(
     input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori,
-    device, expect_atac: bool = False,
+    device, compress_out: bool, expect_atac: bool = False,
 ) -> None:
     """Columnar collation: decode every record, reorder the columns by
     cell rank, re-encode one chunk per cell.  Reads left without
@@ -243,21 +298,15 @@ def _collate_columnar(
             "per-cell collated record counts differ from permit_freq counts "
             "(total %d vs %d)", int(per_cell.sum()), int(cell_cts.sum()),
         )
-    with open(input_dir / "map.collated.rad", "wb") as sink:
-        prelude.hdr.num_chunks = len(cell_bcs)
-        prelude.write(sink)
-        prelude.write_file_tag_values(sink, ftm)
-        n_written = write_cell_chunks(
+    # cells that lost every read to the orientation filter write no chunk
+    n_written = int((per_cell > 0).sum())
+    with _collated_writer(input_dir, compress_out) as sink:
+        sink.write(_prelude_bytes(prelude, ftm, n_written))
+        write_cell_chunks(
             sink, schema, read_cols, out_offsets, batch.refs[aln_gather],
             batch.dirs[aln_gather],
             {k: v[aln_gather] for k, v in batch.aln_cols.items()}, per_cell,
         )
-        if n_written != len(cell_bcs):
-            # patch the header with the actual chunk count
-            pos = sink.tell()
-            sink.seek(1 + 8 + prelude.hdr.names_nbytes())
-            sink.write(struct.pack("<Q", n_written))
-            sink.seek(pos)
     log.info("finished collating input rad file; wrote %d cell chunks", n_written)
 
 
@@ -302,17 +351,19 @@ def _gather_bucket_payload(rec_bytes, ranks, schema, n_cells, device):
     return out_buf, len(starts)
 
 
-def _gather_rank_buckets(out_path, spill_dir, n_buckets, schema, prelude, ftm,
-                         n_cells, device) -> int:
+def _gather_rank_buckets(input_dir, spill_dir, n_buckets, schema, prelude, ftm,
+                         n_cells, device, compress_out: bool) -> int:
     """Gather phase of the spill-bucket collation: order each bucket by
-    cell rank and append one chunk per cell to ``out_path``; the
-    header's chunk count is patched at the end.  Returns the number of
-    chunks written."""
+    cell rank and append one chunk per cell to the collated file.  The
+    header's chunk count, the cells with a record, comes first from the
+    buckets' rank files.  Returns the number of chunks written."""
+    seen = np.zeros(n_cells, bool)
+    for b in range(n_buckets):
+        seen[np.fromfile(spill_dir / f"bucket_{b}.rank", np.uint32)] = True
+    n_expected = int(seen.sum())
     n_written = 0
-    with open(out_path, "wb") as sink:
-        prelude.hdr.num_chunks = 0
-        nc_pos = prelude.write(sink)
-        prelude.write_file_tag_values(sink, ftm)
+    with _collated_writer(input_dir, compress_out) as sink:
+        sink.write(_prelude_bytes(prelude, ftm, n_expected))
         for b in range(n_buckets):
             rec_bytes = np.fromfile(spill_dir / f"bucket_{b}.rec", np.uint8)
             ranks = np.fromfile(spill_dir / f"bucket_{b}.rank", np.uint32)
@@ -324,14 +375,14 @@ def _gather_rank_buckets(out_path, spill_dir, n_buckets, schema, prelude, ftm,
                 n_written += n_chunks
             (spill_dir / f"bucket_{b}.rec").unlink()
             (spill_dir / f"bucket_{b}.rank").unlink()
-        sink.seek(nc_pos)
-        sink.write(struct.pack("<Q", n_written))
+    if n_written != n_expected:
+        raise RuntimeError(f"wrote {n_written} cell chunks, the header says {n_expected}")
     return n_written
 
 
 def _collate_out_of_core(
     input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori,
-    max_records, device, expect_atac: bool = False,
+    max_records, device, compress_out: bool, expect_atac: bool = False,
 ) -> None:
     """Bounded-memory collation (src/collate.rs:584-905): scatter the
     corrected records, re-encoded once, into spill buckets of
@@ -375,8 +426,8 @@ def _collate_out_of_core(
                 rf.close()
                 kf.close()
             n_written = _gather_rank_buckets(
-                input_dir / "map.collated.rad", spill_dir, n_buckets, schema,
-                prelude, ftm, len(cell_bcs), device,
+                input_dir, spill_dir, n_buckets, schema, prelude, ftm, len(cell_bcs),
+                device, compress_out,
             )
         finally:
             for rf, kf in files:
@@ -431,7 +482,8 @@ def _read_cells_and_map(input_dir: Path):
     return freq_bc[order], freq_ct[order], map_keys, map_vals
 
 
-def _write_collate_sidecars(input_dir, rad_dir, map_keys, map_vals, cmdline, version):
+def _write_collate_sidecars(input_dir, rad_dir, map_keys, map_vals, compress_out,
+                            cmdline, version):
     """``unmapped_bc_count_collated.bin`` (the unmapped-read counts per
     corrected barcode) and ``collate.json``."""
     bcs_u, cts_u = unmappedio.read_raw_unmapped(rad_dir / "unmapped_bc_count.bin")
@@ -448,7 +500,7 @@ def _write_collate_sidecars(input_dir, rad_dir, map_keys, map_vals, cmdline, ver
     write_json(input_dir / "collate.json", {
         "cmd": cmdline,
         "version_str": version,
-        "compressed_output": False,
+        "compressed_output": compress_out,
     })
 
 
@@ -467,24 +519,23 @@ def collate(
     refuse_multi_process()
     if mdata.get("multi_barcode"):
         raise NotImplementedError("multi-barcode (Flex) collation is not ported yet")
-    if compress_out:
-        raise NotImplementedError("compressed collate output is not ported yet")
     if mdata.get("velo_mode"):
         raise NotImplementedError("velocity mode is not ported yet")
 
     collate_cells(input_dir, rad_dir, mdata["expected_ori"], device, max_records,
-                  cmdline, version)
+                  compress_out, cmdline, version)
 
 
-def collate_cells(input_dir, rad_dir, expected_ori, device, max_records, cmdline,
-                  version, expect_atac: bool = False) -> None:
+def collate_cells(input_dir, rad_dir, expected_ori, device, max_records, compress_out,
+                  cmdline, version, expect_atac: bool = False) -> None:
     """The collation proper, shared with ``atac collate``: the sidecars,
     then the out-of-core path beyond ``max_records`` records, else the
     byte-level path, else the columnar one."""
     cell_bcs, cell_cts, map_keys, map_vals = _read_cells_and_map(input_dir)
-    _write_collate_sidecars(input_dir, rad_dir, map_keys, map_vals, cmdline, version)
+    _write_collate_sidecars(input_dir, rad_dir, map_keys, map_vals, compress_out,
+                            cmdline, version)
     args = (input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori)
     if int(cell_cts.sum()) > max_records:
-        _collate_out_of_core(*args, max_records, device, expect_atac)
-    elif not _collate_in_memory_native(*args, device, expect_atac):
-        _collate_columnar(*args, device, expect_atac)
+        _collate_out_of_core(*args, max_records, device, compress_out, expect_atac)
+    elif not _collate_in_memory_native(*args, device, compress_out, expect_atac):
+        _collate_columnar(*args, device, compress_out, expect_atac)

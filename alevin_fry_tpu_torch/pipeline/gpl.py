@@ -1,14 +1,22 @@
-"""generate-permit-list (RNA), unfiltered permit list with the 1-edit
-rescue (port of ``alevin_fry_tpu/pipeline/gpl.py``, reference
-src/cellfilter.rs:105-333).
+"""generate-permit-list (RNA) (port of ``alevin_fry_tpu/pipeline/gpl.py``,
+reference src/cellfilter.rs).
 
-The per-barcode read histogram is host work: the native codec
-walks the RAD records and hash-counts the barcodes.  The rescue — for
-every barcode that is not a kept permit-list entry, the kept barcodes
-within Hamming distance 1 — runs kernel K4 on the chosen device.
+The per-barcode read histogram of the orientation-compatible reads is
+host work: the native codec walks the RAD records and hash-counts the
+barcodes.  Then one of the cell filters chooses the cells:
 
-Outputs the reference's artifacts: permit_freq.bin, permit_map.bin and
-generate_permit_list.json.
+* the unfiltered external list (cellfilter.rs:105-333) keeps the listed
+  barcodes with enough reads and rescues every other barcode that has a
+  unique kept barcode within Hamming distance 1, on kernel K4 on the
+  chosen device;
+* the filtered methods (cellfilter.rs:336-480) — the knee of the
+  frequency curve, the top ``-f`` barcodes, the ``-e`` expected-cells
+  threshold or an explicit list — keep barcodes by frequency or by name
+  and map every 1-edit neighbour (substitution or indel) of a kept
+  barcode to it.  This is host NumPy, as in the reference.
+
+Outputs the reference's artifacts: permit_freq.bin, permit_map.bin
+(all_freq.bin too for a filtered method) and generate_permit_list.json.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from ..radz.records import RecordSchema
 
 from .. import __version__
 from ..ops import barcodes as bcops
+from ..ops.knee import get_knee
 from ..utils import (
     STRAND_BOTH, STRAND_FW, read_barcode_file, read_strand_mask,
     record_layout, strand_from_ori_arg, write_json,
@@ -44,8 +53,7 @@ GPL_BLOCK_RECORDS = 20_000_000
 
 @dataclass
 class CellFilterMethod:
-    """The cell filter (src/cellfilter.rs:51-71).  The port runs the
-    unfiltered external list only."""
+    """The cell filter (src/cellfilter.rs:51-71)."""
 
     kind: str  # "knee" | "force" | "expect" | "explicit" | "unfiltered"
     count: int = 0
@@ -72,11 +80,17 @@ class GenPermitListOpts:
     threads: int = 8
     cmdline: str = ""
     version: str = __version__
+    # the multi-barcode (Flex) options: recorded, and used by no input
+    # the port takes
+    sample_bc_list: Optional[Path] = None
+    sample_names: Optional[Path] = None
+    sample_correction_mode: str = "exact"  # "exact" | "1-edit"
+    sample_bc_ori: str = "forward"  # "forward" | "reverse"
 
 
 def _serialize_opts(opts: GenPermitListOpts) -> dict:
     """The ``gpl_options`` record, field for field as the reference
-    writes it (the multi-barcode fields are always unset here)."""
+    writes it."""
     return {
         "input_dir": str(opts.input_dir),
         "output_dir": str(opts.output_dir),
@@ -86,10 +100,10 @@ def _serialize_opts(opts: GenPermitListOpts) -> dict:
         "threads": opts.threads,
         "cmdline": opts.cmdline,
         "version": opts.version,
-        "sample_bc_list": None,
-        "sample_names": None,
-        "sample_correction_mode": "exact",
-        "sample_bc_ori": "forward",
+        "sample_bc_list": str(opts.sample_bc_list) if opts.sample_bc_list else None,
+        "sample_names": str(opts.sample_names) if opts.sample_names else None,
+        "sample_correction_mode": opts.sample_correction_mode,
+        "sample_bc_ori": opts.sample_bc_ori,
     }
 
 
@@ -157,11 +171,6 @@ def _iter_block_barcodes(fh, schema, num_chunks, strand):
 def generate_permit_list(opts: GenPermitListOpts) -> int:
     """Run the stage; returns the number of distinct corrected barcodes
     (src/cellfilter.rs:487)."""
-    if opts.fmeth.kind != "unfiltered":
-        raise NotImplementedError(
-            f"filtered permit lists ({opts.fmeth.describe()}) are not ported "
-            "yet; use --unfiltered-pl"
-        )
     with open(Path(opts.input_dir) / "map.rad", "rb") as fh:
         prelude, ftm, _ = read_prelude(fh)
         rec_type, _info = record_type_from_prelude(prelude, ftm)
@@ -203,9 +212,11 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
     )
     out_dir = Path(opts.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    return _process_unfiltered(
-        opts, h_bc, h_ct, int(ftm["cblen"]), num_reads, max_ambig, out_dir
-    )
+    if opts.fmeth.kind == "unfiltered":
+        return _process_unfiltered(
+            opts, h_bc, h_ct, int(ftm["cblen"]), num_reads, max_ambig, out_dir
+        )
+    return _process_filtered(opts, h_bc, h_ct, int(ftm["cblen"]), max_ambig, out_dir)
 
 
 def rescue_and_write(
@@ -300,14 +311,76 @@ def _process_unfiltered(
         np.unique(wl), uniq, counts, bclen, opts.fmeth.min_reads, num_reads,
         opts.device, out_dir,
     )
+    _write_gpl_json(opts, max_ambig, out_dir, "unfiltered")
+    log.info("total number of distinct corrected barcodes: %d", num_corrected)
+    return num_corrected
+
+
+def _write_gpl_json(opts: GenPermitListOpts, max_ambig: int, out_dir: Path,
+                    list_type: str) -> None:
     write_json(out_dir / "generate_permit_list.json", {
         "velo_mode": False,
         "expected_ori": strand_from_ori_arg(opts.expected_ori),
         "version_str": opts.version,
         "max-ambig-record": max_ambig,
         "cmd": opts.cmdline,
-        "permit-list-type": "unfiltered",
+        "permit-list-type": list_type,
         "gpl_options": _serialize_opts(opts),
     })
+
+
+def _filtered_cells(meth: CellFilterMethod, uniq: np.ndarray, counts: np.ndarray,
+                    bclen: int) -> np.ndarray:
+    """The permitted barcodes of a filtered method, in the priority
+    order of contested 1-edit neighbours: by descending read count, then
+    ascending barcode, for the frequency methods (a barcode passes at
+    the count of the ``n``-th most frequent one); in file order for an
+    explicit list (docs/parity.md:48-53)."""
+    if meth.kind == "explicit":
+        return read_barcode_file(meth.path, bclen)[0]
+    freq = np.sort(counts)[::-1]
+    if meth.kind == "knee":
+        min_freq = int(freq[get_knee(freq, 100)])
+    elif meth.kind == "force":
+        min_freq = int(freq[min(len(freq), meth.count) - 1])
+    elif meth.kind == "expect":
+        # the 0.99 robust quantile's count over 10, at least 1
+        robust_freq = int(freq[min(len(freq) - 1, int(round(meth.count * 0.99)))])
+        min_freq = max(1, int(round(robust_freq / 10.0)))
+    else:
+        raise ValueError(f"unsupported filter method {meth.kind}")
+    valid = counts >= min_freq
+    valid_bc = uniq[valid]
+    if meth.kind == "knee":
+        log.info("knee distance method resulted in the selection of %d permitted "
+                 "barcodes.", len(valid_bc))
+    return valid_bc[np.lexsort((valid_bc, -counts[valid].astype(np.int64)))]
+
+
+def _process_filtered(
+    opts: GenPermitListOpts,
+    uniq: np.ndarray,
+    counts: np.ndarray,
+    bclen: int,
+    max_ambig: int,
+    out_dir: Path,
+) -> int:
+    """Keep the filtered method's barcodes, map every 1-edit neighbour
+    of a kept barcode to it, and correct the histogram through that map
+    (src/cellfilter.rs:336-480)."""
+    map_keys, map_vals = bcops.generate_permitlist_map(
+        _filtered_cells(opts.fmeth, uniq, counts, bclen), bclen
+    )
+    # the keys come sorted and unique
+    idx = np.minimum(np.searchsorted(map_keys, uniq), max(len(map_keys) - 1, 0))
+    hit = map_keys[idx] == uniq if len(map_keys) else np.zeros(len(uniq), bool)
+    num_corrected = int(hit.sum())
+    perm_bc, inv = np.unique(map_vals[idx[hit]], return_inverse=True)
+    perm_ct = np.zeros(len(perm_bc), np.uint64)
+    np.add.at(perm_ct, inv, counts[hit])
+    bincodeio.write_permit_freq(out_dir / "permit_freq.bin", bclen, perm_bc, perm_ct)
+    bincodeio.write_permit_freq(out_dir / "all_freq.bin", bclen, uniq, counts)
+    bincodeio.write_u64_map_file(out_dir / "permit_map.bin", map_keys, map_vals)
+    _write_gpl_json(opts, max_ambig, out_dir, "filtered")
     log.info("total number of distinct corrected barcodes: %d", num_corrected)
     return num_corrected

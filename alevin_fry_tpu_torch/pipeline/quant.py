@@ -6,7 +6,8 @@ ambiguity model) every cell resolves by the same gene-unique / USA
 winner-take-all rule (src/quant.rs:453 for small cells, :822 for
 large), so each block of whole cells goes through one pass of the
 device WTA resolver (``ops/crlike_device.py``).  The collated file
-streams in blocks of whole cells, synchronously.
+(``map.collated.rad``, or the snappy stream ``map.collated.rad.sz``
+after ``collate -c``) streams in blocks of whole cells, synchronously.
 
 Outputs the reference's artifacts: alevin/quants_mat.mtx with its rows
 and cols files, featureDump.txt and quant.json.
@@ -14,7 +15,6 @@ and cols files, featureDump.txt and quant.json.
 
 from __future__ import annotations
 
-import json
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional
@@ -22,7 +22,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..radz import KnownRecordType, read_prelude, record_type_from_prelude
+from ..radz import KnownRecordType, record_type_from_prelude
 from ..radz.chunkio import ReadBatch, iter_decoded_blocks
 from ..radz.mtx import format_f32_list, write_matrix_market
 from ..radz.records import RecordSchema
@@ -32,6 +32,7 @@ from .. import __version__
 from ..ops.barcodes import unpack_seqs
 from ..ops.crlike import wta_counts_device
 from ..utils import parse_tg_map, write_json
+from .collate import open_collated
 from .logging_ import get_logger
 from .progress import stage_timer
 
@@ -93,17 +94,13 @@ def _check_supported(opts: QuantOpts, usa_mode: bool) -> None:
 
 def quantify(opts: QuantOpts) -> None:
     parent = Path(opts.input_dir)
-    with open(parent / "collate.json") as fh:
-        if json.load(fh)["compressed_output"]:
-            raise NotImplementedError("compressed collated input is not ported yet")
     if (parent / "collation_manifest.bin").exists():
         raise NotImplementedError("multi-barcode (Flex) quantification is not ported yet")
-    with open(parent / "map.collated.rad", "rb") as br:
-        _do_quantify(br, opts, parent)
+    with open_collated(parent) as (br, prelude, ftm):
+        _do_quantify(br, prelude, ftm, opts, parent)
 
 
-def _do_quantify(br, opts: QuantOpts, parent: Path) -> None:
-    prelude, ftm, _ = read_prelude(br)
+def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
     rec_type, _info = record_type_from_prelude(prelude, ftm)
     if rec_type == KnownRecordType.ATAC:
         raise ValueError(

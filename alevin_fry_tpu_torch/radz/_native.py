@@ -154,6 +154,21 @@ def _load():
             ctypes.c_int64, ctypes.c_void_p,   # n, dst_off
             ctypes.c_void_p, ctypes.c_int32,   # out, n_threads
         ]
+        lib.radc_crc32c.restype = ctypes.c_uint32
+        lib.radc_crc32c.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,  # buf, len, init
+        ]
+        lib.radc_snappy_max_compressed.restype = ctypes.c_int64
+        lib.radc_snappy_max_compressed.argtypes = [ctypes.c_int64]
+        lib.radc_snappy_compress.restype = ctypes.c_int64
+        lib.radc_snappy_compress.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,  # in, len, out
+        ]
+        lib.radc_snappy_uncompress.restype = ctypes.c_int64
+        lib.radc_snappy_uncompress.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64,   # in, len
+            ctypes.c_void_p, ctypes.c_int64,   # out, out_cap
+        ]
         _LIB = lib
     except OSError:
         _LIB = None
@@ -506,3 +521,36 @@ def gather_records(
         order.ctypes.data, len(order), dst_off.ctypes.data, out.ctypes.data,
         _NTHREADS,
     )
+
+
+def _bytes_view(data) -> np.ndarray:
+    arr = data if isinstance(data, np.ndarray) else np.frombuffer(data, np.uint8)
+    return np.ascontiguousarray(arr, np.uint8)
+
+
+def crc32c(data, init: int = 0) -> int:
+    """CRC-32C (Castagnoli) of a byte buffer."""
+    lib = _load()
+    arr = _bytes_view(data)
+    return int(lib.radc_crc32c(arr.ctypes.data, arr.nbytes, init))
+
+
+def snappy_compress(data) -> bytes:
+    """One snappy block of ``data`` (the framing splits the stream into
+    chunks of at most 64 KiB)."""
+    lib = _load()
+    arr = _bytes_view(data)
+    out = np.empty(int(lib.radc_snappy_max_compressed(arr.nbytes)), np.uint8)
+    n = lib.radc_snappy_compress(arr.ctypes.data, arr.nbytes, out.ctypes.data)
+    return out[:n].tobytes()
+
+
+def snappy_uncompress(data, max_out: int) -> bytes:
+    """Decode one snappy block of at most ``max_out`` bytes."""
+    lib = _load()
+    arr = _bytes_view(data)
+    out = np.empty(max_out, np.uint8)
+    n = lib.radc_snappy_uncompress(arr.ctypes.data, arr.nbytes, out.ctypes.data, max_out)
+    if n < 0:
+        raise ValueError("malformed snappy block")
+    return out[:n].tobytes()

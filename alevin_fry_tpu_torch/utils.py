@@ -187,14 +187,15 @@ def open_maybe_gz(path: Path):
     return open(path, "rb")
 
 
-def read_barcode_file(path: Path) -> Tuple[np.ndarray, int]:
+def read_barcode_file(path: Path, bclen: int | None = None) -> Tuple[np.ndarray, int]:
     """One barcode per line (optionally gzipped) -> (packed uint64
-    array, barcode length)."""
+    array in file order, barcode length).  Every barcode must have
+    ``bclen`` bases when it is given, else the first one's."""
     with open_maybe_gz(path) as fh:
         lines = [l.strip() for l in fh if l.strip()]
     if not lines:
-        return np.zeros(0, np.uint64), 0
-    length = len(lines[0])
+        return np.zeros(0, np.uint64), bclen or 0
+    length = bclen or len(lines[0])
     for l in lines:
         if len(l) != length:
             raise ValueError(f"found barcodes of different lengths {length} and {len(l)}")

@@ -45,9 +45,25 @@ Phases, one line each:
    host path on the same data, the eight data artifacts byte for byte,
    the three stage JSONs and deduplicate's four counters; then K1, K2
    and K5 each replayed against its twin on the largest input this path
-   gave it.
+   gave it;
+6. the filtered and compressed paths, each against the reference's host
+   path with the same command lines: on phase 3's data, generate-permit-list
+   -k (the knee), collate -c -m 6000000 (the out-of-core gather writing
+   map.collated.rad.sz) and quant -r cr-like from the .sz, asserting
+   that K1-K3 launched, with the eleven data artifacts byte for byte and
+   the three stage JSONs field for field; the same collate without -c
+   and quant from its .rad for their seconds (the quant artifacts must
+   match); on phase 5's data and permit list, atac sort -c, atac collate
+   -c and atac deduplicate from the .sz (the reference's run of the same
+   stages goes on beside them), with map.bed.gz equal in its
+   decompressed bytes and its header apart from the MTIME, the .sz and
+   the deduplicated BED byte for byte, the stage JSONs and the four
+   counters; and the multi-word WTA (keys past 62 bits, 32-base UMIs
+   that use bit 63) on a synthetic block of 4M pairs, equal to its CPU
+   result.  K1-K3 of each path are replayed as in phase 4; the sizes of
+   the .sz and .gz files and of what they hold are printed.
 
-With --profile, phases 3 and 5 also run each stage under torch.profiler
+With --profile, phases 3, 5 and 6 also run each stage under torch.profiler
 and cProfile and print the device's busy time (the union of its kernel
 and copy intervals), its idle share and the host's largest self times.
 
@@ -66,6 +82,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -78,6 +95,10 @@ N_CELLS, N_READS, N_GENES, THREADS = 10_000, 20_000_000, 20_000, 8
 ATAC_SEED, ATAC_CELLS, ATAC_FRAGS, ATAC_CHRS, ATAC_CHR_LEN, ATAC_AMBIENT = (
     11, 10_000, 20_000_000, 24, 130_000_000, 30)
 ATAC_MAX_RECORDS = 6_000_000
+# phase 6: collate -m for the RNA path (20M reads, so the out-of-core
+# gather writes the .sz), and the multi-word WTA block
+RNA_SZ_MAX_RECORDS = 6_000_000
+WIDE_WTA_PAIRS, WIDE_WTA_GENE_BITS = 4_000_000, 14
 # the last is some 33k tiles of the single-pass scan, so its look-back
 # crosses tens of thousands of tiles; the CPU toolkit comparison stops at
 # SEGSCAN_TOOLKIT_MAX_N
@@ -97,6 +118,8 @@ HAMMING_50M, BRUTE_QUERIES = (1_700_000, 1_100_000, 16, False), 20_000
 HBM_BYTES_PER_S = 3.35e12
 RNA_KERNELS = ("K1", "K2", "K3", "K4")  # the RNA path's kernels
 ATAC_KERNELS = ("K1", "K2", "K5")     # the ATAC path's kernels
+SCAN_KERNELS = ("K1", "K2", "K3")     # quant's, the multi-word WTA's
+ATAC_SZ_KERNELS = ("K1", "K2")        # atac sort and deduplicate's
 SOURCES = {
     "K1": ("alevin_fry_tpu_torch/csrc/segscan.cu", "alevin_fry_tpu/ops/pallas_segscan.py:82"),
     "K2": ("alevin_fry_tpu_torch/csrc/segscan.cu", "alevin_fry_tpu/ops/pallas_segscan.py:135"),
@@ -163,16 +186,30 @@ def ptxas_summary(text: str) -> list:
     return out
 
 
+def helper_start(argv: list, logs: Path):
+    """Start tests/reference_host_path.py in a subprocess (it imports the
+    reference package, this script does not), its stdout and stderr to
+    ``logs`` + ``.out`` / ``.err``."""
+    with open(f"{logs}.out", "w") as out, open(f"{logs}.err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, str(REPO / "tests" / "reference_host_path.py"), *argv],
+            stdout=out, stderr=err,
+        )
+
+
+def helper_wait(proc, logs: Path) -> dict:
+    """Wait for a helper_start subprocess; returns its JSON line."""
+    if proc.wait() != 0:
+        raise RuntimeError(f"reference_host_path.py failed:\n"
+                           f"{Path(f'{logs}.err').read_text()[-4000:]}")
+    return json.loads(Path(f"{logs}.out").read_text().strip().splitlines()[-1])
+
+
 def helper(argv: list) -> dict:
-    """Run tests/reference_host_path.py in a subprocess (it imports the
-    reference package, this script does not); returns its JSON line."""
-    proc = subprocess.run(
-        [sys.executable, str(REPO / "tests" / "reference_host_path.py"), *argv],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"reference_host_path.py {argv[0]} failed:\n{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    """Run tests/reference_host_path.py to its end; returns its JSON line."""
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = Path(tmp) / "reference"
+        return helper_wait(helper_start(argv, logs), logs)
 
 
 # --- phase 2 ----------------------------------------------------------------
@@ -359,6 +396,32 @@ class Capture:
     def __exit__(self, *exc):
         for mod, name, orig in self._orig:
             setattr(mod, name, orig)
+
+
+def reset_launches() -> None:
+    from alevin_fry_tpu_torch.ops import hamming, segscan
+
+    for counts in (segscan.LAUNCHES, hamming.LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def launch_counts() -> dict:
+    from alevin_fry_tpu_torch.ops import hamming, segscan
+
+    return {**segscan.LAUNCHES, **hamming.LAUNCHES}
+
+
+def peaks_after(peaks: dict, then=None):
+    """An ``after`` hook for run_stages: each stage's peak device memory."""
+    import torch
+
+    def after(stage):
+        peaks[stage] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if then:
+            then(stage)
+
+    return after
 
 
 def device_busy(prof) -> tuple:
@@ -576,7 +639,6 @@ def atac_phase(work: Path, card: str, profile: bool) -> list:
     import torch
 
     from alevin_fry_tpu_torch.atac import dedup
-    from alevin_fry_tpu_torch.ops import hamming, segscan
     from reference_host_path import (
         ATAC_DATA_ARTIFACTS, ATAC_STAGE_JSONS, artifact_mismatches, move_sorted_bed,
     )
@@ -604,17 +666,10 @@ def atac_phase(work: Path, card: str, profile: bool) -> list:
     stats, peaks = {}, {}
     real_dedup = dedup.deduplicate
     dedup.deduplicate = lambda *a, **k: stats.update(real_dedup(*a, **k)) or stats
-
-    def after(stage):
-        peaks[stage] = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        if stage == "sort":
-            move_sorted_bed(out)
-
+    after = peaks_after(peaks, lambda stage: stage == "sort" and move_sorted_bed(out))
     saved = os.environ.get("AFT_RESCUE_BACKEND")
     os.environ["AFT_RESCUE_BACKEND"] = "pallas"
-    for counts in (segscan.LAUNCHES, hamming.LAUNCHES):
-        counts.update(dict.fromkeys(counts, 0))
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     try:
         with Capture() as cap:
@@ -625,7 +680,7 @@ def atac_phase(work: Path, card: str, profile: bool) -> list:
             os.environ.pop("AFT_RESCUE_BACKEND")
         else:
             os.environ["AFT_RESCUE_BACKEND"] = saved
-    launches = {**segscan.LAUNCHES, **hamming.LAUNCHES}
+    launches = launch_counts()
     if not all(launches[k] > 0 for k in ATAC_KERNELS):
         raise AssertionError(f"a kernel of the ATAC path never launched: {launches}")
     for stage in stages:
@@ -650,6 +705,223 @@ def atac_phase(work: Path, card: str, profile: bool) -> list:
     return replay(cap.inputs, ATAC_KERNELS, launches, "atac", "phase 5", card)
 
 
+# --- phase 6 ----------------------------------------------------------------
+
+def sz_uncompressed_bytes(path: Path) -> int:
+    """Bytes a snappy framing stream holds, from its chunk headers and
+    each block's length prefix (no decompression)."""
+    import struct
+
+    total = 0
+    with open(path, "rb") as fh:
+        while len(hdr := fh.read(4)) == 4:
+            word = struct.unpack("<I", hdr)[0]
+            body = fh.read(word >> 8)
+            if word & 0xFF == 0x01:
+                total += len(body) - 4
+            elif word & 0xFF == 0x00:
+                shift = 0
+                for b in body[4:9]:
+                    total += (b & 0x7F) << shift
+                    shift += 7
+                    if not b & 0x80:
+                        break
+    return total
+
+
+def stage_lines(label: str, secs: dict, peaks: dict, card: str) -> None:
+    print(f"{label}: " + ", ".join(
+        f"{k} {v:.2f} s (peak device memory {peaks[k] / 2**20:.0f} MiB)"
+        for k, v in secs.items()) + f" [{card}]", flush=True)
+
+
+def rna_sz_phase(work: Path, data: Path, card: str, profile: bool) -> list:
+    """Knee-filtered gpl, the out-of-core collate writing .sz, quant from
+    it, against the reference; the same collate and quant without -c for
+    their seconds.  Returns the replay rows of K1-K3 on this path."""
+    import torch
+
+    from reference_host_path import STAGE_JSONS, artifact_mismatches, rna_artifacts
+
+    out, plain = work / "p6_port", work / "p6_plain"
+    common = ["-t", str(THREADS), "--device", "cuda"]
+    m = ["-m", str(RNA_SZ_MAX_RECORDS)]
+
+    def stages(o: Path, compress: bool) -> dict:
+        return {
+            "collate": ["collate", "-i", str(o / "gpl"), "-r", str(data / "rad"), *m,
+                        *(["-c"] if compress else []), *common],
+            "quant": ["quant", "-i", str(o / "gpl"), "-m", str(data / "t2g_3col.tsv"),
+                      "-o", str(o / "quant"), "-r", "cr-like", *common],
+        }
+
+    sz = {"gpl": ["generate-permit-list", "-i", str(data / "rad"), "-d", "fw",
+                  "-o", str(out / "gpl"), "-k", *common], **stages(out, True)}
+    peaks = {}
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+    def copy_gpl(stage):
+        if stage == "gpl":
+            shutil.copytree(out / "gpl", plain / "gpl")
+
+    with Capture() as cap:
+        secs = run_stages(sz, "phase 6 rna", profile, peaks_after(peaks, copy_gpl))
+    launches = launch_counts()
+    if not all(launches[k] > 0 for k in SCAN_KERNELS):
+        raise AssertionError(f"a kernel of the filtered .sz path never launched: {launches}")
+    plain_peaks = {}
+    plain_secs = run_stages(stages(plain, False), "phase 6 rna plain", profile,
+                            peaks_after(plain_peaks))
+    stage_lines("phase 6: port rna -k, collate -c, quant from .sz on cuda", secs, peaks, card)
+    stage_lines("phase 6: port rna, the same collate without -c, quant from .rad",
+                plain_secs, plain_peaks, card)
+    quant_files = [n for n in rna_artifacts() if n.startswith("quant/")]
+    for n in quant_files:
+        if (out / n).read_bytes() != (plain / n).read_bytes():
+            raise AssertionError(f"quant from .sz and from .rad differ in {n}")
+    sz_path = out / "gpl" / "map.collated.rad.sz"
+    rad_bytes = (plain / "gpl" / "map.collated.rad").stat().st_size
+    if sz_uncompressed_bytes(sz_path) != rad_bytes:
+        raise AssertionError("the .sz does not hold the plain collate's bytes")
+    print(f"phase 6: map.collated.rad.sz {sz_path.stat().st_size} B holding {rad_bytes} B "
+          f"(map.collated.rad), ratio {sz_path.stat().st_size / rad_bytes:.4f}; "
+          f"quant from .sz equal to quant from .rad; launches {launches}", flush=True)
+
+    (work / "p6_cmdlines.json").write_text(json.dumps(
+        {k: "alevin-fry-tpu " + " ".join(v) for k, v in sz.items()}))
+    ref_secs = helper(["run", str(data), str(work / "p6_ref"), str(work / "p6_cmdlines.json"),
+                       "--usa", "--threads", str(THREADS), "--filter", "knee", "--compress",
+                       "--max-records", str(RNA_SZ_MAX_RECORDS)])
+    names = rna_artifacts(filtered=True, compressed=True)
+    bad = artifact_mismatches(out, work / "p6_ref", names, STAGE_JSONS)
+    if bad:
+        raise AssertionError(f"port and reference differ in {bad}")
+    n_cells = json.loads((out / "quant" / "quant.json").read_text())["num_quantified_cells"]
+    print(f"phase 6: rna -k / -c: {len(names)} data artifacts byte-identical and 3 stage JSONs "
+          f"equal to the reference host path ({n_cells} knee-filtered cells quantified; host "
+          "CPU: " + ", ".join(f"{k} {v:.2f} s" for k, v in ref_secs.items()) + ")", flush=True)
+    return replay(cap.inputs, SCAN_KERNELS, launches, "rna-knee-sz", "phase 6 rna", card)
+
+
+def atac_sz_phase(work: Path, card: str, profile: bool) -> list:
+    """atac sort -c, collate -c, deduplicate from .sz on phase 5's data
+    and permit list, against the reference.  The reference's run goes on
+    at the same time, on other cores: each side's sort spends minutes in
+    single-threaded gzip at level 9, and in turn they would take most of
+    the script's time.  Returns the replay rows of K1 and K2 on this
+    path."""
+    import torch
+
+    from alevin_fry_tpu_torch.atac import dedup
+    from reference_host_path import (
+        ATAC_STAGE_JSONS, artifact_mismatches, atac_artifacts, move_sorted_bed,
+    )
+
+    data, out, ref = work / "atac_data", work / "p6_atac_port", work / "p6_atac_ref"
+    gpl_files = ("permit_freq.bin", "permit_map.bin", "bin_recs.bin", "bin_lens.bin",
+                 "generate_permit_list.json")
+    for src, dst in ((work / "atac_port", out), (work / "atac_ref", ref)):
+        (dst / "gpl").mkdir(parents=True)
+        for f in gpl_files:
+            shutil.copy(src / "gpl" / f, dst / "gpl" / f)
+    gpl = str(out / "gpl")
+    common = ["-t", str(THREADS), "--device", "cuda"]
+    m = ["-m", str(ATAC_MAX_RECORDS), "-c"]
+    stages = {
+        "sort": ["atac", "sort", "-i", gpl, "-r", str(data / "rad"), *m, *common],
+        "collate": ["atac", "collate", "-i", gpl, "-r", str(data / "rad"), *m, *common],
+        "deduplicate": ["atac", "deduplicate", "-i", gpl, *common],
+    }
+    cmdlines = {k: "alevin-fry-tpu " + " ".join(v) for k, v in stages.items()}
+    cmdlines["gpl"] = json.loads((out / "gpl" / "generate_permit_list.json").read_text())["cmd"]
+    (work / "p6_atac_cmdlines.json").write_text(json.dumps(cmdlines))
+    ref_logs = work / "p6_atac_ref_log"
+    ref_proc = helper_start(["run-atac", str(data), str(ref), str(work / "p6_atac_cmdlines.json"),
+                             "--max-records", str(ATAC_MAX_RECORDS), "--threads", str(THREADS),
+                             "--compress", "--skip-gpl"], ref_logs)
+    stats, peaks = {}, {}
+    real_dedup = dedup.deduplicate
+    dedup.deduplicate = lambda *a, **k: stats.update(real_dedup(*a, **k)) or stats
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with Capture() as cap:
+            secs = run_stages(stages, "phase 6 atac", profile, peaks_after(
+                peaks, lambda stage: stage == "sort" and move_sorted_bed(out)))
+    except BaseException:
+        ref_proc.kill()
+        ref_proc.wait()
+        raise
+    finally:
+        dedup.deduplicate = real_dedup
+    ref_run = helper_wait(ref_proc, ref_logs)
+    launches = launch_counts()
+    if not all(launches[k] > 0 for k in ATAC_SZ_KERNELS):
+        raise AssertionError(f"a kernel of the ATAC .sz path never launched: {launches}")
+    stage_lines("phase 6: port atac sort -c, collate -c, deduplicate from .sz on cuda "
+                "(the reference's run beside it)", secs, peaks, card)
+    names = atac_artifacts(compressed=True)
+    bad = artifact_mismatches(out, ref, names, ATAC_STAGE_JSONS)
+    if bad or ref_run["dedup"] != stats:
+        raise AssertionError(f"port and reference differ in {bad}, counters {stats} vs "
+                             f"{ref_run['dedup']}")
+    sizes = {
+        "map.bed.gz": (out / "sort" / "map.bed.gz").stat().st_size,
+        "map.bed (phase 5 sort)": (work / "atac_port" / "sort" / "map.bed").stat().st_size,
+        "map.collated.rad.sz": (out / "gpl" / "map.collated.rad.sz").stat().st_size,
+        "map.collated.rad (phase 5)":
+            (work / "atac_port" / "gpl" / "map.collated.rad").stat().st_size,
+    }
+    if sz_uncompressed_bytes(out / "gpl" / "map.collated.rad.sz") !=             sizes["map.collated.rad (phase 5)"]:
+        raise AssertionError("the ATAC .sz does not hold phase 5's collated bytes")
+    print(f"phase 6: atac -c: {len(names)} data artifacts equal (map.bed.gz up to its MTIME), "
+          f"3 stage JSONs and the 4 counters equal to the reference host path (host CPU: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in ref_run["seconds"].items())
+          + f"); sizes {sizes}; launches {launches}", flush=True)
+    return replay(cap.inputs, ATAC_SZ_KERNELS, launches, "atac-sz", "phase 6 atac", card)
+
+
+def wide_wta_phase(dev, card: str) -> list:
+    """The multi-word WTA (cell, UMI, gene words; 32-base UMIs use bit
+    63) on the card against its CPU result, plain and USA.  Returns the
+    replay rows of K1-K3 on its inputs."""
+    import numpy as np
+    import torch
+
+    from alevin_fry_tpu_torch.ops.crlike_device import resolve_crlike_wta_words
+
+    rng = np.random.RandomState(23)
+    n, gb = WIDE_WTA_PAIRS, WIDE_WTA_GENE_BITS
+    cell = np.sort(rng.randint(0, 40_000, n)).astype(np.int64)
+    pool = rng.randint(0, 1 << 63, 16, dtype=np.uint64) | np.uint64(1 << 63)
+    umi = pool[rng.randint(0, len(pool), n)].view(np.int64)
+    gene = rng.randint(0, 1 << gb, n).astype(np.int64)
+    words = [torch.from_numpy(w) for w in (cell, umi, gene)]
+    n_rows = {False: 1 << gb, True: 3 * (1 << (gb - 1))}
+    want = {usa: resolve_crlike_wta_words(*words, gb, n_rows[usa], usa=usa)
+            for usa in (False, True)}
+    rows = {}
+    reset_launches()
+    with Capture() as cap:
+        for usa in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = resolve_crlike_wta_words(*(w.to(dev) for w in words), gb, n_rows[usa],
+                                           usa=usa)
+            rows[usa] = (time.perf_counter() - t0, len(got[0]))
+            if not all(np.array_equal(g, w) for g, w in zip(got, want[usa])):
+                raise AssertionError(f"the multi-word WTA (usa={usa}) differs from its CPU result")
+    launches = launch_counts()
+    if not all(launches[k] > 0 for k in SCAN_KERNELS):
+        raise AssertionError(f"a kernel of the multi-word WTA never launched: {launches}")
+    print(f"phase 6: multi-word WTA on {n} pairs (UMIs with bit 63) equal to its CPU result: "
+          + ", ".join(f"{'USA' if u else 'plain'} {s:.3f} s, {k} triplets"
+                      for u, (s, k) in rows.items())
+          + f"; launches {launches} [{card}]", flush=True)
+    return replay(cap.inputs, SCAN_KERNELS, launches, "wide-wta", "phase 6 wta", card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -665,7 +937,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(REPO / "tests"))
     from alevin_fry_tpu_torch import _host_tuning, _kernels
-    from alevin_fry_tpu_torch.ops import hamming, segscan
+    from alevin_fry_tpu_torch.ops import hamming
     from alevin_fry_tpu_torch.radz import _native
     from reference_host_path import artifact_mismatches
 
@@ -692,12 +964,11 @@ def main() -> int:
     helper(["make", str(data), "--n-cells", str(N_CELLS), "--n-reads", str(N_READS),
             "--n-genes", str(N_GENES)])
     gen_s = time.perf_counter() - t0
-    for counts in (segscan.LAUNCHES, hamming.LAUNCHES):
-        counts.update(dict.fromkeys(counts, 0))
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     with Capture() as cap:
         secs, cmdlines = run_port(data, work / "port", args.profile)
-    launches = {**segscan.LAUNCHES, **hamming.LAUNCHES}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if not all(launches[k] > 0 for k in RNA_KERNELS):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
@@ -718,9 +989,11 @@ def main() -> int:
           "reference host path (host CPU: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in ref_secs.items()) + ")", flush=True)
     rows = replay(cap.inputs, RNA_KERNELS, launches, "rna", "phase 4", card)
-    shutil.rmtree(data, ignore_errors=True)
 
     rows += atac_phase(work, card, args.profile)
+    rows += rna_sz_phase(work, data, card, args.profile)
+    rows += atac_sz_phase(work, card, args.profile)
+    rows += wide_wta_phase(dev, card)
     shutil.rmtree(work, ignore_errors=True)
     # the reference package ran only in helper subprocesses
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "alevin_fry_tpu")]

@@ -84,16 +84,17 @@ def _atac_synth_data(d: Path) -> Path:
 
 
 def run_port_atac(d: Path, out: Path, max_records: int, min_reads: int,
-                  monkeypatch) -> tuple:
-    """The four ATAC stages through the port's CLI; returns the command
-    line each stage recorded and deduplicate's counters."""
+                  monkeypatch, compress: bool = False) -> tuple:
+    """The four ATAC stages through the port's CLI, sort and collate
+    with ``-c`` when ``compress``; returns the command line each stage
+    recorded and deduplicate's counters."""
     stats = {}
     real = dedup.deduplicate
     monkeypatch.setattr(dedup, "deduplicate",
                         lambda *a, **k: stats.update(real(*a, **k)) or stats)
     gpl = str(out / "gpl")
     dev = ["-t", "2", "--device", "cpu"]
-    m = ["-m", str(max_records)]
+    m = ["-m", str(max_records), *(["-c"] if compress else [])]
     stages = {
         "gpl": ["atac", "generate-permit-list", "-i", str(d / "rad"), "-o", gpl,
                 "-u", str(d / "wl.txt"), "-m", str(min_reads), *dev],
@@ -177,10 +178,12 @@ def test_atac_unported_options_raise(tmp_path, monkeypatch):
         port_main(base)
     monkeypatch.delenv("AFT_GPL_MESH")
     assert port_main(base) == 0
+    # -c is ported: sort and collate write map.bed.gz and map.collated.rad.sz
     for sub in ("sort", "collate"):
-        with pytest.raises(NotImplementedError, match="compressed"):
-            port_main(["atac", sub, "-i", gpl, "-r", str(d / "rad"), "-c",
-                       "--device", "cpu"])
+        assert port_main(["atac", sub, "-i", gpl, "-r", str(d / "rad"), "-c",
+                          "--device", "cpu"]) == 0
+    assert (tmp_path / "gpl" / "map.bed.gz").exists()
+    assert (tmp_path / "gpl" / "map.collated.rad.sz").exists()
     monkeypatch.setenv("AFT_COORDINATOR", "localhost:1234")
     with pytest.raises(NotImplementedError, match="multi-host"):
         port_main(["atac", "sort", "-i", gpl, "-r", str(d / "rad"), "--device", "cpu"])

@@ -1,6 +1,6 @@
 """CUDA kernels K1-K5 of alevin_fry_tpu_torch against their plain
-PyTorch twins, and the ATAC sort and run-length count on the card
-against its CPU result.
+PyTorch twins, and the ATAC sort and run-length count and the
+multi-word cr-like WTA on the card against their CPU results.
 
 Every test needs a CUDA device and skips without one; whether there is
 one is decided inside the ``cuda`` fixture, never at import.  Outputs
@@ -277,3 +277,33 @@ def test_sort_rle_cuda_matches_cpu(cuda, n):
     np.testing.assert_array_equal(cnt, want_cnt)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def wide_key_words(n: int, seed: int):
+    """(cell, umi, gene) int64 words of ``n`` read-gene pairs too wide to
+    pack: 32-base UMIs, which use bit 63, from a pool small enough that
+    (cell, umi) groups hold several genes and ties; 14-bit genes."""
+    rng = np.random.RandomState(seed)
+    cell = np.sort(rng.randint(0, 20_000, n)).astype(np.int64)
+    pool = rng.randint(0, 1 << 63, 16, dtype=np.uint64) | np.uint64(1 << 63)
+    umi = pool[rng.randint(0, len(pool), n)].view(np.int64)
+    gene = rng.randint(0, 1 << 14, n).astype(np.int64)
+    return [torch.from_numpy(w) for w in (cell, umi, gene)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("usa", [False, True])
+def test_wide_key_wta_cuda_matches_cpu(cuda, usa):
+    """The multi-word WTA on the card (its sorts, and K1-K3) equals its
+    CPU result."""
+    from alevin_fry_tpu_torch.ops.crlike_device import resolve_crlike_wta_words
+
+    words = wide_key_words(1_000_003, 5)
+    n_rows = 3 * (1 << 13) if usa else 1 << 14
+    before = dict(segscan.LAUNCHES)
+    got = resolve_crlike_wta_words(*(w.to(cuda) for w in words), 14, n_rows, usa=usa)
+    want = resolve_crlike_wta_words(*words, 14, n_rows, usa=usa)
+    assert all(segscan.LAUNCHES[k] > before[k] for k in ("K1", "K2", "K3"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert len(got[0]) > 10_000

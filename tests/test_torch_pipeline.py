@@ -149,6 +149,11 @@ assert main(["generate-permit-list", "-i", d + "/rad", "-d", "fw", "-o", o + "/g
 assert main(["collate", "-i", o + "/gpl", "-r", d + "/rad", *dev]) == 0
 assert main(["quant", "-i", o + "/gpl", "-m", d + "/t2g_3col.tsv", "-o", o + "/quant",
              "-r", "cr-like", *dev]) == 0
+assert main(["generate-permit-list", "-i", d + "/rad", "-d", "fw", "-o", o + "/kgpl",
+             "-k", *dev]) == 0
+assert main(["collate", "-i", o + "/kgpl", "-r", d + "/rad", "-c", *dev]) == 0
+assert main(["quant", "-i", o + "/kgpl", "-m", d + "/t2g_3col.tsv", "-o", o + "/kquant",
+             "-r", "cr-like", *dev]) == 0
 g = o + "/agpl"
 assert main(["atac", "generate-permit-list", "-i", a + "/rad", "-o", g,
              "-u", a + "/wl.txt", "-m", "1", *dev]) == 0
@@ -169,6 +174,8 @@ print(json.dumps(sorted(m for m in sys.modules if m.startswith("alevin_fry_tpu")
     assert any(m.startswith("alevin_fry_tpu_torch.atac") for m in loaded)
     assert any(m.startswith("alevin_fry_tpu_torch.pipeline") for m in loaded)
     assert any(m.startswith("alevin_fry_tpu_torch.radz") for m in loaded)
+    assert {"alevin_fry_tpu_torch.ops.knee", "alevin_fry_tpu_torch.radz.snappyz"} <= set(loaded)
+    assert (out / "kquant" / "alevin" / "quants_mat.mtx").exists()
     assert [m for m in loaded if m.split(".")[0] == "alevin_fry_tpu"] == []
 
 
@@ -184,9 +191,9 @@ def test_resolve_device():
 def test_unported_options_raise(tmp_path, monkeypatch):
     d = _synth_data(tmp_path / "d")
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="filtered permit lists"):
-        port_main(["generate-permit-list", "-i", str(d / "rad"), "-d", "fw",
-                   "-o", str(out / "gpl"), "-k", "--device", "cpu"])
+    # the knee filter (-k) and -c are ported: they run
+    assert port_main(["generate-permit-list", "-i", str(d / "rad"), "-d", "fw",
+                      "-o", str(tmp_path / "knee"), "-k", "--device", "cpu"]) == 0
     _run_port(d, out, True, min_reads=1)
     for extra, what in ((["-r", "cr-like-em"], "cr-like-em"),
                         (["-r", "cr-like", "--dump-eqclasses"], "dump-eqclasses"),
@@ -194,9 +201,9 @@ def test_unported_options_raise(tmp_path, monkeypatch):
         with pytest.raises(NotImplementedError, match=what):
             port_main(["quant", "-i", str(out / "gpl"), "-m", str(d / "t2g_3col.tsv"),
                        "-o", str(out / "q2"), *extra, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="compressed"):
-        port_main(["collate", "-i", str(out / "gpl"), "-r", str(d / "rad"), "-c",
-                   "--device", "cpu"])
+    assert port_main(["collate", "-i", str(out / "gpl"), "-r", str(d / "rad"), "-c",
+                      "--device", "cpu"]) == 0
+    assert (out / "gpl" / "map.collated.rad.sz").exists()
     monkeypatch.setenv("AFT_COORDINATOR", "localhost:1234")
     with pytest.raises(NotImplementedError, match="multi-host"):
         port_main(["collate", "-i", str(out / "gpl"), "-r", str(d / "rad"),
@@ -238,3 +245,62 @@ def test_out_of_core_collate_without_native_codec(tmp_path, monkeypatch):
     assert port_main(["collate", "-i", str(gpl_dir), "-r", str(d / "rad"), "-m", "7",
                       "--device", "cpu"]) == 0
     assert (gpl_dir / "map.collated.rad").read_bytes() == in_mem
+
+
+def test_gpl_records_sample_flags_on_plain_rna(tmp_path):
+    """The multi-barcode (Flex) flags on a plain RNA input are recorded
+    in generate_permit_list.json and change nothing else, as in the
+    reference."""
+    d = _synth_data(tmp_path / "d")
+    (d / "samples.txt").write_text("ACGTACGT\n")
+    (d / "names.txt").write_text("ACGTACGT\tsample_1\n")
+    flex = {"sample_bc_list": d / "samples.txt", "sample_names": d / "names.txt",
+            "sample_correction_mode": "1-edit", "sample_bc_ori": "reverse"}
+    cmdlines = _run_port(d, tmp_path / "port", True, min_reads=1)
+    argv = ["generate-permit-list", "-i", str(d / "rad"), "-d", "fw",
+            "-o", str(tmp_path / "port" / "gpl"), "-u", str(d / "permit.txt"), "-m", "1",
+            "--sample-bc-list", str(d / "samples.txt"), "--sample-names",
+            str(d / "names.txt"), "--sample-correction-mode", "1-edit",
+            "--sample-bc-ori", "reverse", "-t", "2", "--device", "cpu"]
+    assert port_main(argv) == 0
+    cmdlines["gpl"] = "alevin-fry-tpu " + " ".join(argv)
+    run_reference(d, tmp_path / "ref", cmdlines, True, min_reads=1, threads=2,
+                  gpl_opts=flex)
+    assert artifact_mismatches(tmp_path / "port", tmp_path / "ref") == []
+    opts = json.loads((tmp_path / "port" / "gpl" / "generate_permit_list.json").read_text())
+    assert opts["gpl_options"]["sample_bc_ori"] == "reverse"
+    assert opts["gpl_options"]["sample_bc_list"] == str(d / "samples.txt")
+
+
+@pytest.mark.parametrize("extra", [["-r", "trivial", "-d"], ["-r", "cr-like", "-b", "5"]])
+def test_quant_refusals_match_reference(tmp_path, capsys, extra):
+    """-d with trivial and bootstraps with a non-EM resolution: the
+    reference's message on stderr and exit code 1."""
+    from alevin_fry_tpu.cli import main as ref_main
+
+    d = _synth_data(tmp_path / "d")
+    _run_port(d, tmp_path / "out", True, min_reads=1)
+    argv = ["quant", "-i", str(tmp_path / "out" / "gpl"), "-m", str(d / "t2g_3col.tsv"),
+            "-o", str(tmp_path / "q"), *extra]
+    capsys.readouterr()
+    got = (port_main(argv + ["--device", "cpu"]), capsys.readouterr().err)
+    want = (ref_main(argv), capsys.readouterr().err)
+    assert got == want and got[0] == 1 and got[1].strip()
+    assert not (tmp_path / "q").exists()
+
+
+def test_slice_matches_reference_with_28_base_umis(tmp_path, monkeypatch):
+    """28-base UMIs are 56 bits, so the (cell, UMI, gene) keys pass 62
+    bits and quant resolves them as three words on the device path."""
+    from alevin_fry_tpu_torch.ops import crlike
+
+    calls = []
+    real = crlike.resolve_crlike_wta_words
+    monkeypatch.setattr(crlike, "resolve_crlike_wta_words",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    d = tmp_path / "d"
+    d.mkdir()
+    make_hard_dataset(d, np.random.RandomState(13), n_cells=200, n_reads=60_000,
+                      n_genes=300, umi_len=28)
+    _check_against_reference(d, tmp_path, True, min_reads=10)
+    assert calls
