@@ -22,7 +22,7 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("segscan.cu", "hamming.cu")
+SOURCES = ("segscan.cu", "hamming.cu", "em.cu")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 LIB_NAME = "libaft_kernels.so"
@@ -110,7 +110,7 @@ def load() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
-    P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    P, I64, I32, F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.aft_segscan_scratch_bytes.argtypes = [I64]
     lib.aft_segscan_scratch_bytes.restype = I64
     lib.aft_segscan_tile.argtypes = [I32]
@@ -120,8 +120,11 @@ def load() -> ctypes.CDLL:
     lib.aft_hamming1.argtypes = [P, I64, P, I64, I32, P, P, P]
     lib.aft_hamming1_min.argtypes = [P, I64, P, I64, I32, P, P, P]
     lib.aft_hamming1_plan.argtypes = [I64, P]
+    lib.aft_em_smem_limit.argtypes = []
+    lib.aft_em_smem_limit.restype = I64
+    lib.aft_em_cells.argtypes = [P, P, P, P, P, P, P, P, P, P, I32, P, P, I64, F32, I32, P, P, P]
     for fn in ("aft_segscan_tile", "aft_segscan_fwd", "aft_segscan_min", "aft_segscan_lex",
-               "aft_hamming1", "aft_hamming1_min", "aft_hamming1_plan"):
+               "aft_hamming1", "aft_hamming1_min", "aft_hamming1_plan", "aft_em_cells"):
         getattr(lib, fn).restype = I32
     _lib = lib
     return lib

@@ -1,11 +1,13 @@
 """Command line of the port: ``generate-permit-list``, ``collate``,
-``quant`` and the ``atac`` subcommands, with the reference's flags
-(alevin_fry_tpu/cli.py, reference src/main.rs) plus ``--device
+``quant``, ``infer`` and the ``atac`` subcommands, with the reference's
+flags (alevin_fry_tpu/cli.py, reference src/main.rs) plus ``--device
 {cuda,cpu}``.
 
     python -m alevin_fry_tpu_torch generate-permit-list -i RAD -d fw -o OUT -u PERMIT.txt
     python -m alevin_fry_tpu_torch collate -i OUT -r RAD
-    python -m alevin_fry_tpu_torch quant -i OUT -m T2G.tsv -o QUANT -r cr-like
+    python -m alevin_fry_tpu_torch quant -i OUT -m T2G.tsv -o QUANT -r cr-like-em -d
+    python -m alevin_fry_tpu_torch infer -c QUANT/alevin/geqc_counts.mtx \
+        -e QUANT/alevin/gene_eqclass.txt.gz -o INFER --usa
     python -m alevin_fry_tpu_torch atac generate-permit-list -i RAD -o OUT -u WL.txt
     python -m alevin_fry_tpu_torch atac sort -i OUT -r RAD
     python -m alevin_fry_tpu_torch atac collate -i OUT -r RAD
@@ -107,6 +109,17 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--multi-sample-output", choices=["separate", "combined", "both"],
                    default="separate")
     device_flag(q)
+
+    i = sub.add_parser("infer", help="Perform inference on equivalence class count data")
+    i.add_argument("-c", "--count-mat", required=True, type=_existing_file)
+    i.add_argument("-e", "--eq-labels", required=True, type=_existing_file)
+    i.add_argument("-o", "--output-dir", required=True, type=Path)
+    i.add_argument("-t", "--threads", type=int, default=ncpu)
+    i.add_argument("--usa", action="store_true")
+    i.add_argument("--quant-subset", type=_existing_file)
+    i.add_argument("--use-mtx", action="store_true")
+    i.add_argument("--use-eds", action="store_true", help=argparse.SUPPRESS)
+    device_flag(i)
 
     at = sub.add_parser("atac", help="subcommand for processing scATAC-seq RAD files")
     atsub = at.add_subparsers(dest="atac_command", required=True)
@@ -241,6 +254,15 @@ def main(argv=None) -> int:
             args.input_dir, args.rad_dir, device, args.max_records, args.compress,
             cmdline,
         )
+        return 0
+    if args.command == "infer":
+        if args.use_eds:
+            print("--use-eds is no longer supported.", file=sys.stderr)
+            return 1
+        from .pipeline.infer import infer
+
+        infer(args.count_mat, args.eq_labels, args.usa, args.threads, args.quant_subset,
+              args.output_dir, device)
         return 0
     if args.command == "atac":
         from .atac import run as atac_run

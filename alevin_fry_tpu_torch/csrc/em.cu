@@ -1,0 +1,207 @@
+// K6: the per-cell equivalence-class EM for Hopper (sm_90a).
+//
+// Replaces the JAX package's EM device programs, XLA and not Pallas:
+// alevin_fry_tpu/ops/em.py::_get_em_kernel (:276) and
+// _get_em_kernel_compact (:446).  Those padded every cell to a shape ladder
+// (_EP_LADDER), ran the rounds of a whole batch under lax.while_loop with
+// per-cell masks, and sent cells of more than 1,024 classes to NumPy on the
+// host.  Here one block runs one cell's whole round loop at the cell's own
+// size, so no cell is padded, none waits for the slowest of a batch, and
+// none goes to the host.
+//
+// What it computes is the native host EM, radc_em_cells
+// (csrc/radc.cpp:2551-2680), operation for operation, so the floats agree
+// bit for bit:
+//   * seeds: each id's single-label counts, added in class order; the
+//     informative init (seed + 0.5f) * 1e-3f over the cell's dictionary, or
+//     the uniform 1/R that the caller passes;
+//   * a round: abundances (USA: the id plus its partners, left to right),
+//     each multi-label class's denominator over its labels in order and
+//     inv = count / denom (no contribution where denom is 0), then each id's
+//     new value: 0, plus its single-label counts, plus abundance * inv of
+//     each multi-label class holding it, in class order;
+//   * converged when no id has a new value over 1e-2 that moved by more
+//     than 1e-2; at least 2 rounds, at most 100; with with_last_round, a
+//     converged cell zeroes its values below 0.01 and runs one round more;
+//   * the final values below 0.01 become 0.
+// The host lays each cell out once (ops/em.py::plan_cells): a dictionary of
+// the ids it touches plus their USA partners (local ids 0..U-1), labels as
+// local ids, each touched id's partners as local ids, and each id's
+// occurrence list, the labels transposed (~e for a single-label class e,
+// e for a multi-label one, singles first, each part in class order).  One
+// thread per id sums its own list in that order, which is the host's order
+// of addition: no atomics, and no run-to-run change.  Every float operation
+// is an explicit round-to-nearest intrinsic (__fadd_rn, __fmul_rn,
+// __fdiv_rn, __fsub_rn), so nvcc contracts no product and sum into an FMA,
+// which the host never does.
+//
+// A round is three phases between barriers: (A) the abundance of every id,
+// (B) the inverse of every multi-label class, (C) the new value of every
+// id, written over its alpha (only its own thread reads it then), with the
+// convergence flag combined by __syncthreads_or.  The alphas, the
+// abundances (U floats each) and the inverses (E floats) live in dynamic
+// shared memory when they fit the block's limit (227 KB on the H100, opted
+// in with cudaFuncSetAttribute); a larger cell's live in its slice of a
+// global scratch buffer, through the same pointers.  The wrapper launches
+// the cells in groups of like shared-memory size, so that a few large cells
+// do not limit how many blocks of small ones an SM holds.
+//
+// Bound: what each round reads again is the cell's own labels, occurrence
+// lists and inverses, which stay in shared memory and L1/L2; the device
+// memory traffic is one read of the layout and one write of the values.
+// The work is sequential along each id's list and each class's labels, and
+// a cell's rounds depend on each other, so the kernel is bound by the
+// latency of those chains, not by bytes or operations (PERF.md).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kMinOut = 0.01f;
+constexpr float kCheckCutoff = 1e-2f;
+constexpr float kRelTol = 1e-2f;
+constexpr int kMinIter = 2;
+constexpr int kMaxIter = 100;
+
+struct EmArgs {
+  const long long* cell_cls;     // (C+1) classes of each cell
+  const long long* lab_off;      // (E+1) labels of each class
+  const int* lab_loc;            // (L) each label's local id
+  const float* countf;           // (E) class counts
+  const long long* dict_off;     // (C+1) dictionary of each cell
+  const int* p1;                 // (U) first partner (local), -1 none
+  const int* p2;                 // (U) second partner (local), -1 none
+  const long long* occ_off;      // (U+1) occurrence list of each entry
+  const int* occ;                // (L) ~e single / e multi, class-local
+  const int* cell_list;          // the cells of this launch
+  const long long* scratch_off;  // (C) float offset in scratch, -1: shared
+  float* scratch;
+  float init_value;              // 1/R for the uniform init, 0: informative
+  int with_last_round;
+  float* alpha_out;              // (U) final values
+  int* rounds_out;               // (C) rounds run (0: no EM)
+};
+
+__global__ void __launch_bounds__(kThreads) em_cell_kernel(EmArgs a) {
+  extern __shared__ float smem[];
+  const int c = a.cell_list[blockIdx.x];
+  const long long e0 = a.cell_cls[c];
+  const int ne = static_cast<int>(a.cell_cls[c + 1] - e0);
+  const long long d0 = a.dict_off[c];
+  const int nu = static_cast<int>(a.dict_off[c + 1] - d0);
+  float* alpha = a.scratch_off[c] >= 0 ? a.scratch + a.scratch_off[c] : smem;
+  float* ab = alpha + nu;
+  float* inv = ab + nu;
+  const long long* lo = a.lab_off + e0;
+  const float* cnt = a.countf + e0;
+  const long long* oo = a.occ_off + d0;
+  const int* p1 = a.p1 + d0;
+  const int* p2 = a.p2 + d0;
+
+  int multi = 0;
+  for (int e = threadIdx.x; e < ne; e += kThreads) multi |= lo[e + 1] - lo[e] > 1;
+  const bool needs_em = __syncthreads_or(multi);
+
+  for (int t = threadIdx.x; t < nu; t += kThreads) {
+    float seed = 0.0f;
+    for (long long k = oo[t]; k < oo[t + 1]; ++k) {
+      const int v = a.occ[k];
+      if (v >= 0) break;  // the single-label classes come first
+      seed = __fadd_rn(seed, cnt[~v]);
+    }
+    alpha[t] = !needs_em           ? seed
+               : a.init_value > 0  ? a.init_value
+                                   : __fmul_rn(__fadd_rn(seed, 0.5f), 1e-3f);
+  }
+
+  int it = 0;
+  if (needs_em) {
+    bool last = false;
+    for (;;) {
+      __syncthreads();
+      // (A) abundances
+      for (int t = threadIdx.x; t < nu; t += kThreads) {
+        float v = alpha[t];
+        if (p1[t] >= 0)
+          v = p2[t] >= 0 ? __fadd_rn(__fadd_rn(alpha[p1[t]], alpha[p2[t]]), v)
+                         : __fadd_rn(alpha[p1[t]], v);
+        ab[t] = v;
+      }
+      __syncthreads();
+      // (B) count / denominator of each multi-label class
+      for (int e = threadIdx.x; e < ne; e += kThreads) {
+        const long long ls = lo[e], le = lo[e + 1];
+        if (le - ls < 2) continue;
+        float denom = 0.0f;
+        for (long long j = ls; j < le; ++j) denom = __fadd_rn(denom, ab[a.lab_loc[j]]);
+        inv[e] = denom > 0.0f ? __fdiv_rn(cnt[e], denom) : 0.0f;
+      }
+      __syncthreads();
+      // (C) each id's new value, in its list's order
+      int moved = 0;
+      for (int t = threadIdx.x; t < nu; t += kThreads) {
+        const float abt = ab[t];
+        float o = 0.0f;
+        for (long long k = oo[t]; k < oo[t + 1]; ++k) {
+          const int v = a.occ[k];
+          o = __fadd_rn(o, v < 0 ? cnt[~v] : __fmul_rn(abt, inv[v]));
+        }
+        moved |= o > kCheckCutoff && fabsf(__fsub_rn(alpha[t], o)) > kRelTol;
+        alpha[t] = o;
+      }
+      const bool converged = !__syncthreads_or(moved);
+      ++it;
+      if (last) break;
+      if (converged && it >= kMinIter) {
+        if (!a.with_last_round) break;
+        for (int t = threadIdx.x; t < nu; t += kThreads)
+          if (alpha[t] < kMinOut) alpha[t] = 0.0f;
+        last = true;
+      } else if (it >= kMaxIter) {
+        break;
+      }
+    }
+  }
+  for (int t = threadIdx.x; t < nu; t += kThreads) {
+    const float v = alpha[t];
+    a.alpha_out[d0 + t] = v < kMinOut ? 0.0f : v;
+  }
+  if (threadIdx.x == 0) a.rounds_out[c] = it;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The most dynamic shared memory one block of the current device may use.
+long long aft_em_smem_limit() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return bytes;
+}
+
+// K6 over the n_list cells of cell_list, one block each, with smem_bytes
+// of dynamic shared memory (0 for cells whose scratch_off is >= 0).
+// Returns the CUDA error of the launch (0 when it was accepted).
+int aft_em_cells(const long long* cell_cls, const long long* lab_off, const int* lab_loc,
+                 const float* countf, const long long* dict_off, const int* p1, const int* p2,
+                 const long long* occ_off, const int* occ, const int* cell_list, int n_list,
+                 const long long* scratch_off, float* scratch, long long smem_bytes,
+                 float init_value, int with_last_round, float* alpha_out, int* rounds_out,
+                 void* stream) {
+  if (n_list <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      em_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  EmArgs a{cell_cls, lab_off, lab_loc, countf, dict_off, p1, p2, occ_off, occ, cell_list,
+           scratch_off, scratch, init_value, with_last_round, alpha_out, rounds_out};
+  em_cell_kernel<<<n_list, kThreads, static_cast<size_t>(smem_bytes),
+                   static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,8 +1,8 @@
 """cr-like winner-take-all (WTA) resolution on the device.
 
 Port of ``alevin_fry_tpu/ops/crlike_device.py``: ``_kernel`` (:200),
-``_kernel_usa`` (:335, the ``prefer_ambig=False`` branch) and
-``resolve_crlike_wta_device`` (:915).  One pass over packed
+``_kernel_usa`` (:335, both branches) and ``resolve_crlike_wta_device``
+(:915).  One pass over packed
 (cell, umi, gene) keys — sort, run-length aggregate, segmented argmax
 with tie sets, then gene-unique counting (plain) or the USA
 spliced / unspliced / ambiguous slot rules — with the segmented sums,
@@ -80,10 +80,20 @@ def _sorted_words(cell: torch.Tensor, umi: torch.Tensor, gene: torch.Tensor):
     return cell, gene, torch.ones_like(grp_start), trip_start, grp_start
 
 
-def _trip_groups(valid, trip_start, grp_start):
+def _trip_groups(valid, trip_start, grp_start, gene=None):
+    """Group ordinals and the winner rows: the triplets of largest count
+    in their (cell, umi) group or, given ``gene`` (prefer-ambig), the
+    triplets of the gene pairs {2k, 2k+1} of largest summed count."""
     grp_ord = torch.cumsum(grp_start, 0, dtype=torch.int32)
     t_count = seg_sum(valid.to(torch.int32), trip_start)
     tc = torch.where(trip_start, t_count, torch.zeros_like(t_count))
+    if gene is not None:
+        # a pair's triplets are adjacent in the sorted rows: a pair run
+        # starts with its group or where gene >> 1 changes
+        gp = gene >> 1
+        pair_start = grp_start | (trip_start & torch.cat([gp[:1] ^ 1, gp[:-1]]).ne(gp))
+        p_count = seg_sum(tc, pair_start)
+        tc = torch.where(trip_start, p_count, torch.zeros_like(p_count))
     gmax = seg_reduce(tc, trip_start, grp_start, grp_ord)
     winner = trip_start & (tc == gmax)
     return grp_ord, winner
@@ -100,13 +110,16 @@ def _kernel(rows, n_rows: int):
     return _counted(torch.where(unique_win, cell * n_rows + gene, PAD))
 
 
-def _kernel_usa(rows, n_rows: int):
+def _kernel_usa(rows, n_rows: int, prefer_ambig: bool = False):
     """USA slotting: per (cell, umi) the winner tie set maps to a
     spliced / unspliced / ambiguous slot by the reference's len-1 / 2 /
     3..10 rules.  Gene ids are the interleaved USA ids (even spliced,
-    odd unspliced); ``n_rows`` is the three-section output space."""
+    odd unspliced); ``n_rows`` is the three-section output space.  With
+    ``prefer_ambig`` counts add up per gene pair and a winning pair
+    keeps every variant observed (pugutils.rs:505-641)."""
     cell, gene, valid, trip_start, grp_start = rows
-    grp_ord, winner = _trip_groups(valid, trip_start, grp_start)
+    grp_ord, winner = _trip_groups(valid, trip_start, grp_start,
+                                   gene if prefer_ambig else None)
     tie_sz, wrank = seg_sum(winner.to(torch.int32), grp_start, with_rank=True)
     # one emission row per group, its last winner: winners ascend by gene
     # within the group, so that row's own gene is the group's largest
@@ -146,10 +159,12 @@ def _kernel_usa(rows, n_rows: int):
     return _counted(torch.where(last_win & ok, cell * n_rows + slot.to(torch.int64), PAD))
 
 
-def _resolve(rows, gbits: int, n_rows: int, usa: bool):
+def _resolve(rows, gbits: int, n_rows: int, usa: bool, prefer_ambig: bool):
     if usa and gbits + 1 > 31:
         raise ValueError("USA gene ids must fit the 31-bit look-back values")
-    uniq, cnt = (_kernel_usa if usa else _kernel)(rows, n_rows)
+    if prefer_ambig and not usa:
+        raise ValueError("prefer-ambig applies to USA mode only")
+    uniq, cnt = _kernel_usa(rows, n_rows, prefer_ambig) if usa else _kernel(rows, n_rows)
     both = torch.stack([uniq, cnt.to(torch.int64)]).cpu().numpy()
     return (
         both[0] // n_rows,
@@ -165,6 +180,7 @@ def _empty_coo():
 
 def resolve_crlike_wta_device(
     key: torch.Tensor, ubits: int, gbits: int, n_rows: int, usa: bool = False,
+    prefer_ambig: bool = False,
 ):
     """Resolve deduplicated packed (cell, umi, gene) int64 keys on
     ``key``'s device.  Returns host COO triplets (rows, cols, counts
@@ -174,12 +190,12 @@ def resolve_crlike_wta_device(
         raise TypeError("keys are int64")
     if len(key) == 0:
         return _empty_coo()
-    return _resolve(_sorted_packed(key, ubits, gbits), gbits, n_rows, usa)
+    return _resolve(_sorted_packed(key, ubits, gbits), gbits, n_rows, usa, prefer_ambig)
 
 
 def resolve_crlike_wta_words(
     cell: torch.Tensor, umi: torch.Tensor, gene: torch.Tensor, gbits: int,
-    n_rows: int, usa: bool = False,
+    n_rows: int, usa: bool = False, prefer_ambig: bool = False,
 ):
     """:func:`resolve_crlike_wta_device` for triplets too wide to pack:
     deduplicated (cell, umi, gene) as three int64 tensors on one device,
@@ -192,4 +208,4 @@ def resolve_crlike_wta_words(
         raise ValueError("cell, umi and gene words differ in length")
     if len(cell) == 0:
         return _empty_coo()
-    return _resolve(_sorted_words(cell, umi, gene), gbits, n_rows, usa)
+    return _resolve(_sorted_words(cell, umi, gene), gbits, n_rows, usa, prefer_ambig)

@@ -1,0 +1,390 @@
+"""Per-cell equivalence-class EM on kernel K6 (port of
+``alevin_fry_tpu/ops/em.py``).
+
+Semantics are those of ``em_optimize_cell_np`` (:54) and of the native
+host EM ``radc_em_cells`` (``csrc/radc.cpp:2551-2680``), which src/em.rs
+defines: informative init ``(seed + 0.5) * 1e-3`` from the single-label
+counts (or ``1/R``), rounds of E and M steps, at least 2 and at most
+100, convergence when no id has a new value over 1e-2 that moved by
+more than 1e-2, optionally one more round after thresholding at 0.01
+(``with_last_round``, em.rs:178-299), and a final floor at 0.01.  In USA
+mode an id's abundance adds its spliced / unspliced / ambiguous partners
+(em.rs:94-114).
+
+The JAX package ran this as an XLA program over cells padded to a shape
+ladder (``_get_em_kernel`` :276, ``_get_em_kernel_compact`` :446), with
+cells of more than 1,024 classes sent to NumPy.  Here every cell runs on
+the card in K6 (``csrc/em.cu``): one CUDA block per cell runs the whole
+round loop over the cell's own dictionary of ids, so there is no host
+round trip, no padding and no host routing.  The host lays a batch out
+once (:func:`plan_cells`):
+
+* each cell's dictionary: the ids its labels touch and, in USA mode,
+  their partners, ascending; labels become local ids into it, and each
+  touched id keeps the local ids of its partners;
+* each local id's occurrence list, the transpose of the labels: first
+  its single-label classes, then its (multi-label class, position)
+  pairs, in class order.  Summing an id's list in order adds its new
+  value in the order the host EM adds it, so K6 and its twin give the
+  host's floats bit for bit, with no atomics.
+
+:func:`em_run` launches K6 for tensors on a CUDA device and takes the
+plain PyTorch twin :func:`em_run_twin` for tensors on the CPU.  The twin
+keeps the same order of additions: it sums the ragged occurrence lists
+column by column.  ``LAUNCHES`` counts K6's launches; ``STATS`` counts
+what :func:`em_cells` solved (cells, classes, labels, dictionary sizes,
+rounds, cells on the global-memory route).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..radz import _native
+from ..radz.constants import (
+    ALPHA_CHECK_CUTOFF, EM_MAX_ITER, EM_MIN_ITER, EM_REL_DIFF_TOLERANCE, MIN_OUTPUT_ALPHA,
+)
+
+LAUNCHES = {"K6": 0}
+STATS = {"calls": 0, "cells": 0, "em_cells": 0, "classes": 0, "labels": 0, "max_u": 0,
+         "max_e": 0, "global_cells": 0, "rounds": []}
+
+_F32 = torch.float32
+
+
+@dataclass
+class EmPlan:
+    """A batch of cells laid out for K6 (C cells, E classes, L labels,
+    U dictionary entries over all cells, N = L occurrences).  Class and
+    label offsets are the caller's; dictionary and occurrence offsets
+    are flat over the batch; local ids and class indices count from each
+    cell's first."""
+
+    cell_cls: np.ndarray   # (C+1,) int64: classes of cell c
+    lab_off: np.ndarray    # (E+1,) int64: labels of class e
+    lab_loc: np.ndarray    # (L,) int32: each label's local id
+    countf: np.ndarray     # (E,) float32: class counts
+    dict_off: np.ndarray   # (C+1,) int64: dictionary of cell c
+    p1: np.ndarray         # (U,) int32: a touched id's first partner (USA), else -1
+    p2: np.ndarray         # (U,) int32: an ambiguous id's second partner, else -1
+    occ_off: np.ndarray    # (U+1,) int64: occurrence list of each entry
+    occ: np.ndarray        # (N,) int32: ~e for single-label class e, e for a multi-label one
+    init_value: float      # the uniform init 1/R, or 0 for the informative init
+    with_last_round: bool
+    dict_id: np.ndarray    # (U,) int64: each entry's global id (host side only)
+
+    def to(self, device) -> "EmTensors":
+        arrays = {f.name: torch.from_numpy(np.ascontiguousarray(getattr(self, f.name))).to(device)
+                  for f in fields(EmTensors) if isinstance(getattr(self, f.name), np.ndarray)}
+        return EmTensors(**arrays, init_value=self.init_value,
+                         with_last_round=self.with_last_round)
+
+
+@dataclass
+class EmTensors:
+    """:class:`EmPlan`'s arrays as tensors on one device."""
+
+    cell_cls: torch.Tensor
+    lab_off: torch.Tensor
+    lab_loc: torch.Tensor
+    countf: torch.Tensor
+    dict_off: torch.Tensor
+    p1: torch.Tensor
+    p2: torch.Tensor
+    occ_off: torch.Tensor
+    occ: torch.Tensor
+    init_value: float
+    with_last_round: bool
+
+
+def _sort_segments(keys: np.ndarray, seg_off: np.ndarray) -> np.ndarray:
+    """``keys`` (uint64) sorted within each segment of ``seg_off``."""
+    if _native.available():
+        return _native.sort_u64_segments(keys, seg_off)
+    seg = np.repeat(np.arange(len(seg_off) - 1), np.diff(seg_off))
+    return keys[np.lexsort((keys, seg))]
+
+
+def _partners(ids: np.ndarray, uoff: int, aoff: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Global ids of each USA id's partners in the order its abundance
+    adds them (em.rs:94-114): ambiguous (id - uoff, id - aoff), unspliced
+    (id + uoff), spliced (id + aoff); -1 where there is no second."""
+    amb = ids >= aoff
+    uns = (ids >= uoff) & ~amb
+    return (np.where(amb, ids - uoff, np.where(uns, ids + uoff, ids + aoff)),
+            np.where(amb, ids - aoff, -1))
+
+
+def plan_cells(
+    cell_eq_offsets: np.ndarray,
+    label_offsets: np.ndarray,
+    labels: np.ndarray,
+    counts: np.ndarray,
+    num_rows: int,
+    usa_offsets: Optional[Tuple[int, int]],
+    init_uniform: bool,
+    with_last_round: bool,
+) -> EmPlan:
+    """Lay out every cell of a batch for K6 (module docstring).  The
+    batch starts at class 0 and label 0."""
+    ceo = np.ascontiguousarray(cell_eq_offsets, np.int64)
+    lo = np.ascontiguousarray(label_offsets, np.int64)
+    if ceo[0] != 0 or lo[0] != 0:
+        raise ValueError("an EM batch starts at class 0 and label 0")
+    C = len(ceo) - 1
+    lens = np.diff(lo)
+    cls_cell = np.repeat(np.arange(C, dtype=np.int64), np.diff(ceo))
+    cell_lab = lo[ceo]  # (C+1,) each cell's label range
+    lab_cls = np.repeat(np.arange(len(lens), dtype=np.int64), lens)
+    lab_cell = cls_cell[lab_cls]
+    ids = np.asarray(labels).astype(np.int64)
+
+    # dictionaries: (cell << 32 | id) keys sorted within each cell, unique
+    if usa_offsets is not None:
+        q1, q2 = _partners(ids, *usa_offsets)
+        cand = np.stack([ids, q1, np.where(q2 >= 0, q2, ids)], 1).ravel()
+        cand_cell, cand_off = np.repeat(lab_cell, 3), 3 * cell_lab
+    else:
+        cand, cand_cell, cand_off = ids, lab_cell, cell_lab
+    ckey = _sort_segments((cand_cell.astype(np.uint64) << np.uint64(32)) | cand.astype(np.uint64),
+                          cand_off)
+    first = np.ones(len(ckey), bool)
+    first[1:] = ckey[1:] != ckey[:-1]
+    dkey = ckey[first].view(np.int64)
+    dict_cell = dkey >> 32
+    dict_off = np.zeros(C + 1, np.int64)
+    np.cumsum(np.bincount(dict_cell, minlength=C), out=dict_off[1:])
+
+    def local(cell, gid):
+        return np.searchsorted(dkey, (cell << 32) | gid)
+
+    lab_g = local(lab_cell, ids)  # each label's flat dictionary index
+    lab_loc = (lab_g - dict_off[lab_cell]).astype(np.int32)
+    U = len(dkey)
+    p1 = np.full(U, -1, np.int32)
+    p2 = np.full(U, -1, np.int32)
+    if usa_offsets is not None:
+        touched = np.zeros(U, bool)
+        touched[lab_g] = True
+        t = np.flatnonzero(touched)
+        tc, tid = dict_cell[t], dkey[t] & 0xFFFFFFFF
+        q1, q2 = _partners(tid, *usa_offsets)
+        p1[t] = local(tc, q1) - dict_off[tc]
+        amb = q2 >= 0
+        p2[t[amb]] = local(tc[amb], q2[amb]) - dict_off[tc[amb]]
+
+    # occurrence lists: per cell, labels sorted by (local id, multi, position)
+    pos = np.arange(len(ids), dtype=np.int64) - cell_lab[lab_cell]
+    multi = (lens > 1)[lab_cls]
+    okey = _sort_segments(
+        (lab_loc.astype(np.uint64) << np.uint64(33)) | (multi.astype(np.uint64) << np.uint64(32))
+        | pos.astype(np.uint64), cell_lab,
+    )
+    o_lab = cell_lab[lab_cell] + (okey & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    o_cls = lab_cls[o_lab] - ceo[lab_cell]
+    occ = np.where(multi[o_lab], o_cls, ~o_cls).astype(np.int32)
+    occ_off = np.zeros(U + 1, np.int64)
+    np.cumsum(np.bincount(lab_g, minlength=U), out=occ_off[1:])
+    return EmPlan(
+        cell_cls=ceo, lab_off=lo, lab_loc=lab_loc,
+        countf=np.asarray(counts).astype(np.float32), dict_off=dict_off, p1=p1, p2=p2,
+        occ_off=occ_off, occ=occ,
+        init_value=float(np.float32(1.0) / np.float32(num_rows)) if init_uniform else 0.0,
+        with_last_round=with_last_round, dict_id=dkey & 0xFFFFFFFF,
+    )
+
+
+# --- the plain twin ------------------------------------------------------------
+
+def _columns(pos: torch.Tensor, *cols: torch.Tensor) -> list:
+    """Entries grouped by ``pos`` (0, 1, ...), each group in entry order:
+    one tuple of ``cols`` per position."""
+    if not len(pos):
+        return []
+    order = torch.argsort(pos, stable=True)
+    splits = torch.bincount(pos).tolist()
+    return list(zip(*(c[order].split(splits) for c in cols)))
+
+
+def _ragged_pos(off: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(segment, position within segment) of each entry of CSR ``off``."""
+    n = off[1:] - off[:-1]
+    seg = torch.repeat_interleave(torch.arange(len(n), device=off.device), n)
+    return seg, torch.arange(int(off[-1]), device=off.device) - off[:-1][seg]
+
+
+def em_run_twin(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's plain PyTorch version: every cell's EM, batched, with the
+    per-cell round state of ``em_batch_np`` (em.py:831-914) and each sum
+    taken in the host's order.  Returns (final values per dictionary
+    entry, float32; rounds per cell, int32)."""
+    dev = t.occ.device
+    C, U = len(t.dict_off) - 1, len(t.occ_off) - 1
+    f32 = lambda x: torch.tensor(x, dtype=_F32, device=dev)  # noqa: E731
+    zero = f32(0.0)
+    id_cell = torch.repeat_interleave(torch.arange(C, device=dev), t.dict_off[1:] - t.dict_off[:-1])
+    lab_cls, lab_pos = _ragged_pos(t.lab_off)
+    cls_cell, _ = _ragged_pos(t.cell_cls)
+    lab_g = t.dict_off[cls_cell[lab_cls]] + t.lab_loc.long()
+    lens = t.lab_off[1:] - t.lab_off[:-1]
+    needs = torch.zeros(C, dtype=torch.bool, device=dev)
+    needs[cls_cell[lens > 1]] = True
+    den_cols = _columns(lab_pos[lens[lab_cls] > 1], lab_cls[lens[lab_cls] > 1],
+                        lab_g[lens[lab_cls] > 1])
+    occ_id, occ_pos = _ragged_pos(t.occ_off)
+    occ = t.occ.long()
+    single = occ < 0
+    occ_cls = torch.where(single, ~occ, occ) + t.cell_cls[id_cell[occ_id]]
+    occ_cols = _columns(occ_pos, occ_id, occ_cls, single)
+    usa = bool((t.p1 >= 0).any())
+    g1 = t.dict_off[id_cell] + t.p1.long()
+    g2 = t.dict_off[id_cell] + t.p2.long()
+    has1, has2 = t.p1 >= 0, t.p2 >= 0
+
+    def m_step(ab, inv):
+        o = torch.zeros(U, dtype=_F32, device=dev)
+        for ids, cls, sgl in occ_cols:
+            o[ids] = o[ids] + torch.where(sgl, t.countf[cls], ab[ids] * inv[cls])
+        return o
+
+    seed = m_step(torch.zeros(U, dtype=_F32, device=dev),
+                  torch.zeros(len(t.countf), dtype=_F32, device=dev))
+    if t.init_value:
+        init = torch.full_like(seed, t.init_value)
+    else:
+        init = (seed + f32(0.5)) * f32(1e-3)
+    alpha = torch.where(needs[id_cell], init, seed)
+    active, last = needs.clone(), torch.zeros_like(needs)
+    rounds = torch.zeros(C, dtype=torch.int32, device=dev)
+    it = 0
+    while bool(active.any()):
+        if usa:
+            a1 = alpha[torch.where(has1, g1, 0)]
+            a2 = alpha[torch.where(has2, g2, 0)]
+            ab = torch.where(has1, torch.where(has2, (a1 + a2) + alpha, a1 + alpha), alpha)
+        else:
+            ab = alpha
+        denom = torch.zeros(len(t.countf), dtype=_F32, device=dev)
+        for cls, g in den_cols:
+            denom[cls] = denom[cls] + ab[g]
+        inv = torch.where(denom > zero, t.countf / denom, zero)
+        out = m_step(ab, inv)
+        moved = (out > f32(ALPHA_CHECK_CUTOFF)) & ((alpha - out).abs() > f32(EM_REL_DIFF_TOLERANCE))
+        not_conv = torch.zeros(C, dtype=torch.bool, device=dev)
+        not_conv[id_cell[moved]] = True
+        it += 1
+        conv = ~not_conv
+        if t.with_last_round:
+            enter = active & ~last & conv & (it >= EM_MIN_ITER)
+            stop = active & (last | (~enter & (it >= EM_MAX_ITER)))
+            out = torch.where(enter[id_cell] & (out < f32(MIN_OUTPUT_ALPHA)), zero, out)
+            last = torch.where(active, enter, last)
+        else:
+            stop = active & ((conv & (it >= EM_MIN_ITER)) | (it >= EM_MAX_ITER))
+        alpha = torch.where(active[id_cell], out, alpha)
+        rounds = torch.where(active, torch.full_like(rounds, it), rounds)
+        active = active & ~stop
+    return torch.where(alpha < f32(MIN_OUTPUT_ALPHA), zero, alpha), rounds
+
+
+# --- the kernel ------------------------------------------------------------------
+
+def _routes(need: np.ndarray, limit: int) -> list:
+    """Cells grouped by launch: (cell indices, dynamic shared bytes) per
+    power-of-two bucket of shared bytes, then the cells whose arrays
+    exceed ``limit`` bytes (shared bytes -1: global memory)."""
+    big = need > limit
+    bucket = np.where(big, 63, np.ceil(np.log2(np.maximum(need, 1024))).astype(np.int64))
+    out = []
+    for b in np.unique(bucket):
+        cells = np.flatnonzero(bucket == b)
+        out.append((cells, -1 if b == 63 else int(need[cells].max())))
+    return out
+
+
+def em_run(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 on ``t``'s CUDA device, or its twin for tensors on the CPU.
+    Returns (final values per dictionary entry, float32; rounds per
+    cell, int32)."""
+    if t.occ.device.type == "cpu":
+        return em_run_twin(t)
+    lib = _kernels.load()
+    dev = t.occ.device
+    for name in ("cell_cls", "lab_off", "lab_loc", "countf", "dict_off", "p1", "p2", "occ_off",
+                 "occ"):
+        x = getattr(t, name)
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"K6 takes contiguous tensors on one CUDA device ({name})")
+    C = len(t.dict_off) - 1
+    alpha = torch.empty(len(t.occ_off) - 1, dtype=_F32, device=dev)
+    rounds = torch.empty(C, dtype=torch.int32, device=dev)
+    if C == 0:
+        return alpha, rounds
+    # per cell: alphas and abundances (U floats each) and the class inverses
+    sizes = torch.stack([t.dict_off, t.cell_cls]).cpu().numpy()
+    need = 4 * (2 * np.diff(sizes[0]) + np.diff(sizes[1]))
+    scratch_off = np.full(C, -1, np.int64)
+    routes = _routes(need, int(lib.aft_em_smem_limit()))
+    n_scratch = 0
+    for cells, smem in routes:
+        if smem < 0:
+            scratch_off[cells] = np.cumsum(need[cells] // 4) - need[cells] // 4
+            n_scratch = int((need[cells] // 4).sum())
+            STATS["global_cells"] += len(cells)
+    scratch = torch.empty(n_scratch, dtype=_F32, device=dev)
+    soff = torch.from_numpy(scratch_off).to(dev)
+    stream = _kernels.stream_of(alpha)
+    for cells, smem in routes:
+        cl = torch.from_numpy(cells.astype(np.int32)).to(dev)
+        _kernels.check(lib.aft_em_cells(
+            t.cell_cls.data_ptr(), t.lab_off.data_ptr(), t.lab_loc.data_ptr(),
+            t.countf.data_ptr(), t.dict_off.data_ptr(), t.p1.data_ptr(), t.p2.data_ptr(),
+            t.occ_off.data_ptr(), t.occ.data_ptr(), cl.data_ptr(), len(cells),
+            soff.data_ptr(), scratch.data_ptr(), max(smem, 0), t.init_value,
+            int(t.with_last_round), alpha.data_ptr(), rounds.data_ptr(), stream,
+        ), "K6 aft_em_cells")
+        LAUNCHES["K6"] += 1
+    return alpha, rounds
+
+
+# --- the batch entry point -----------------------------------------------------
+
+def em_cells(
+    cell_eq_offsets: np.ndarray,
+    label_offsets: np.ndarray,
+    labels: np.ndarray,
+    counts: np.ndarray,
+    num_rows: int,
+    usa_offsets: Optional[Tuple[int, int]],
+    init_uniform: bool,
+    with_last_round: bool,
+    device: torch.device,
+) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The EM of every cell on ``device``: per cell (ids ascending, int64;
+    values, float32), the contract of the reference's
+    ``em_cells_batched`` (em.py:917).  A cell whose classes all have one
+    label takes its counts without EM; a class with no label contributes
+    nothing; values below 0.01 are dropped."""
+    plan = plan_cells(cell_eq_offsets, label_offsets, labels, counts, num_rows, usa_offsets,
+                      init_uniform, with_last_round)
+    alpha, rounds = (x.cpu().numpy() for x in em_run(plan.to(device)))
+    C = len(plan.dict_off) - 1
+    nu, ne = np.diff(plan.dict_off), np.diff(plan.cell_cls)
+    STATS["calls"] += 1
+    STATS["cells"] += C
+    STATS["em_cells"] += int((rounds > 0).sum())
+    STATS["classes"] += int(ne.sum())
+    STATS["labels"] += len(plan.lab_loc)
+    STATS["max_u"] = max(STATS["max_u"], int(nu.max()) if C else 0)
+    STATS["max_e"] = max(STATS["max_e"], int(ne.max()) if C else 0)
+    STATS["rounds"].append(rounds[rounds > 0])
+    if C == 0:
+        return []
+    nz = alpha != 0
+    ends = np.cumsum(np.bincount(np.repeat(np.arange(C), nu)[nz], minlength=C))[:-1]
+    return list(zip(np.split(plan.dict_id[nz], ends), np.split(alpha[nz], ends)))

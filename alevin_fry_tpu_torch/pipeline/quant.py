@@ -1,37 +1,53 @@
-"""quant, cr-like resolution (port of the combined cr-like fast path of
+"""quant: per-cell UMI resolution and gene-level counts (port of
 ``alevin_fry_tpu/pipeline/quant.py``).
 
-With ``-r cr-like`` (and, in USA mode, the winner-take-all spliced
-ambiguity model) every cell resolves by the same gene-unique / USA
-winner-take-all rule (src/quant.rs:453 for small cells, :822 for
-large), so each block of whole cells goes through one pass of the
-device WTA resolver (``ops/crlike_device.py``).  The collated file
-(``map.collated.rad``, or the snappy stream ``map.collated.rad.sz``
-after ``collate -c``) streams in blocks of whole cells, synchronously.
+The collated file (``map.collated.rad``, or the snappy stream
+``map.collated.rad.sz`` after ``collate -c``) streams in blocks of whole
+cells, synchronously; ``--quant-subset`` keeps the cells whose first
+record's barcode is listed (src/quant.rs:1732-1743).  In each block:
+
+* cells with fewer than 100 records resolve by the winner-take-all rule
+  on the device whatever the resolution (src/quant.rs:433, :760), and
+  so do the larger ones under ``-r cr-like``: without ``-d`` and with
+  the winner-take-all spliced-ambiguity model the whole block goes
+  through one pass of the device resolver (``ops/crlike_device.py``);
+* larger cells otherwise take their resolution's path: ``cr-like``
+  with ``--sa-model prefer-ambig`` the device resolver's gene-pair
+  rule; ``cr-like`` with ``-d`` and ``cr-like-em`` the host tie sets
+  grouped into per-cell equivalence classes, counted (only the classes
+  the USA or gene-unique rules count) or solved by the EM on the device
+  (kernel K6, ``ops/em.py``); ``trivial`` the host's distinct UMIs of
+  single-gene reads.
 
 Outputs the reference's artifacts: alevin/quants_mat.mtx with its rows
-and cols files, featureDump.txt and quant.json.
+and cols files, featureDump.txt, quant.json and, with ``-d``,
+alevin/geqc_counts.mtx and alevin/gene_eqclass.txt.gz.  The parsimony
+resolutions and bootstraps are not ported: they raise.
 """
 
 from __future__ import annotations
 
+import gzip
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..radz import KnownRecordType, record_type_from_prelude
+from ..radz import KnownRecordType, _native, record_type_from_prelude
 from ..radz.chunkio import ReadBatch, iter_decoded_blocks
+from ..radz.constants import SMALL_CELL_FAST_THRESHOLD
 from ..radz.mtx import format_f32_list, write_matrix_market
 from ..radz.records import RecordSchema
 from ..radz.unmapped import UnmappedLookup
 
 from .. import __version__
+from ..device import refuse_multi_process
+from ..ops import crlike
 from ..ops.barcodes import unpack_seqs
-from ..ops.crlike import wta_counts_device
-from ..utils import parse_tg_map, write_json
+from ..ops.em import em_cells
+from ..utils import parse_tg_map, read_barcode_file, write_json
 from .collate import open_collated
 from .logging_ import get_logger
 from .progress import stage_timer
@@ -41,13 +57,18 @@ log = get_logger("quant")
 # reads per streamed block of whole cells
 QUANT_BLOCK_RECORDS = 30_000_000
 
+# the reference serializes the enum's Debug name (src/quant.rs:92-96)
+RESOLUTION_NAMES = {
+    "trivial": "Trivial", "cr-like": "CellRangerLike", "cr-like-em": "CellRangerLikeEm",
+}
+
 
 @dataclass
 class QuantOpts:
     input_dir: Path
     tg_map: Path
     output_dir: Path
-    device: torch.device  # where the WTA resolver runs
+    device: torch.device  # where the WTA resolver and the EM run
     num_threads: int = 8
     num_bootstraps: int = 0
     init_uniform: bool = False
@@ -72,24 +93,18 @@ class CellResult:
     cols: np.ndarray
     vals: np.ndarray
     cell_stats: tuple      # (sum_umi, max_umi, num_expr, over_mean) per row
+    # with -d: the large cells' classes as (row, label count, labels,
+    # count) in class order
+    eqc: Optional[tuple] = None
 
 
-def _check_supported(opts: QuantOpts, usa_mode: bool) -> None:
-    """The port runs the cr-like fast path only."""
-    if opts.resolution != "cr-like":
-        raise NotImplementedError(
-            f"the {opts.resolution} resolution is not ported yet (only cr-like)"
-        )
-    if opts.dump_eq:
-        raise NotImplementedError("--dump-eqclasses is not ported yet")
+def _check_supported(opts: QuantOpts) -> None:
+    if opts.resolution.startswith("parsimony"):
+        raise NotImplementedError(f"the {opts.resolution} resolution is not ported yet")
     if opts.num_bootstraps:
         raise NotImplementedError("bootstraps are not ported yet")
-    if opts.filter_list is not None:
-        raise NotImplementedError("--quant-subset is not ported yet")
-    if usa_mode and opts.sa_model != "winner-take-all":
-        raise NotImplementedError(
-            f"--sa-model {opts.sa_model} (prefer-ambig) is not ported yet"
-        )
+    if opts.resolution == "cr-like-em":
+        refuse_multi_process(mesh_var="AFT_EM_MESH")
 
 
 def quantify(opts: QuantOpts) -> None:
@@ -115,18 +130,28 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
     tid_to_gid, gene_names, gene_name_to_id, usa_mode = parse_tg_map(
         Path(opts.tg_map), hdr.ref_names
     )
-    _check_supported(opts, usa_mode)
+    _check_supported(opts)
+    if usa_mode and opts.resolution == "trivial":
+        raise ValueError("the trivial resolution strategy is not available in USA mode")
+    sa_model = opts.sa_model
+    if not usa_mode and sa_model != "winner-take-all":
+        log.info("When not operating in USA-mode, the SplicedAmbiguityModel will be ignored.")
+        sa_model = "winner-take-all"
+    num_genes = len(gene_name_to_id)
     if usa_mode:
         mid = max(gene_name_to_id.values()) + 2
         num_rows = mid + mid // 2
     else:
-        num_rows = len(gene_name_to_id)
+        num_rows = num_genes
     log.info(
         "tg-map contained %d genes mapping to %d transcripts (usa_mode=%s)",
-        len(gene_name_to_id), len(tid_to_gid), usa_mode,
+        num_genes, len(tid_to_gid), usa_mode,
     )
     barcode_len = int(ftm.get("cblen") or ftm.get("b1len") or ftm.get("b0len"))
     unmapped = UnmappedLookup.from_file(parent / "unmapped_bc_count_collated.bin")
+    listed = None
+    if opts.filter_list is not None:
+        listed = np.unique(read_barcode_file(Path(opts.filter_list), barcode_len)[0])
 
     # blocks of whole cells: cells are independent, so each block
     # resolves on its own; only each cell's first barcode is read
@@ -138,7 +163,11 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
             prefetch=True,
         ):
             pb.update(batch.n_reads)
-            parts.append(_resolve_cells(batch, tid_to_gid, usa_mode, num_rows, opts.device))
+            keep = np.ones(len(batch.chunk_offsets) - 1, bool)
+            if listed is not None:
+                keep = np.isin(batch.barcode_at(batch.chunk_offsets[:-1]), listed)
+            parts.append(_resolve_cells(batch, keep, tid_to_gid, opts, sa_model, usa_mode,
+                                        num_genes, num_rows))
     _write_outputs(
         opts, _merge_results(parts), gene_names, usa_mode, num_rows,
         barcode_len, unmapped,
@@ -165,32 +194,101 @@ def _coo_cell_stats(rows: np.ndarray, vals: np.ndarray, n_cells: int) -> tuple:
     return sum_umi, max_umi, num_expr, over_mean
 
 
+def _reads(batch: ReadBatch, cell_of_read: np.ndarray, sel: np.ndarray) -> tuple:
+    """(cell, umi, refs, alignment offsets) of the reads ``sel`` marks."""
+    if sel.all():
+        return cell_of_read, batch.umi, batch.refs, batch.aln_offsets
+    idx = np.flatnonzero(sel)
+    nal = batch.num_aln_per_read[idx]
+    offs = np.zeros(len(idx) + 1, np.int64)
+    np.cumsum(nal, out=offs[1:])
+    gather = np.repeat(batch.aln_offsets[:-1][idx], nal) + (
+        np.arange(int(offs[-1])) - np.repeat(offs[:-1], nal)
+    )
+    return cell_of_read[idx], batch.umi[idx], batch.refs[gather], offs
+
+
 def _resolve_cells(
-    batch: ReadBatch, tid_to_gid: np.ndarray, usa_mode: bool, num_rows: int,
-    device: torch.device,
+    batch: ReadBatch, keep_cells: np.ndarray, tid_to_gid: np.ndarray, opts: QuantOpts,
+    sa_model: str, usa_mode: bool, num_genes: int, num_rows: int,
 ) -> CellResult:
-    """One block of whole cells through the device WTA resolver.  Rows
-    are the block's non-empty cells in file order."""
+    """One block of whole cells (module docstring).  Rows are the
+    block's kept non-empty cells in file order."""
     first = batch.first_chunk
     cell_of_read = batch.chunk_id - first
     nrec_all = np.diff(batch.chunk_offsets)
-    processed = np.flatnonzero(nrec_all > 0)
+    processed = np.flatnonzero(keep_cells & (nrec_all > 0))
     cell_row = np.full(len(nrec_all), -1, np.int64)
     cell_row[processed] = np.arange(len(processed))
     cell_bcs = batch.barcode_at(batch.chunk_offsets[:-1][processed])
+    read_keep = keep_cells[cell_of_read]
+    large = read_keep & (nrec_all >= SMALL_CELL_FAST_THRESHOLD)[cell_of_read]
+    prefer_ambig = usa_mode and sa_model == "prefer-ambig"
 
-    cells, cols, vals = wta_counts_device(
-        cell_of_read, batch.umi, batch.refs, batch.aln_offsets, tid_to_gid,
-        num_rows, device, usa=usa_mode,
-    )
-    # the resolver emits triplets sorted by (cell, column), and cell_row
-    # is monotone, so rows stay sorted
-    rows = cell_row[cells]
+    def wta(sel, pa=False):
+        return crlike.wta_counts_device(*_reads(batch, cell_of_read, sel), tid_to_gid,
+                                        num_rows, opts.device, usa=usa_mode, prefer_ambig=pa)
+
+    # each block of triplets comes sorted by (cell, column)
+    blocks, eqc = [], None
+    if opts.resolution == "cr-like" and not opts.dump_eq and not prefer_ambig:
+        # small and large cells resolve alike (src/quant.rs:453, :822)
+        blocks.append(wta(read_keep))
+    else:
+        if (read_keep & ~large).any():
+            blocks.append(wta(read_keep & ~large))
+        if large.any():
+            reads = _reads(batch, cell_of_read, large)
+            if opts.resolution == "trivial":
+                blocks.append(crlike.resolve_trivial(*reads, tid_to_gid, len(nrec_all),
+                                                     num_genes)[:3])
+            elif opts.resolution == "cr-like" and not opts.dump_eq:
+                blocks.append(wta(large, pa=True))
+            else:
+                groups = crlike.resolve_crlike(*reads, tid_to_gid, prefer_ambig=prefer_ambig)
+                classes = crlike.group_eqclasses(groups)
+                if opts.resolution == "cr-like":
+                    slots = (crlike.usa_slots_for_groups(groups, num_rows) if usa_mode
+                             else crlike.nonusa_unique_slots(groups))
+                    blocks.append(crlike.counts_from_slots(groups.cell, *slots, len(nrec_all),
+                                                           num_rows))
+                else:
+                    blocks.append(_em_counts(classes, opts, usa_mode, num_genes, num_rows))
+                if opts.dump_eq:
+                    eqc = (cell_row[np.repeat(classes.cell_ids, np.diff(classes.cell_eq_offsets))],
+                           np.diff(classes.label_offsets), classes.labels, classes.counts)
+    rows = np.concatenate([cell_row[b[0]] for b in blocks] or [np.zeros(0, np.int64)])
+    cols = np.concatenate([np.asarray(b[1], np.int64) for b in blocks] or [np.zeros(0, np.int64)])
+    vals = np.concatenate([np.asarray(b[2], np.float32) for b in blocks]
+                          or [np.zeros(0, np.float32)])
+    if len(blocks) > 1:
+        # two sorted runs of distinct (row, column) keys: one merge
+        order = np.argsort(rows * np.int64(num_rows) + cols, kind="stable")
+        rows, cols, vals = rows[order], cols[order], vals[order]
     return CellResult(
         cells=processed + first, cell_bcs=cell_bcs, nrec=nrec_all[processed],
         rows=rows, cols=cols, vals=vals,
-        cell_stats=_coo_cell_stats(rows, vals, len(processed)),
+        cell_stats=_coo_cell_stats(rows, vals, len(processed)), eqc=eqc,
     )
+
+
+def _em_counts(eqc: crlike.CellEqClasses, opts: QuantOpts, usa_mode: bool,
+               num_genes: int, num_rows: int) -> tuple:
+    """A block's large cells through the EM -> (cell, column, value)
+    sorted by (cell, column) (src/quant.rs:822-1000)."""
+    if usa_mode:
+        # the USA EM couples each gene's three slots and runs the
+        # thresholded last round (em_optimize_subset, em.rs:178-299)
+        lab_offs, labels = crlike.usa_transform_labels(eqc.label_offsets, eqc.labels, num_rows)
+        res = em_cells(eqc.cell_eq_offsets, lab_offs, labels, eqc.counts, num_rows,
+                       (num_rows // 3, 2 * num_rows // 3), opts.init_uniform, True, opts.device)
+    else:
+        res = em_cells(eqc.cell_eq_offsets, eqc.label_offsets, eqc.labels, eqc.counts,
+                       num_genes, None, opts.init_uniform, False, opts.device)
+    n = [len(ids) for ids, _ in res]
+    return (np.repeat(eqc.cell_ids, n),
+            np.concatenate([ids for ids, _ in res] or [np.zeros(0, np.int64)]),
+            np.concatenate([v for _, v in res] or [np.zeros(0, np.float32)]))
 
 
 def _merge_results(parts: List[CellResult]) -> CellResult:
@@ -206,6 +304,11 @@ def _merge_results(parts: List[CellResult]) -> CellResult:
     def cat(field):
         return np.concatenate([getattr(p, field) for p in parts])
 
+    dumped = [(p.eqc, o) for p, o in zip(parts, offs) if p.eqc is not None]
+    eqc = None
+    if dumped:
+        eqc = (np.concatenate([e[0] + o for e, o in dumped]),
+               *(np.concatenate([e[i] for e, _ in dumped]) for i in (1, 2, 3)))
     return CellResult(
         cells=cat("cells"), cell_bcs=cat("cell_bcs"), nrec=cat("nrec"),
         rows=np.concatenate([p.rows + o for p, o in zip(parts, offs)]),
@@ -213,6 +316,7 @@ def _merge_results(parts: List[CellResult]) -> CellResult:
         cell_stats=tuple(
             np.concatenate([p.cell_stats[i] for p in parts]) for i in range(4)
         ),
+        eqc=eqc,
     )
 
 
@@ -276,10 +380,15 @@ def _write_outputs(
         mat_path / "quants_mat.mtx", result.rows, result.cols, result.vals,
         (n_rows_out, num_rows),
     )
+    if opts.dump_eq:
+        # small cells contribute no class (src/quant.rs:1269-1272), but
+        # both files are written
+        _write_eqc_counts(result.eqc, n_rows_out, num_rows, usa_mode, mat_path)
+    resolution = RESOLUTION_NAMES[opts.resolution]
     write_json(out_path / "quant.json", {
         "cmd": opts.cmdline,
         "version_str": opts.version,
-        "resolution_strategy": "CellRangerLike",
+        "resolution_strategy": resolution,
         "num_quantified_cells": n_rows_out,
         "num_genes": num_rows,
         "dump_eq": opts.dump_eq,
@@ -295,14 +404,58 @@ def _write_outputs(
             "init_uniform": opts.init_uniform,
             "summary_stat": opts.summary_stat,
             "dump_eq": opts.dump_eq,
-            "resolution": "CellRangerLike",
+            "resolution": resolution,
             "pug_exact_umi": opts.pug_exact_umi,
             "sa_model": opts.sa_model,
             "small_thresh": opts.small_thresh,
             "large_graph_thresh": opts.large_graph_thresh,
-            "filter_list": None,
+            "filter_list": str(opts.filter_list) if opts.filter_list else None,
             "cmdline": opts.cmdline,
             "version": opts.version,
         },
     })
     log.info("finished quantifying %d cells", n_rows_out)
+
+
+def _write_eqc_counts(eqc: Optional[tuple], n_cells: int, num_rows: int, usa_mode: bool,
+                      mat_path: Path) -> None:
+    """geqc_counts.mtx and gene_eqclass.txt.gz (src/quant.rs:228-354):
+    label sets numbered in order of first appearance over the cells,
+    written with the USA relabelling in USA mode."""
+    if eqc is None:
+        eqc = (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.uint32),
+               np.zeros(0, np.uint32))
+    rows, lens, labels, counts = eqc
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    if _native.available():
+        ids, rep = _native.intern_label_sets(labels.astype(np.uint64), offs)
+    else:
+        first_id: Dict[bytes, int] = {}
+        ids = np.array([first_id.setdefault(labels[offs[i]:offs[i + 1]].tobytes(), len(first_id))
+                        for i in range(len(lens))], np.int64)
+        rep = np.unique(ids, return_index=True)[1] if len(ids) else np.zeros(0, np.int64)
+    write_matrix_market(mat_path / "geqc_counts.mtx", rows, ids, counts.astype(np.float32),
+                        (n_cells, len(rep)))
+
+    rep_lens = offs[rep + 1] - offs[rep]
+    rep_off = np.zeros(len(rep) + 1, np.int64)
+    np.cumsum(rep_lens, out=rep_off[1:])
+    tok = labels[np.repeat(offs[rep], rep_lens) + (
+        np.arange(int(rep_off[-1])) - np.repeat(rep_off[:-1], rep_lens))]
+    new_off = rep_off
+    if usa_mode:
+        # written with the USA relabelling (src/quant.rs:286-338)
+        new_off, tok = crlike.usa_transform_labels(rep_off, tok, num_rows)
+    if _native.available():
+        body = _native.format_eqc_rows(tok.astype(np.uint64), new_off)
+    else:
+        body = "".join(
+            "\t".join(str(int(t)) for t in tok[new_off[i]:new_off[i + 1]]) + f"\t{i}\n"
+            for i in range(len(rep))
+        ).encode()
+    # mtime=0: the file's bytes do not depend on when it was written
+    with open(mat_path / "gene_eqclass.txt.gz", "wb") as raw:
+        with gzip.GzipFile(fileobj=raw, mode="wb", mtime=0) as fh:
+            fh.write(f"{num_rows}\n{len(rep)}\n".encode())
+            fh.write(body)

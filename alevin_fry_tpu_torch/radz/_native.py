@@ -63,6 +63,11 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_void_p,
         ]
+        lib.radc_format_triplets_f32.restype = ctypes.c_int64
+        lib.radc_format_triplets_f32.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p,
+        ]
         lib.radc_ori_counts.restype = ctypes.c_int64
         lib.radc_ori_counts.argtypes = [
             ctypes.c_void_p, ctypes.c_int64,   # buf, len
@@ -87,6 +92,11 @@ def _load():
             ctypes.c_void_p, ctypes.c_int64,   # starts, n
             ctypes.c_int64, ctypes.c_void_p,   # width, out
             ctypes.c_int32,                    # n_threads
+        ]
+        lib.radc_sort_u64_segments.restype = None
+        lib.radc_sort_u64_segments.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,  # keys, seg_offsets
+            ctypes.c_int64, ctypes.c_int32,    # n_segs, n_threads
         ]
         lib.radc_sort_rle_u64_segments.restype = None
         lib.radc_sort_rle_u64_segments.argtypes = [
@@ -153,6 +163,15 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p,  # sizes, order
             ctypes.c_int64, ctypes.c_void_p,   # n, dst_off
             ctypes.c_void_p, ctypes.c_int32,   # out, n_threads
+        ]
+        lib.radc_intern_label_sets.restype = ctypes.c_int64
+        lib.radc_intern_label_sets.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # labels, offsets, n_sets
+            ctypes.c_void_p, ctypes.c_void_p,  # ids_out, rep_out
+        ]
+        lib.radc_format_eqc_rows.restype = ctypes.c_int64
+        lib.radc_format_eqc_rows.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
         ]
         lib.radc_crc32c.restype = ctypes.c_uint32
         lib.radc_crc32c.argtypes = [
@@ -263,6 +282,18 @@ def gather_uint(buf: np.ndarray, starts: np.ndarray, width: int) -> np.ndarray:
     if rc < 0:
         raise ValueError("gather_uint out of bounds")
     return out
+
+
+def sort_u64_segments(keys: np.ndarray, seg_offsets: np.ndarray) -> np.ndarray:
+    """Sort u64 ``keys`` in place within each ``[seg_offsets[i],
+    seg_offsets[i+1])`` segment (threaded).  Returns ``keys``."""
+    lib = _load()
+    keys = np.ascontiguousarray(keys, np.uint64)
+    seg_offsets = np.ascontiguousarray(seg_offsets, np.int64)
+    lib.radc_sort_u64_segments(
+        keys.ctypes.data, seg_offsets.ctypes.data, len(seg_offsets) - 1, _NTHREADS,
+    )
+    return keys
 
 
 def sort_rle_u64_segments(keys: np.ndarray, seg_offsets: np.ndarray):
@@ -446,6 +477,48 @@ def format_triplets(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray) -> byt
         out.ctypes.data,
     )
     return out[:ln].tobytes()
+
+
+def format_triplets_f32(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray) -> bytes:
+    """Format f32 COO triplets as 'r c v\\n' lines natively: values that
+    are exact integers print as integers, the rest as Rust's Display
+    prints an f32 (the bytes of the NumPy path in radz/mtx.py)."""
+    lib = _load()
+    rows = np.ascontiguousarray(rows, np.int64)
+    cols = np.ascontiguousarray(cols, np.int64)
+    vals = np.ascontiguousarray(vals, np.float32)
+    n = len(rows)
+    out = np.empty(max(n, 1) * 105, np.uint8)
+    ln = lib.radc_format_triplets_f32(
+        rows.ctypes.data, cols.ctypes.data, vals.ctypes.data, n, out.ctypes.data,
+    )
+    return out[:ln].tobytes()
+
+
+def intern_label_sets(labels: np.ndarray, offsets: np.ndarray):
+    """Number variable-length u64 label sets in order of first
+    appearance.  Returns (id per set, index of each id's first set)."""
+    lib = _load()
+    labels = np.ascontiguousarray(labels, np.uint64)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    n_sets = len(offsets) - 1
+    ids = np.empty(n_sets, np.int64)
+    rep = np.empty(max(n_sets, 1), np.int64)
+    n_uniq = lib.radc_intern_label_sets(
+        labels.ctypes.data, offsets.ctypes.data, n_sets, ids.ctypes.data, rep.ctypes.data,
+    )
+    return ids, rep[:n_uniq]
+
+
+def format_eqc_rows(vals: np.ndarray, offsets: np.ndarray) -> bytes:
+    """Render one '<v0>\\t<v1>...\\t<row>\\n' line per offsets segment."""
+    lib = _load()
+    vals = np.ascontiguousarray(vals, np.uint64)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    n_rows = len(offsets) - 1
+    out = np.empty(21 * len(vals) + 22 * max(n_rows, 1), np.uint8)
+    w = lib.radc_format_eqc_rows(vals.ctypes.data, offsets.ctypes.data, n_rows, out.ctypes.data)
+    return out[:w].tobytes()
 
 
 def encode_records_native(

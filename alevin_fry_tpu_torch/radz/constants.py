@@ -1,4 +1,4 @@
-"""Format constants (reference: src/constants.rs)."""
+"""Constants (reference: src/constants.rs, src/em.rs, src/quant.rs)."""
 
 # permit_freq.bin format version (reference: src/constants.rs:10)
 PERMIT_FILE_VER = 1
@@ -14,3 +14,14 @@ MAX_ATAC_FRAG_LEN = 2000
 
 # ATAC genomic bin size in bp (reference: src/atac/cellfilter.rs:367)
 ATAC_BIN_SIZE = 100_000
+
+# cells with fewer than this many records take the winner-take-all fast
+# path whatever the resolution (reference: src/quant.rs:433)
+SMALL_CELL_FAST_THRESHOLD = 100
+
+# EM hyper-parameters (reference: src/em.rs:28-34)
+MIN_OUTPUT_ALPHA = 0.01
+ALPHA_CHECK_CUTOFF = 1e-2
+EM_MIN_ITER = 2
+EM_MAX_ITER = 100
+EM_REL_DIFF_TOLERANCE = 1e-2

@@ -95,3 +95,22 @@ def write_matrix_market(
         fh.write(MTX_HEADER)
         fh.write(f"{shape[0]} {shape[1]} {len(np.asarray(vals))}\n".encode())
         fh.write(format_mtx_body(rows, cols, vals))
+
+
+def read_matrix_market(path: Path):
+    """Read a coordinate MatrixMarket file -> (rows, cols, vals f64,
+    (nrows, ncols)), indices 0-based."""
+    with open(path) as fh:
+        header = fh.readline()
+        if not header.startswith("%%MatrixMarket"):
+            raise ValueError(f"{path} is not a MatrixMarket file")
+        line = fh.readline()
+        while line.startswith("%"):
+            line = fh.readline()
+        nrows, ncols, nnz = (int(t) for t in line.split())
+        data = np.loadtxt(fh, dtype=np.float64, ndmin=2) if nnz else np.zeros((0, 3))
+    data = data.reshape(-1, 3)
+    return (
+        data[:, 0].astype(np.int64) - 1, data[:, 1].astype(np.int64) - 1, data[:, 2],
+        (nrows, ncols),
+    )

@@ -20,7 +20,11 @@ Phases, one line each:
    codes that use bit 63, a one-code table, tables larger than the
    kernels' shared-memory sample, and the shape of a 50M-read run (1.7M
    queries x 1.1M kept, brute-force twins on its first 20,000 queries);
-   K5 against K4 on the same inputs; CUDA-event times;
+   K5 against K4 on the same inputs; CUDA-event times; K6 (the per-cell
+   EM) against its twin bit for bit (tests/em_cases.py: USA and plain, with
+   and without the last round, informative and uniform init, an
+   all-singleton cell, zero-length classes, a 100-round cell, a cell past
+   the shared-memory limit, 10,000 random cells);
 3. generates a 10x-v3-shaped synthetic dataset (tests/synth_hard.py:
    10,000 cells, 20M reads, 20,000 genes, 3-column t2g) and runs the
    port's generate-permit-list -> collate -> quant -r cr-like on the
@@ -61,9 +65,20 @@ Phases, one line each:
    counters; and the multi-word WTA (keys past 62 bits, 32-base UMIs
    that use bit 63) on a synthetic block of 4M pairs, equal to its CPU
    result.  K1-K3 of each path are replayed as in phase 4; the sizes of
-   the .sz and .gz files and of what they hold are printed.
+   the .sz and .gz files and of what they hold are printed;
+7. the EM path on phase 3's collated data, each run against the
+   reference's host path with the same command line (which runs in a
+   thread from phase 5 on, beside the port's phases): quant -r cr-like-em
+   -d (USA), infer --usa on its dump, quant -r cr-like-em (plain), quant
+   -r trivial (plain) and quant -r cr-like --sa-model prefer-ambig (USA);
+   every data artifact byte for byte (the dump's two files too) and the
+   stage JSONs field for field; K6 launched in the EM runs and K1-K3 in
+   every quant; the USA EM's cells, classes, labels, dictionary sizes,
+   global-memory cells and rounds, and K6 and K1-K3 replayed on this
+   path's largest inputs (K6: CUDA-event time, its bound from the bytes
+   and the float operations its rounds took, its twin's time).
 
-With --profile, phases 3, 5 and 6 also run each stage under torch.profiler
+With --profile, phases 3, 5, 6 and 7 also run each stage under torch.profiler
 and cProfile and print the device's busy time (the union of its kernel
 and copy intervals), its idle share and the host's largest self times.
 
@@ -83,6 +98,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -114,8 +130,10 @@ HAMMING_SHAPES = ((65_536, 131_072, 16, False), (20_000, 30_000, 10, False),
 # a 50M-read run's rescue (1.7M queries x 1.1M kept); the brute-force
 # twins run on its first BRUTE_QUERIES queries
 HAMMING_50M, BRUTE_QUERIES = (1_700_000, 1_100_000, 16, False), 20_000
-# H100 SXM device memory rate (NVIDIA's data sheet), for the bounds
+# H100 SXM device memory rate and float32 rate outside the tensor cores
+# (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 RNA_KERNELS = ("K1", "K2", "K3", "K4")  # the RNA path's kernels
 ATAC_KERNELS = ("K1", "K2", "K5")     # the ATAC path's kernels
 SCAN_KERNELS = ("K1", "K2", "K3")     # quant's, the multi-word WTA's
@@ -126,7 +144,22 @@ SOURCES = {
     "K3": ("alevin_fry_tpu_torch/csrc/segscan.cu", "alevin_fry_tpu/ops/pallas_segscan.py:226"),
     "K4": ("alevin_fry_tpu_torch/csrc/hamming.cu", "alevin_fry_tpu/ops/pallas_hamming.py:145"),
     "K5": ("alevin_fry_tpu_torch/csrc/hamming.cu", "alevin_fry_tpu/ops/pallas_hamming.py:39"),
+    "K6": ("alevin_fry_tpu_torch/csrc/em.cu", "alevin_fry_tpu/ops/em.py:446"),
 }
+# phase 7: (name, t2g, the port's quant flags, the reference's quant
+# flags); infer --usa runs on the first one's dump
+EM_QUANTS = (
+    ("em-usa", "t2g_3col.tsv", ["-r", "cr-like-em", "-d"],
+     ["--resolution", "cr-like-em", "--dump-eq"]),
+    ("em-plain", "t2g.tsv", ["-r", "cr-like-em"], ["--resolution", "cr-like-em"]),
+    ("trivial", "t2g.tsv", ["-r", "trivial"], ["--resolution", "trivial"]),
+    ("prefer-ambig", "t2g_3col.tsv", ["-r", "cr-like", "--sa-model", "prefer-ambig"],
+     ["--resolution", "cr-like", "--sa-model", "prefer-ambig"]),
+)
+# phase 2's K6 cases: every combination of USA, last round and uniform
+# init on the small ones, two on the large one
+K6_COMBOS = [(u, w, i) for u in (False, True) for w in (True, False) for i in (False, True)]
+K6_LARGE_COMBOS = [(True, True, False), (False, False, True)]
 
 
 def card_line() -> str:
@@ -172,7 +205,7 @@ def ptxas_summary(text: str) -> list:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             op = re.search(r"(FwdOp|MinOp|LexOp|FirstIndex|MinValue)", m.group(1))
-            kern = re.search(r"(lookback_scan|hamming1_probe)_kernel", m.group(1))
+            kern = re.search(r"(lookback_scan|hamming1_probe|em_cell)_kernel", m.group(1))
             name = (kern.group(1) if kern else m.group(1)) + (f"<{op.group(1)}>" if op else "")
             spill = "0"
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -331,6 +364,56 @@ def phase2(dev, card: str) -> None:
                       f"shuffled K4 {t[2]:.4f} ms, K5 {t[3]:.4f} ms, probe twin {t[4]:.4f} ms"
                       + (f", brute-force twins {t[5]:.3f} / {t[6]:.3f} ms" if t[5] else "")
                       for shape, t in times.items()) + f" [{card}]", flush=True)
+    k6_check(dev, card)
+
+
+def float_err(got, want) -> float:
+    """Largest |kernel - twin| over float32 / int32 outputs; raises
+    unless every bit is equal."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.dtype == torch.float32:
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                err = max(err, float((g - w).abs().max()))
+                raise AssertionError(f"K6 differs from its twin by {err}")
+        elif not torch.equal(g, w):
+            raise AssertionError("K6's rounds differ from its twin's")
+    return err
+
+
+def k6_check(dev, card: str) -> None:
+    """K6 against its twin (on the CPU) on tests/em_cases.py's batches;
+    raises on any differing bit."""
+    from alevin_fry_tpu_torch.ops import em
+    from em_cases import EM_CASES, em_case, usa_offsets
+
+    global_cells = em.STATS["global_cells"]
+    timed = {}
+    for kind in EM_CASES:
+        batch, n_rows = em_case(kind)
+        combos = K6_LARGE_COMBOS if kind == "10k-cells" else K6_COMBOS
+        for usa, last, uniform in combos:
+            plan = em.plan_cells(*batch, n_rows, usa_offsets(n_rows) if usa else None,
+                                 uniform, last)
+            t = plan.to(dev)
+            want = em.em_run_twin(plan.to("cpu"))
+            float_err(em.em_run(t), want)
+            if kind == "10k-cells":
+                timed[(usa, last, uniform)] = (event_ms(lambda: em.em_run(t), 5),
+                                               int(want[1].max()), float(want[1][want[1] > 0]
+                                                                         .float().median()))
+    global_cells = em.STATS["global_cells"] - global_cells
+    if not global_cells:
+        raise AssertionError("no cell took K6's global-memory route")
+    print(f"phase 2: K6 equals its twin bit for bit (values and rounds) on {list(EM_CASES)} "
+          f"in {len(K6_COMBOS)} combinations of USA, last round and uniform init "
+          f"({len(K6_LARGE_COMBOS)} on 10k-cells); {global_cells} cell launches on the "
+          "global-memory route; 10k-cells (USA, last round, uniform): " + ", ".join(
+              f"{k} {ms:.3f} ms, rounds max {mx}, median {med}"
+              for k, (ms, mx, med) in timed.items()) + f" [{card}]", flush=True)
 
 
 def hamming_check(q, k, length: int, perm, brute=None) -> None:
@@ -399,16 +482,16 @@ class Capture:
 
 
 def reset_launches() -> None:
-    from alevin_fry_tpu_torch.ops import hamming, segscan
+    from alevin_fry_tpu_torch.ops import em, hamming, segscan
 
-    for counts in (segscan.LAUNCHES, hamming.LAUNCHES):
+    for counts in (segscan.LAUNCHES, hamming.LAUNCHES, em.LAUNCHES):
         counts.update(dict.fromkeys(counts, 0))
 
 
 def launch_counts() -> dict:
-    from alevin_fry_tpu_torch.ops import hamming, segscan
+    from alevin_fry_tpu_torch.ops import em, hamming, segscan
 
-    return {**segscan.LAUNCHES, **hamming.LAUNCHES}
+    return {**segscan.LAUNCHES, **hamming.LAUNCHES, **em.LAUNCHES}
 
 
 def peaks_after(peaks: dict, then=None):
@@ -442,6 +525,7 @@ def device_busy(prof) -> tuple:
                 else "K1-K3" if "lookback_scan" in name
                 else "K5" if "MinValue" in name
                 else "K4" if "hamming1" in name
+                else "K6" if "em_cell" in name
                 else "torch sort" if re.search(r"[Ss]ort", name) else "other torch kernels")
         kinds[kind] = kinds.get(kind, 0.0) + (end - start) / 1e3
     busy, last = 0.0, float("-inf")
@@ -922,6 +1006,218 @@ def wide_wta_phase(dev, card: str) -> list:
     return replay(cap.inputs, SCAN_KERNELS, launches, "wide-wta", "phase 6 wta", card)
 
 
+# --- phase 7 ----------------------------------------------------------------
+
+def ref_chain_start(cmds: list, logs: Path) -> dict:
+    """Run tests/reference_host_path.py commands one after another in a
+    thread; :func:`ref_chain_wait` collects their JSON lines."""
+    state = {"proc": None, "results": [], "error": None, "stop": False}
+
+    def run():
+        try:
+            for i, argv in enumerate(cmds):
+                if state["stop"]:
+                    return
+                state["proc"] = helper_start(argv, Path(f"{logs}{i}"))
+                state["results"].append(helper_wait(state["proc"], Path(f"{logs}{i}")))
+        except BaseException as exc:  # noqa: BLE001 - reraised by ref_chain_wait
+            state["error"] = exc
+
+    state["thread"] = threading.Thread(target=run, daemon=True)
+    state["thread"].start()
+    return state
+
+
+def ref_chain_wait(state: dict) -> list:
+    state["thread"].join()
+    if state["error"] is not None:
+        raise state["error"]
+    return state["results"]
+
+
+def ref_chain_stop(state: dict) -> None:
+    """Stop the chain and the process it runs."""
+    state["stop"] = True
+    proc = state["proc"]
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    state["thread"].join()
+
+
+def em_port_argv(work: Path, data: Path) -> dict:
+    """Phase 7's runs of the port: name -> argv."""
+    common = ["-t", str(THREADS), "--device", "cuda"]
+    out = work / "p7_port"
+    runs = {}
+    for name, t2g, flags, _ in EM_QUANTS:
+        runs[name] = ["quant", "-i", str(work / "port" / "gpl"), "-m", str(data / t2g),
+                      "-o", str(out / name / "quant"), *flags, *common]
+        if name == "em-usa":
+            dump = out / name / "quant" / "alevin"
+            runs["infer-usa"] = ["infer", "-c", str(dump / "geqc_counts.mtx"),
+                                 "-e", str(dump / "gene_eqclass.txt.gz"),
+                                 "-o", str(out / "infer-usa" / "infer"), "--usa", *common]
+    return runs
+
+
+def em_ref_chain(work: Path, data: Path) -> dict:
+    """Start the reference's runs of phase 7 (the same command lines) on
+    phase 4's collated directory."""
+    ref = work / "p7_ref"
+    cmds = []
+    port = em_port_argv(work, data)
+    for name, t2g, _, ref_flags in EM_QUANTS:
+        cmds.append(["quant", str(work / "ref" / "gpl"), str(ref / name / "quant"),
+                     "alevin-fry-tpu " + " ".join(port[name]), "--t2g", str(data / t2g),
+                     "--threads", str(THREADS), *ref_flags])
+        if name == "em-usa":
+            dump = ref / name / "quant" / "alevin"
+            cmds.append(["infer", str(dump / "geqc_counts.mtx"),
+                         str(dump / "gene_eqclass.txt.gz"), str(ref / "infer-usa" / "infer"),
+                         "--usa"])
+    return ref_chain_start(cmds, work / "p7_ref_log")
+
+
+class K6Capture:
+    """Keeps the largest K6 input (by occurrences) the path gave em_run."""
+
+    def __init__(self):
+        self.largest = None
+
+    def __enter__(self):
+        import dataclasses
+
+        from alevin_fry_tpu_torch.ops import em
+
+        self._orig = em.em_run
+
+        def spy(t):
+            if self.largest is None or t.occ.numel() > self.largest.occ.numel():
+                self.largest = dataclasses.replace(t, **{
+                    f.name: getattr(t, f.name).clone() for f in dataclasses.fields(t)
+                    if hasattr(getattr(t, f.name), "clone")})
+            return self._orig(t)
+
+        em.em_run = spy
+        return self
+
+    def __exit__(self, *exc):
+        from alevin_fry_tpu_torch.ops import em
+
+        em.em_run = self._orig
+
+
+def k6_work(t, rounds, alpha) -> tuple:
+    """(bytes, float operations) of K6's work on ``t``: the labels, the
+    occurrence lists and the counts read once and each nonzero value
+    written with its id; per round of each cell, the abundances and the
+    convergence test (5 per id), the denominators (one add per label of a
+    multi-label class, one division per class) and the new values (a
+    multiply and an add per occurrence), times the rounds it took."""
+    import torch
+
+    ne = (t.cell_cls[1:] - t.cell_cls[:-1])
+    nu = (t.dict_off[1:] - t.dict_off[:-1])
+    lens = t.lab_off[1:] - t.lab_off[:-1]
+    cls_cell = torch.repeat_interleave(torch.arange(len(ne), device=ne.device), ne)
+    multi = (lens > 1).to(torch.float64)
+    C = len(ne)
+    per_round = (5 * nu.double() + torch.bincount(cls_cell, lens * multi, C)
+                 + torch.bincount(cls_cell, multi, C) + 2 * torch.bincount(cls_cell, lens.double(), C))
+    ops = float((rounds.double() * per_round).sum())
+    nbytes = 4 * (2 * t.lab_loc.numel() + t.countf.numel()) + 8 * int((alpha != 0).sum())
+    return nbytes, ops
+
+
+def k6_replay(t, launches: int, path: str, label: str, card: str) -> dict:
+    """K6 and its twin (both on the card) on the captured input: equal
+    bits, CUDA-event times, the bound."""
+    from alevin_fry_tpu_torch.ops import em
+
+    got = em.em_run(t)
+    err = float_err(got, em.em_run_twin(t))
+    nbytes, ops = k6_work(t, got[1], got[0])
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    shape = [len(t.dict_off) - 1, t.countf.numel(), t.lab_loc.numel(), t.occ_off.numel() - 1]
+    row = {
+        "name": "K6", "path": path, "route": "cuda", "source": SOURCES["K6"][0],
+        "replaces": SOURCES["K6"][1], "launches": launches, "shape": shape,
+        "max_abs_err": err, "ms": event_ms(lambda: em.em_run(t), 5),
+        "plain_ms": event_ms(lambda: em.em_run_twin(t), 1),
+        "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "library_ms": None,
+    }
+    print(f"{label}: replay of K6 at the main path's shape (cells, classes, labels, dictionary "
+          f"entries) {shape}: {row['ms']:.4f} ms (twin on the card {row['plain_ms']:.2f} ms), "
+          f"bound {row['bound_ms']:.5f} ms by {row['bound_by']} ({nbytes} B, {ops:.4g} float "
+          f"operations over the rounds taken) [{card}]", flush=True)
+    return row
+
+
+def em_phase(work: Path, data: Path, chain: dict, card: str, profile: bool) -> list:
+    """Phase 7: the EM path on the card against the reference's runs in
+    ``chain``.  Returns the replay rows of K6 and K1-K3."""
+    import numpy as np
+    import torch
+
+    from alevin_fry_tpu_torch.ops import em
+    from reference_host_path import DUMP_ARTIFACTS, INFER_ARTIFACTS, QUANT_ARTIFACTS, \
+        artifact_mismatches
+
+    runs = em_port_argv(work, data)
+    peaks, secs, launches = {}, {}, {}
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    em.STATS.update(calls=0, cells=0, em_cells=0, classes=0, labels=0, max_u=0, max_e=0,
+                    global_cells=0, rounds=[])
+    usa_stats = None
+    with Capture() as cap, K6Capture() as k6cap:
+        for name, argv in runs.items():
+            before = launch_counts()
+            secs.update(run_stages({name: argv}, "phase 7", profile, peaks_after(peaks)))
+            launches[name] = {k: v - before[k] for k, v in launch_counts().items()}
+            if name == "em-usa":
+                usa_stats = {k: (list(v) if k == "rounds" else v) for k, v in em.STATS.items()}
+    total = launch_counts()
+    for name in runs:
+        want = ("K6",) if name.startswith(("em", "infer")) else ()
+        want += SCAN_KERNELS if name != "infer-usa" else ()
+        if not all(launches[name][k] > 0 for k in want):
+            raise AssertionError(f"phase 7 {name}: a kernel never launched: {launches[name]}")
+    stage_lines("phase 7: port on cuda", secs, peaks, card)
+    rounds = np.concatenate(usa_stats["rounds"]) if usa_stats["rounds"] else np.zeros(1)
+    print(f"phase 7: USA cr-like-em EM: {usa_stats['em_cells']} EM cells of "
+          f"{usa_stats['cells']} with classes, {usa_stats['classes']} classes, "
+          f"{usa_stats['labels']} labels, largest dictionary U {usa_stats['max_u']} and class "
+          f"count E {usa_stats['max_e']}, {usa_stats['global_cells']} cells on the "
+          f"global-memory route, rounds median {float(np.median(rounds))} max "
+          f"{int(rounds.max())}; launches per run {launches}", flush=True)
+
+    ref_runs = ref_chain_wait(chain)
+    bad = []
+    for name in runs:
+        if name == "infer-usa":
+            bad += [f"{name}/{n}" for n in artifact_mismatches(
+                work / "p7_port" / name, work / "p7_ref" / name, INFER_ARTIFACTS, ())]
+        else:
+            names = QUANT_ARTIFACTS + (DUMP_ARTIFACTS if name == "em-usa" else ())
+            port_dir, ref_dir = work / "p7_port" / name, work / "p7_ref" / name
+            bad += [f"{name}/{n}" for n in artifact_mismatches(
+                port_dir, ref_dir, names, ("quant/quant.json",))]
+            bad += [f"{name}/{n} (bytes)" for n in names
+                    if (port_dir / n).read_bytes() != (ref_dir / n).read_bytes()]
+    if bad:
+        raise AssertionError(f"phase 7: port and reference differ in {bad}")
+    print("phase 7: every data artifact of the 5 runs byte-identical (geqc_counts.mtx and "
+          "gene_eqclass.txt.gz too) and the quant JSONs equal to the reference host path "
+          "(host CPU, beside the port's phases 5-7: " + ", ".join(
+              f"{name} {list(r.values())[0]:.2f} s" for name, r in zip(runs, ref_runs)) + ")",
+          flush=True)
+    rows = [k6_replay(k6cap.largest, total["K6"], "rna-em", "phase 7", card)]
+    return rows + replay(cap.inputs, SCAN_KERNELS, total, "rna-em", "phase 7", card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -990,10 +1286,16 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f} s" for k, v in ref_secs.items()) + ")", flush=True)
     rows = replay(cap.inputs, RNA_KERNELS, launches, "rna", "phase 4", card)
 
-    rows += atac_phase(work, card, args.profile)
-    rows += rna_sz_phase(work, data, card, args.profile)
-    rows += atac_sz_phase(work, card, args.profile)
-    rows += wide_wta_phase(dev, card)
+    # the reference's phase-7 runs go on beside phases 5-7
+    chain = em_ref_chain(work, data)
+    try:
+        rows += atac_phase(work, card, args.profile)
+        rows += rna_sz_phase(work, data, card, args.profile)
+        rows += atac_sz_phase(work, card, args.profile)
+        rows += wide_wta_phase(dev, card)
+        rows += em_phase(work, data, chain, card, args.profile)
+    finally:
+        ref_chain_stop(chain)
     shutil.rmtree(work, ignore_errors=True)
     # the reference package ran only in helper subprocesses
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "alevin_fry_tpu")]

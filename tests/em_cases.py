@@ -1,0 +1,61 @@
+"""Inputs of the EM tests: batches of equivalence classes made from numpy
+seeds, for tests/test_torch_em.py (the twin against the JAX package),
+tests/test_torch_cuda.py and chip_smoke.py phase 2 (kernel K6 against its
+twin).  Imports nothing of either package."""
+
+import numpy as np
+
+# (cells, rows, most classes, longest label + 1, zero-length, wide cell)
+EM_CASES = {
+    "small": (40, 12, 9, 4, False, 0),
+    "zero-length": (40, 12, 9, 4, True, 0),
+    # a cell whose alphas, abundances and inverses pass 227 KB: global memory
+    "global-route": (20, 90_000, 30, 5, False, 30_000),
+    "10k-cells": (10_000, 60_000, 200, 6, False, 0),
+}
+
+
+def usa_offsets(n_rows: int):
+    """The USA offsets quant gives the EM for ``n_rows`` rows."""
+    return n_rows // 3, 2 * n_rows // 3
+
+
+def em_batch(seed, n_cells=40, n_rows=12, max_classes=9, max_len=4, zero_len=False, wide=0):
+    """(cell_eq_offsets, label_offsets, labels, counts) of ``n_cells``
+    random cells (1 to ``max_classes - 1`` classes of 1 to ``max_len - 1``
+    ascending distinct ids below ``n_rows``, counts 1-19; with
+    ``zero_len`` also cells with no class and classes with no label),
+    then an all-singleton cell, a cell with no class, a cell that runs
+    100 rounds and, with ``wide``, a cell of ``wide`` two-id classes over
+    ``2 * wide`` ids."""
+    rng = np.random.RandomState(seed)
+    lo_n = 0 if zero_len else 1
+    n_cls = rng.randint(lo_n, max_classes, n_cells)
+    E = int(n_cls.sum())
+    lens = rng.randint(lo_n, max_len, E)
+    ids = np.where(np.arange(max_len - 1) < lens[:, None],
+                   rng.randint(0, n_rows, (E, max_len - 1)), n_rows)
+    ids.sort(axis=1)
+    keep = ids < n_rows
+    keep[:, 1:] &= ids[:, 1:] != ids[:, :-1]
+    lens = keep.sum(1)
+    labels = [ids[keep]]
+    counts = [rng.randint(1, 20, E)]
+    fixed = [[([0], 3), ([2], 5), ([0], 2)], [], [([0, 1], 10_000), ([0], 2), ([1], 1)]]
+    if wide:
+        fixed.append([([2 * i, 2 * i + 1], int(rng.randint(1, 9))) for i in range(wide)])
+    for cell in fixed:
+        labels.append(np.asarray([g for lab, _ in cell for g in lab], np.int64))
+        counts.append(np.asarray([n for _, n in cell], np.int64))
+        lens = np.concatenate([lens, [len(lab) for lab, _ in cell]]).astype(np.int64)
+        n_cls = np.append(n_cls, len(cell))
+    ceo = np.concatenate(([0], np.cumsum(n_cls))).astype(np.int64)
+    lo = np.concatenate(([0], np.cumsum(lens))).astype(np.int64)
+    return (ceo, lo, np.concatenate(labels).astype(np.uint32),
+            np.concatenate(counts).astype(np.uint32))
+
+
+def em_case(kind: str, seed: int = 3):
+    """(batch, rows) of one of :data:`EM_CASES`."""
+    n_cells, n_rows, max_classes, max_len, zero_len, wide = EM_CASES[kind]
+    return em_batch(seed, n_cells, n_rows, max_classes, max_len, zero_len, wide), n_rows

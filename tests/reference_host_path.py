@@ -1,11 +1,14 @@
 """The reference package's host path, as an oracle for the port.
 
 Runs ``alevin_fry_tpu``'s generate-permit-list (unfiltered, or a
-filtered method) -> collate (plain or compressed) -> quant (cr-like), or
-its ATAC stages (generate-permit-list -> sort, collate -> deduplicate,
+filtered method) -> collate (plain or compressed) -> quant (any ported
+resolution and quant option), quant alone on a collated directory, infer,
+or its ATAC stages (generate-permit-list -> sort, collate -> deduplicate,
 plain or compressed), through its Python API with every device
 policy set to the host, so no JAX is needed: ``run`` and ``run-atac``
-block the ``jax`` import outright.  The policies are set in the
+block the ``jax`` import outright (so do ``quant`` and ``infer``; their
+EM asks ``parallel/mesh.py``, which imports JAX, for a mesh, and gets
+None, its answer under ``AFT_EM_MESH=0``).  The policies are set in the
 environment only while the stages run.  The stage command lines are
 given, so the stage JSONs can be compared with the port's field for
 field.
@@ -16,10 +19,20 @@ As a script (this imports nothing of the port):
         writes tests/synth_hard.make_hard_dataset(DIR, RandomState(S), ...)
     python tests/reference_host_path.py run DIR OUT CMDLINES.json [--usa] [--min-reads M]
             [--threads T] [--filter knee|force:N|expect:N|explicit:PATH] [--compress]
-            [--max-records R]
+            [--max-records R] [QUANT OPTIONS]
         runs the three stages on DIR/rad into OUT (gpl with DIR/permit.txt
         unless --filter names a filtered method; collate -c with
-        --compress) and prints their seconds as one JSON line
+        --compress) and prints their seconds as one JSON line.  QUANT
+        OPTIONS: --resolution R, --sa-model M, --dump-eq, --quant-subset
+        FILE, --init-uniform, --t2g FILE (default DIR/t2g_3col.tsv with
+        --usa, else DIR/t2g.tsv)
+    python tests/reference_host_path.py quant GPL OUT CMDLINE --t2g FILE [--threads T]
+            [QUANT OPTIONS]
+        runs quant alone on the collated directory GPL into OUT and prints
+        its seconds as one JSON line
+    python tests/reference_host_path.py infer COUNT_MAT EQ_LABELS OUT [--usa]
+            [--quant-subset FILE]
+        runs infer into OUT and prints its seconds as one JSON line
     python tests/reference_host_path.py make-atac DIR --n-cells C --n-frags F --n-chrs N
             --chr-len L --ambient-factor A [--seed S]
         writes tests/synth_hard.make_hard_atac_dataset(DIR, RandomState(S), ...)
@@ -46,6 +59,7 @@ import os
 import shutil
 import sys
 import time
+import types
 from pathlib import Path
 
 HOST_ENV = {
@@ -55,6 +69,7 @@ HOST_ENV = {
     "AFT_ATAC_SORT_BACKEND": "host",
     "AFT_GPL_MESH": "0",
     "AFT_EM_MESH": "0",
+    "AFT_EM_BACKEND": "host",
 }
 
 # the artifacts both packages must write byte for byte, and the stage
@@ -68,6 +83,11 @@ DATA_ARTIFACTS = (
 STAGE_JSONS = (
     "gpl/generate_permit_list.json", "gpl/collate.json", "quant/quant.json",
 )
+# quant -d's dump, and infer's outputs (into an infer/ directory)
+DUMP_ARTIFACTS = ("quant/alevin/geqc_counts.mtx", "quant/alevin/gene_eqclass.txt.gz")
+INFER_ARTIFACTS = ("infer/quants_mat.mtx", "infer/quants_mat_rows.txt",
+                   "infer/quants_mat_cols.txt")
+QUANT_ARTIFACTS = tuple(n for n in DATA_ARTIFACTS if n.startswith("quant/"))
 PATH_FIELDS = ("input_dir", "output_dir", "tg_map")
 
 # the ATAC run's artifacts: the sort's BED is moved to sort/map.bed
@@ -174,23 +194,60 @@ def cell_filter(spec, d: Path, min_reads: int):
 def run_reference(d: Path, out: Path, cmdlines: dict, usa: bool,
                   min_reads: int = 10, threads: int = 4, cell_filter_spec=None,
                   compress: bool = False, max_records: int = 30_000_000,
-                  gpl_opts=None) -> dict:
+                  gpl_opts=None, quant_opts=None, t2g=None) -> dict:
     """Run the reference's three stages on ``d/rad`` into ``out/gpl`` and
     ``out/quant``; returns each stage's seconds.  ``cmdlines`` maps
     gpl / collate / quant to the command line each JSON records;
     ``cell_filter_spec`` is :func:`cell_filter`'s; ``compress`` and
     ``max_records`` are collate's ``-c`` and ``-m``; ``gpl_opts`` adds
-    fields of the gpl options (the Flex sample flags)."""
+    fields of the gpl options (the Flex sample flags), ``quant_opts``
+    fields of the quant options (:func:`run_reference_quant`); ``t2g``
+    replaces ``d/t2g_3col.tsv`` (``usa``) or ``d/t2g.tsv``."""
     with host_policies():
-        return _run_reference(d, out, cmdlines, usa, min_reads, threads,
+        secs = _run_reference(d, out, cmdlines, usa, min_reads, threads,
                               cell_filter_spec, compress, max_records, gpl_opts or {})
+    t2g = t2g or d / ("t2g_3col.tsv" if usa else "t2g.tsv")
+    secs["quant"] = run_reference_quant(out / "gpl", out / "quant", t2g, cmdlines["quant"],
+                                        threads, **(quant_opts or {}))
+    return secs
+
+
+def run_reference_quant(gpl: Path, out: Path, t2g: Path, cmdline: str, threads: int = 4,
+                        resolution: str = "cr-like", sa_model: str = "winner-take-all",
+                        dump_eq: bool = False, quant_subset=None,
+                        init_uniform: bool = False) -> float:
+    """The reference's quant on the collated directory ``gpl`` into
+    ``out``, with the quant options of its CLI; returns its seconds."""
+    with host_policies():
+        from alevin_fry_tpu.pipeline.quant import QuantOpts, quantify
+        from alevin_fry_tpu.radz import _native
+
+        _native.set_threads(threads)
+        t0 = time.perf_counter()
+        quantify(QuantOpts(
+            input_dir=gpl, tg_map=t2g, output_dir=out, num_threads=threads,
+            resolution=resolution, sa_model=sa_model, dump_eq=dump_eq,
+            filter_list=quant_subset, init_uniform=init_uniform,
+            large_graph_thresh=0, cmdline=cmdline,
+        ))
+        return time.perf_counter() - t0
+
+
+def run_reference_infer(count_mat: Path, eq_labels: Path, out: Path, usa: bool,
+                        quant_subset=None, threads: int = 4) -> float:
+    """The reference's infer into ``out``; returns its seconds."""
+    with host_policies():
+        from alevin_fry_tpu.pipeline.infer import infer
+
+        t0 = time.perf_counter()
+        infer(count_mat, eq_labels, usa, threads, quant_subset, out)
+        return time.perf_counter() - t0
 
 
 def _run_reference(d, out, cmdlines, usa, min_reads, threads, cell_filter_spec,
                    compress, max_records, gpl_opts) -> dict:
     from alevin_fry_tpu.pipeline.collate import collate
     from alevin_fry_tpu.pipeline.gpl import GenPermitListOpts, generate_permit_list
-    from alevin_fry_tpu.pipeline.quant import QuantOpts, quantify
     from alevin_fry_tpu.radz import _native
 
     _native.set_threads(threads)
@@ -206,13 +263,6 @@ def _run_reference(d, out, cmdlines, usa, min_reads, threads, cell_filter_spec,
     collate(out / "gpl", d / "rad", threads, max_records, compress,
             cmdline=cmdlines["collate"])
     secs["collate"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    quantify(QuantOpts(
-        input_dir=out / "gpl", tg_map=d / ("t2g_3col.tsv" if usa else "t2g.tsv"),
-        output_dir=out / "quant", num_threads=threads, resolution="cr-like",
-        large_graph_thresh=0, cmdline=cmdlines["quant"],
-    ))
-    secs["quant"] = time.perf_counter() - t0
     return secs
 
 
@@ -256,6 +306,21 @@ def run_reference_atac(d: Path, out: Path, cmdlines: dict, min_reads: int = 10,
     return secs, stats
 
 
+def _quant_flags(p) -> None:
+    p.add_argument("--resolution", default="cr-like")
+    p.add_argument("--sa-model", default="winner-take-all")
+    p.add_argument("--dump-eq", action="store_true")
+    p.add_argument("--quant-subset", type=Path, default=None)
+    p.add_argument("--init-uniform", action="store_true")
+    p.add_argument("--t2g", type=Path, default=None)
+
+
+def _quant_opts(args) -> dict:
+    return {"resolution": args.resolution, "sa_model": args.sa_model,
+            "dump_eq": args.dump_eq, "quant_subset": args.quant_subset,
+            "init_uniform": args.init_uniform}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -275,6 +340,19 @@ def main(argv=None) -> int:
     rn.add_argument("--filter", default=None)
     rn.add_argument("--compress", action="store_true")
     rn.add_argument("--max-records", type=int, default=30_000_000)
+    _quant_flags(rn)
+    qu = sub.add_parser("quant")
+    qu.add_argument("gpl", type=Path)
+    qu.add_argument("out", type=Path)
+    qu.add_argument("cmdline")
+    qu.add_argument("--threads", type=int, default=4)
+    _quant_flags(qu)
+    inf = sub.add_parser("infer")
+    inf.add_argument("count_mat", type=Path)
+    inf.add_argument("eq_labels", type=Path)
+    inf.add_argument("out", type=Path)
+    inf.add_argument("--usa", action="store_true")
+    inf.add_argument("--quant-subset", type=Path, default=None)
     ma = sub.add_parser("make-atac")
     ma.add_argument("dir", type=Path)
     ma.add_argument("--n-cells", type=int, required=True)
@@ -323,6 +401,12 @@ def main(argv=None) -> int:
         return 0
     # the host path must not need JAX: make any import of it fail
     sys.modules["jax"] = None
+    # quant's and infer's EM ask parallel/mesh.py for a device mesh, which
+    # is None under HOST_ENV's AFT_EM_MESH=0; that module imports JAX at
+    # its top, so it is stood in for by its answer
+    mesh = types.ModuleType("alevin_fry_tpu.parallel.mesh")
+    mesh.mesh_from_env = lambda: None
+    sys.modules[mesh.__name__] = mesh
     if args.cmd == "run-atac":
         secs, stats = run_reference_atac(
             args.dir, args.out, json.loads(args.cmdlines.read_text()),
@@ -330,9 +414,20 @@ def main(argv=None) -> int:
         )
         print(json.dumps({"seconds": secs, "dedup": stats}))
         return 0
+    if args.cmd == "quant":
+        secs = run_reference_quant(args.gpl, args.out, args.t2g, args.cmdline, args.threads,
+                                   **_quant_opts(args))
+        print(json.dumps({"quant": secs}))
+        return 0
+    if args.cmd == "infer":
+        secs = run_reference_infer(args.count_mat, args.eq_labels, args.out, args.usa,
+                                   args.quant_subset)
+        print(json.dumps({"infer": secs}))
+        return 0
     secs = run_reference(
         args.dir, args.out, json.loads(args.cmdlines.read_text()), args.usa,
         args.min_reads, args.threads, args.filter, args.compress, args.max_records,
+        quant_opts=_quant_opts(args), t2g=args.t2g,
     )
     print(json.dumps(secs))
     return 0

@@ -1,10 +1,12 @@
-"""CUDA kernels K1-K5 of alevin_fry_tpu_torch against their plain
+"""CUDA kernels K1-K6 of alevin_fry_tpu_torch against their plain
 PyTorch twins, and the ATAC sort and run-length count and the
-multi-word cr-like WTA on the card against their CPU results.
+multi-word and prefer-ambig cr-like WTA on the card against their CPU
+results.
 
 Every test needs a CUDA device and skips without one; whether there is
-one is decided inside the ``cuda`` fixture, never at import.  Outputs
-are integers, so every comparison is exact equality.  This file imports
+one is decided inside the ``cuda`` fixture, never at import.  K1-K5's
+outputs are integers and K6's floats must equal its twin's bit for bit,
+so every comparison is exact equality.  This file imports
 no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -15,7 +17,8 @@ import pytest
 import torch
 
 from alevin_fry_tpu_torch.interop import barcodes_to_torch
-from alevin_fry_tpu_torch.ops import atac_device, hamming, segscan
+from alevin_fry_tpu_torch.ops import atac_device, em, hamming, segscan
+from em_cases import EM_CASES, em_case, usa_offsets
 
 
 @pytest.fixture
@@ -307,3 +310,68 @@ def test_wide_key_wta_cuda_matches_cpu(cuda, usa):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert len(got[0]) > 10_000
+
+
+def _k6_plan(kind, usa, with_last_round, init_uniform):
+    batch, n_rows = em_case(kind)
+    return em.plan_cells(*batch, n_rows, usa_offsets(n_rows) if usa else None, init_uniform,
+                         with_last_round)
+
+
+def _bits(t):
+    return t.cpu().view(torch.int32) if t.dtype == torch.float32 else t.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init_uniform", [False, True])
+@pytest.mark.parametrize("with_last_round", [True, False])
+@pytest.mark.parametrize("usa", [False, True])
+@pytest.mark.parametrize("kind", list(EM_CASES))
+def test_k6_matches_twin(cuda, kind, usa, with_last_round, init_uniform):
+    """K6 equals its twin bit for bit, values and rounds: all-singleton
+    and empty cells, zero-length classes, a 100-round cell, a cell past
+    the shared-memory limit (global scratch) and 10,000 random cells."""
+    plan = _k6_plan(kind, usa, with_last_round, init_uniform)
+    want = em.em_run_twin(plan.to("cpu"))
+    launches, global_cells = em.LAUNCHES["K6"], em.STATS["global_cells"]
+    got = em.em_run(plan.to(cuda))
+    assert em.LAUNCHES["K6"] > launches
+    assert (em.STATS["global_cells"] > global_cells) == (kind == "global-route")
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+    assert int(want[1].max()) == 100
+
+
+@pytest.mark.cuda
+def test_k6_repeated_launches_equal(cuda):
+    """50 launches of one input give one result: no run-to-run change."""
+    plan = _k6_plan("10k-cells", True, True, False).to(cuda)
+    want = [_bits(x) for x in em.em_run(plan)]
+    for _ in range(REPEATS):
+        for g, w in zip(em.em_run(plan), want):
+            assert torch.equal(_bits(g), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [False, True])
+def test_prefer_ambig_wta_cuda_matches_cpu(cuda, words):
+    """The gene-pair WTA on the card equals its CPU result."""
+    from alevin_fry_tpu_torch.ops.crlike_device import (
+        resolve_crlike_wta_device, resolve_crlike_wta_words,
+    )
+
+    rng = np.random.RandomState(9)
+    n, gbits, n_rows = 1_000_003, 14, 3 * (1 << 13)
+    cell = np.sort(rng.randint(0, 20_000, n)).astype(np.int64)
+    umi = rng.randint(0, 64, n).astype(np.int64)
+    gene = rng.randint(0, 1 << gbits, n).astype(np.int64)
+    if words:
+        args = [torch.from_numpy(w) for w in (cell, umi, gene)]
+        run = lambda dev: resolve_crlike_wta_words(  # noqa: E731
+            *(a.to(dev) for a in args), gbits, n_rows, usa=True, prefer_ambig=True)
+    else:
+        key = torch.from_numpy((cell << (6 + gbits)) | (umi << gbits) | gene)
+        run = lambda dev: resolve_crlike_wta_device(  # noqa: E731
+            key.to(dev), 6, gbits, n_rows, usa=True, prefer_ambig=True)
+    for g, w in zip(run(cuda), run(torch.device("cpu"))):
+        np.testing.assert_array_equal(g, w)
