@@ -22,7 +22,7 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("segscan.cu", "hamming.cu", "em.cu")
+SOURCES = ("segscan.cu", "hamming.cu", "em.cu", "pug_cc.cu")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 LIB_NAME = "libaft_kernels.so"
@@ -120,14 +120,35 @@ def load() -> ctypes.CDLL:
     lib.aft_hamming1.argtypes = [P, I64, P, I64, I32, P, P, P]
     lib.aft_hamming1_min.argtypes = [P, I64, P, I64, I32, P, P, P]
     lib.aft_hamming1_plan.argtypes = [I64, P]
-    lib.aft_em_smem_limit.argtypes = []
-    lib.aft_em_smem_limit.restype = I64
-    lib.aft_em_cells.argtypes = [P, P, P, P, P, P, P, P, P, P, I32, P, P, I64, F32, I32, P, P, P]
+    lib.aft_smem_limit.argtypes = []
+    lib.aft_smem_limit.restype = I64
+    lib.aft_em_cells.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I32, P, P, I64, F32, I32, P, P,
+                                 P]
+    lib.aft_pug_cc.argtypes = [P, P, P, P, I32, P, P, I64, P, P, P]
     for fn in ("aft_segscan_tile", "aft_segscan_fwd", "aft_segscan_min", "aft_segscan_lex",
-               "aft_hamming1", "aft_hamming1_min", "aft_hamming1_plan", "aft_em_cells"):
+               "aft_hamming1", "aft_hamming1_min", "aft_hamming1_plan", "aft_em_cells",
+               "aft_pug_cc"):
         getattr(lib, fn).restype = I32
     _lib = lib
     return lib
+
+
+def launch_groups(need, limit: int) -> list:
+    """Cells grouped by launch, for kernels that keep one cell's state in
+    dynamic shared memory (K6, K7): (cell indices, dynamic shared bytes)
+    per power-of-two bucket of ``need`` bytes, then the cells that need
+    more than ``limit`` (shared bytes -1: their state goes to global
+    memory), so that a few large cells do not limit how many blocks of
+    small ones an SM holds."""
+    import numpy as np
+
+    big = need > limit
+    bucket = np.where(big, 63, np.ceil(np.log2(np.maximum(need, 1024))).astype(np.int64))
+    out = []
+    for b in np.unique(bucket):
+        cells = np.flatnonzero(bucket == b)
+        out.append((cells, -1 if b == 63 else int(need[cells].max())))
+    return out
 
 
 def check(err: int, what: str) -> None:

@@ -39,12 +39,23 @@
 // (B) the inverse of every multi-label class, (C) the new value of every
 // id, written over its alpha (only its own thread reads it then), with the
 // convergence flag combined by __syncthreads_or.  The alphas, the
-// abundances (U floats each) and the inverses (E floats) live in dynamic
+// abundances (U floats each), the inverses (E floats) and one int (the
+// longest multi-label class, for the weighted mode) live in dynamic
 // shared memory when they fit the block's limit (227 KB on the H100, opted
 // in with cudaFuncSetAttribute); a larger cell's live in its slice of a
 // global scratch buffer, through the same pointers.  The wrapper launches
 // the cells in groups of like shared-memory size, so that a few large cells
 // do not limit how many blocks of small ones an SM holds.
+//
+// The weighted mode (the long-read EM, em_optimize_weighted_cell_np in the
+// JAX package's ops/em.py:157-216, the host path it takes) gives each label
+// a weight (lab_w, and occ_w for the same labels in occurrence order): a
+// class's denominator sums alpha[id] * w over its labels, an occurrence
+// adds (alpha[id] * w) * scale with scale = count / max(denom, 1e-30)
+// where denom > 0, and there is no USA coupling and no last round.  The
+// host sums each class's row padded with zeros to the cell's longest
+// class, Lmax, with NumPy's pairwise order (np_row_sum below), so the
+// denominator follows that order at Lmax, not the class's own length.
 //
 // Bound: what each round reads again is the cell's own labels, occurrence
 // lists and inverses, which stay in shared memory and L1/L2; the device
@@ -75,6 +86,8 @@ struct EmArgs {
   const int* p2;                 // (U) second partner (local), -1 none
   const long long* occ_off;      // (U+1) occurrence list of each entry
   const int* occ;                // (L) ~e single / e multi, class-local
+  const float* lab_w;            // (L) each label's weight; null: unweighted
+  const float* occ_w;            // (L) the same weights in occurrence order
   const int* cell_list;          // the cells of this launch
   const long long* scratch_off;  // (C) float offset in scratch, -1: shared
   float* scratch;
@@ -84,6 +97,47 @@ struct EmArgs {
   int* rounds_out;               // (C) rounds run (0: no EM)
 };
 
+// One weighted label value of a class, or 0 past the class's labels.
+__device__ __forceinline__ float row_value(const float* ab, const int* loc, const float* w,
+                                           int len, int i) {
+  return i < len ? __fmul_rn(ab[loc[i]], w[i]) : 0.0f;
+}
+
+// NumPy's float32 sum of one row of n values (pairwise_sum in its
+// loops_utils.h; the add reduction starts from the identity 0): under 8
+// values left to right; up to 128, eight strided partial sums combined
+// as ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)) and then the tail one by one;
+// past 128, the two halves split at n/2 rounded down to a multiple of 8,
+// each summed the same way.  The row is the class's len values padded
+// with zeros to n; a part wholly in the padding adds nothing.
+__device__ float np_row_sum(const float* ab, const int* loc, const float* w, int len, int lo,
+                            int n) {
+  if (lo >= len) return 0.0f;
+  if (n < 8) {
+    float r = 0.0f;
+    for (int i = 0; i < n; ++i) r = __fadd_rn(r, row_value(ab, loc, w, len, lo + i));
+    return r;
+  }
+  if (n <= 128) {
+    float r[8];
+    for (int k = 0; k < 8; ++k) r[k] = row_value(ab, loc, w, len, lo + k);
+    int i = 8;
+    for (; i < n - n % 8; i += 8)
+      for (int k = 0; k < 8; ++k) r[k] = __fadd_rn(r[k], row_value(ab, loc, w, len, lo + i + k));
+    float res = __fadd_rn(__fadd_rn(__fadd_rn(r[0], r[1]), __fadd_rn(r[2], r[3])),
+                          __fadd_rn(__fadd_rn(r[4], r[5]), __fadd_rn(r[6], r[7])));
+    for (; i < n; ++i) res = __fadd_rn(res, row_value(ab, loc, w, len, lo + i));
+    return res;
+  }
+  int n2 = n / 2;
+  n2 -= n2 % 8;
+  return __fadd_rn(np_row_sum(ab, loc, w, len, lo, n2),
+                   np_row_sum(ab, loc, w, len, lo + n2, n - n2));
+}
+
+// kWeighted: the weighted mode (its recursive row sum takes registers and
+// a stack frame that the plain mode is kept free of).
+template <bool kWeighted>
 __global__ void __launch_bounds__(kThreads) em_cell_kernel(EmArgs a) {
   extern __shared__ float smem[];
   const int c = a.cell_list[blockIdx.x];
@@ -94,15 +148,25 @@ __global__ void __launch_bounds__(kThreads) em_cell_kernel(EmArgs a) {
   float* alpha = a.scratch_off[c] >= 0 ? a.scratch + a.scratch_off[c] : smem;
   float* ab = alpha + nu;
   float* inv = ab + nu;
+  int* lmax_slot = reinterpret_cast<int*>(inv + ne);  // the longest multi-label class
   const long long* lo = a.lab_off + e0;
   const float* cnt = a.countf + e0;
   const long long* oo = a.occ_off + d0;
   const int* p1 = a.p1 + d0;
   const int* p2 = a.p2 + d0;
 
+  if (threadIdx.x == 0) *lmax_slot = 0;
+  __syncthreads();
   int multi = 0;
-  for (int e = threadIdx.x; e < ne; e += kThreads) multi |= lo[e + 1] - lo[e] > 1;
+  for (int e = threadIdx.x; e < ne; e += kThreads) {
+    const int len = static_cast<int>(lo[e + 1] - lo[e]);
+    if (len > 1) {
+      multi = 1;
+      if (kWeighted) atomicMax(lmax_slot, len);
+    }
+  }
   const bool needs_em = __syncthreads_or(multi);
+  const int lmax = *lmax_slot;
 
   for (int t = threadIdx.x; t < nu; t += kThreads) {
     float seed = 0.0f;
@@ -134,6 +198,12 @@ __global__ void __launch_bounds__(kThreads) em_cell_kernel(EmArgs a) {
       for (int e = threadIdx.x; e < ne; e += kThreads) {
         const long long ls = lo[e], le = lo[e + 1];
         if (le - ls < 2) continue;
+        if (kWeighted) {
+          const float denom = np_row_sum(ab, a.lab_loc + ls, a.lab_w + ls,
+                                         static_cast<int>(le - ls), 0, lmax);
+          inv[e] = denom > 0.0f ? __fdiv_rn(cnt[e], fmaxf(denom, 1e-30f)) : 0.0f;
+          continue;
+        }
         float denom = 0.0f;
         for (long long j = ls; j < le; ++j) denom = __fadd_rn(denom, ab[a.lab_loc[j]]);
         inv[e] = denom > 0.0f ? __fdiv_rn(cnt[e], denom) : 0.0f;
@@ -146,7 +216,8 @@ __global__ void __launch_bounds__(kThreads) em_cell_kernel(EmArgs a) {
         float o = 0.0f;
         for (long long k = oo[t]; k < oo[t + 1]; ++k) {
           const int v = a.occ[k];
-          o = __fadd_rn(o, v < 0 ? cnt[~v] : __fmul_rn(abt, inv[v]));
+          const float m = kWeighted ? __fmul_rn(abt, a.occ_w[k]) : abt;
+          o = __fadd_rn(o, v < 0 ? cnt[~v] : __fmul_rn(m, inv[v]));
         }
         moved |= o > kCheckCutoff && fabsf(__fsub_rn(alpha[t], o)) > kRelTol;
         alpha[t] = o;
@@ -175,8 +246,9 @@ __global__ void __launch_bounds__(kThreads) em_cell_kernel(EmArgs a) {
 
 extern "C" {
 
-// The most dynamic shared memory one block of the current device may use.
-long long aft_em_smem_limit() {
+// The most dynamic shared memory one block of the current device may use
+// (K6 and K7 keep a cell's state there up to this size).
+long long aft_smem_limit() {
   int dev = 0, bytes = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
@@ -185,22 +257,26 @@ long long aft_em_smem_limit() {
 }
 
 // K6 over the n_list cells of cell_list, one block each, with smem_bytes
-// of dynamic shared memory (0 for cells whose scratch_off is >= 0).
+// of dynamic shared memory (0 for cells whose scratch_off is >= 0);
+// weighted when lab_w and occ_w are not null.
 // Returns the CUDA error of the launch (0 when it was accepted).
 int aft_em_cells(const long long* cell_cls, const long long* lab_off, const int* lab_loc,
                  const float* countf, const long long* dict_off, const int* p1, const int* p2,
-                 const long long* occ_off, const int* occ, const int* cell_list, int n_list,
+                 const long long* occ_off, const int* occ, const float* lab_w,
+                 const float* occ_w, const int* cell_list, int n_list,
                  const long long* scratch_off, float* scratch, long long smem_bytes,
                  float init_value, int with_last_round, float* alpha_out, int* rounds_out,
                  void* stream) {
   if (n_list <= 0) return 0;
+  const auto kernel = lab_w != nullptr ? em_cell_kernel<true> : em_cell_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      em_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  EmArgs a{cell_cls, lab_off, lab_loc, countf, dict_off, p1, p2, occ_off, occ, cell_list,
-           scratch_off, scratch, init_value, with_last_round, alpha_out, rounds_out};
-  em_cell_kernel<<<n_list, kThreads, static_cast<size_t>(smem_bytes),
-                   static_cast<cudaStream_t>(stream)>>>(a);
+  EmArgs a{cell_cls, lab_off,     lab_loc,    countf,          dict_off,        p1,
+           p2,       occ_off,     occ,        lab_w,           occ_w,           cell_list,
+           scratch_off, scratch,  init_value, with_last_round, alpha_out,       rounds_out};
+  kernel<<<n_list, kThreads, static_cast<size_t>(smem_bytes), static_cast<cudaStream_t>(stream)>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,6 +28,14 @@ once (:func:`plan_cells`):
   value in the order the host EM adds it, so K6 and its twin give the
   host's floats bit for bit, with no atomics.
 
+The long-read EM (``em_optimize_weighted_cell_np`` :157, the host path
+the JAX package takes for it) gives each label a weight: the plan then
+carries the weights in label order and in occurrence order, K6 and the
+twin take each class's denominator over ``alpha * w`` in NumPy's
+pairwise order at the cell's longest class, and each occurrence adds
+``(alpha * w) * scale``; :func:`class_weights_from_prob_rows` makes the
+weights from the parsimony path's probability rows.
+
 :func:`em_run` launches K6 for tensors on a CUDA device and takes the
 plain PyTorch twin :func:`em_run_twin` for tensors on the CPU.  The twin
 keeps the same order of additions: it sums the ragged occurrence lists
@@ -74,13 +82,16 @@ class EmPlan:
     p2: np.ndarray         # (U,) int32: an ambiguous id's second partner, else -1
     occ_off: np.ndarray    # (U+1,) int64: occurrence list of each entry
     occ: np.ndarray        # (N,) int32: ~e for single-label class e, e for a multi-label one
+    lab_w: Optional[np.ndarray]  # (L,) float32 label weights (weighted EM), else None
+    occ_w: Optional[np.ndarray]  # (N,) float32 the same weights in occurrence order
     init_value: float      # the uniform init 1/R, or 0 for the informative init
     with_last_round: bool
     dict_id: np.ndarray    # (U,) int64: each entry's global id (host side only)
 
     def to(self, device) -> "EmTensors":
-        arrays = {f.name: torch.from_numpy(np.ascontiguousarray(getattr(self, f.name))).to(device)
-                  for f in fields(EmTensors) if isinstance(getattr(self, f.name), np.ndarray)}
+        arrays = {f.name: None if getattr(self, f.name) is None else
+                  torch.from_numpy(np.ascontiguousarray(getattr(self, f.name))).to(device)
+                  for f in fields(EmTensors) if f.name not in ("init_value", "with_last_round")}
         return EmTensors(**arrays, init_value=self.init_value,
                          with_last_round=self.with_last_round)
 
@@ -98,6 +109,8 @@ class EmTensors:
     p2: torch.Tensor
     occ_off: torch.Tensor
     occ: torch.Tensor
+    lab_w: Optional[torch.Tensor]
+    occ_w: Optional[torch.Tensor]
     init_value: float
     with_last_round: bool
 
@@ -129,13 +142,18 @@ def plan_cells(
     usa_offsets: Optional[Tuple[int, int]],
     init_uniform: bool,
     with_last_round: bool,
+    weights: Optional[np.ndarray] = None,
 ) -> EmPlan:
     """Lay out every cell of a batch for K6 (module docstring).  The
-    batch starts at class 0 and label 0."""
+    batch starts at class 0 and label 0.  ``weights`` (float32, one per
+    label) asks for the weighted EM, which has no USA coupling and no
+    last round."""
     ceo = np.ascontiguousarray(cell_eq_offsets, np.int64)
     lo = np.ascontiguousarray(label_offsets, np.int64)
     if ceo[0] != 0 or lo[0] != 0:
         raise ValueError("an EM batch starts at class 0 and label 0")
+    if weights is not None and (usa_offsets is not None or with_last_round):
+        raise ValueError("the weighted EM has no USA coupling and no last round")
     C = len(ceo) - 1
     lens = np.diff(lo)
     cls_cell = np.repeat(np.arange(C, dtype=np.int64), np.diff(ceo))
@@ -190,10 +208,11 @@ def plan_cells(
     occ = np.where(multi[o_lab], o_cls, ~o_cls).astype(np.int32)
     occ_off = np.zeros(U + 1, np.int64)
     np.cumsum(np.bincount(lab_g, minlength=U), out=occ_off[1:])
+    lab_w = None if weights is None else np.ascontiguousarray(weights, np.float32)
     return EmPlan(
         cell_cls=ceo, lab_off=lo, lab_loc=lab_loc,
         countf=np.asarray(counts).astype(np.float32), dict_off=dict_off, p1=p1, p2=p2,
-        occ_off=occ_off, occ=occ,
+        occ_off=occ_off, occ=occ, lab_w=lab_w, occ_w=None if lab_w is None else lab_w[o_lab],
         init_value=float(np.float32(1.0) / np.float32(num_rows)) if init_uniform else 0.0,
         with_last_round=with_last_round, dict_id=dkey & 0xFFFFFFFF,
     )
@@ -218,10 +237,64 @@ def _ragged_pos(off: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return seg, torch.arange(int(off[-1]), device=off.device) - off[:-1][seg]
 
 
+def np_row_sums(x: torch.Tensor) -> torch.Tensor:
+    """Each row of the float32 matrix ``x`` summed in NumPy's order
+    (``x.sum(axis=1)`` on a C-contiguous array: its pairwise sum from the
+    identity 0): under 8 columns left to right; up to 128, eight strided
+    partial sums combined as ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)), then
+    the tail column by column; past 128, the halves split at n/2 rounded
+    down to a multiple of 8, each summed the same way."""
+    n = x.shape[1]
+    if n < 8:
+        r = torch.zeros(len(x), dtype=x.dtype, device=x.device)
+        for i in range(n):
+            r = r + x[:, i]
+        return r
+    if n <= 128:
+        body = n - n % 8
+        r = x[:, :8].clone()
+        for i in range(8, body, 8):
+            r = r + x[:, i:i + 8]
+        res = (((r[:, 0] + r[:, 1]) + (r[:, 2] + r[:, 3]))
+               + ((r[:, 4] + r[:, 5]) + (r[:, 6] + r[:, 7])))
+        for i in range(body, n):
+            res = res + x[:, i]
+        return res
+    n2 = n // 2
+    n2 -= n2 % 8
+    return np_row_sums(x[:, :n2]) + np_row_sums(x[:, n2:])
+
+
+def _weighted_rows(t: EmTensors, lab_cls: torch.Tensor, lab_pos: torch.Tensor,
+                   lab_g: torch.Tensor, cls_cell: torch.Tensor, lens: torch.Tensor) -> list:
+    """The weighted EM's denominator rows: per distinct longest class
+    of a cell (Lmax), the multi-label classes of those cells as (class
+    indices, (M, Lmax) dictionary indices and weights, zero past each
+    class's labels)."""
+    dev = t.occ.device
+    C = len(t.cell_cls) - 1
+    multi = lens > 1
+    lmax = torch.zeros(C, dtype=torch.int64, device=dev)
+    lmax.scatter_reduce_(0, cls_cell[multi], lens[multi], reduce="amax")
+    rows = []
+    for width in torch.unique(lmax[cls_cell[multi]]).tolist():
+        cls = torch.nonzero(multi & (lmax[cls_cell] == width)).flatten()
+        slot = torch.full((len(lens),), -1, dtype=torch.int64, device=dev)
+        slot[cls] = torch.arange(len(cls), device=dev)
+        sel = slot[lab_cls] >= 0
+        g = torch.zeros((len(cls), width), dtype=torch.int64, device=dev)
+        w = torch.zeros((len(cls), width), dtype=_F32, device=dev)
+        g[slot[lab_cls[sel]], lab_pos[sel]] = lab_g[sel]
+        w[slot[lab_cls[sel]], lab_pos[sel]] = t.lab_w[sel]
+        rows.append((cls, g, w))
+    return rows
+
+
 def em_run_twin(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6's plain PyTorch version: every cell's EM, batched, with the
     per-cell round state of ``em_batch_np`` (em.py:831-914) and each sum
-    taken in the host's order.  Returns (final values per dictionary
+    taken in the host's order (the weighted EM's: that of
+    ``em_optimize_weighted_cell_np``).  Returns (final values per dictionary
     entry, float32; rounds per cell, int32)."""
     dev = t.occ.device
     C, U = len(t.dict_off) - 1, len(t.occ_off) - 1
@@ -234,13 +307,18 @@ def em_run_twin(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
     lens = t.lab_off[1:] - t.lab_off[:-1]
     needs = torch.zeros(C, dtype=torch.bool, device=dev)
     needs[cls_cell[lens > 1]] = True
-    den_cols = _columns(lab_pos[lens[lab_cls] > 1], lab_cls[lens[lab_cls] > 1],
-                        lab_g[lens[lab_cls] > 1])
+    weighted = t.lab_w is not None
+    if weighted:
+        w_rows = _weighted_rows(t, lab_cls, lab_pos, lab_g, cls_cell, lens)
+    else:
+        den_cols = _columns(lab_pos[lens[lab_cls] > 1], lab_cls[lens[lab_cls] > 1],
+                            lab_g[lens[lab_cls] > 1])
     occ_id, occ_pos = _ragged_pos(t.occ_off)
     occ = t.occ.long()
     single = occ < 0
     occ_cls = torch.where(single, ~occ, occ) + t.cell_cls[id_cell[occ_id]]
-    occ_cols = _columns(occ_pos, occ_id, occ_cls, single)
+    occ_w = t.occ_w if weighted else torch.ones(len(occ), dtype=_F32, device=dev)
+    occ_cols = _columns(occ_pos, occ_id, occ_cls, single, occ_w)
     usa = bool((t.p1 >= 0).any())
     g1 = t.dict_off[id_cell] + t.p1.long()
     g2 = t.dict_off[id_cell] + t.p2.long()
@@ -248,8 +326,9 @@ def em_run_twin(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
 
     def m_step(ab, inv):
         o = torch.zeros(U, dtype=_F32, device=dev)
-        for ids, cls, sgl in occ_cols:
-            o[ids] = o[ids] + torch.where(sgl, t.countf[cls], ab[ids] * inv[cls])
+        for ids, cls, sgl, w in occ_cols:
+            m = ab[ids] * w if weighted else ab[ids]
+            o[ids] = o[ids] + torch.where(sgl, t.countf[cls], m * inv[cls])
         return o
 
     seed = m_step(torch.zeros(U, dtype=_F32, device=dev),
@@ -270,9 +349,14 @@ def em_run_twin(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
         else:
             ab = alpha
         denom = torch.zeros(len(t.countf), dtype=_F32, device=dev)
-        for cls, g in den_cols:
-            denom[cls] = denom[cls] + ab[g]
-        inv = torch.where(denom > zero, t.countf / denom, zero)
+        if weighted:
+            for cls, g, w in w_rows:
+                denom[cls] = np_row_sums(ab[g] * w)
+            inv = torch.where(denom > zero, t.countf / denom.clamp_min(1e-30), zero)
+        else:
+            for cls, g in den_cols:
+                denom[cls] = denom[cls] + ab[g]
+            inv = torch.where(denom > zero, t.countf / denom, zero)
         out = m_step(ab, inv)
         moved = (out > f32(ALPHA_CHECK_CUTOFF)) & ((alpha - out).abs() > f32(EM_REL_DIFF_TOLERANCE))
         not_conv = torch.zeros(C, dtype=torch.bool, device=dev)
@@ -294,19 +378,6 @@ def em_run_twin(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
 
 # --- the kernel ------------------------------------------------------------------
 
-def _routes(need: np.ndarray, limit: int) -> list:
-    """Cells grouped by launch: (cell indices, dynamic shared bytes) per
-    power-of-two bucket of shared bytes, then the cells whose arrays
-    exceed ``limit`` bytes (shared bytes -1: global memory)."""
-    big = need > limit
-    bucket = np.where(big, 63, np.ceil(np.log2(np.maximum(need, 1024))).astype(np.int64))
-    out = []
-    for b in np.unique(bucket):
-        cells = np.flatnonzero(bucket == b)
-        out.append((cells, -1 if b == 63 else int(need[cells].max())))
-    return out
-
-
 def em_run(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 on ``t``'s CUDA device, or its twin for tensors on the CPU.
     Returns (final values per dictionary entry, float32; rounds per
@@ -316,8 +387,10 @@ def em_run(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
     lib = _kernels.load()
     dev = t.occ.device
     for name in ("cell_cls", "lab_off", "lab_loc", "countf", "dict_off", "p1", "p2", "occ_off",
-                 "occ"):
+                 "occ", "lab_w", "occ_w"):
         x = getattr(t, name)
+        if x is None and name in ("lab_w", "occ_w"):
+            continue
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"K6 takes contiguous tensors on one CUDA device ({name})")
     C = len(t.dict_off) - 1
@@ -325,11 +398,12 @@ def em_run(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
     rounds = torch.empty(C, dtype=torch.int32, device=dev)
     if C == 0:
         return alpha, rounds
-    # per cell: alphas and abundances (U floats each) and the class inverses
+    # per cell: alphas and abundances (U floats each), the class inverses
+    # and the longest class's length
     sizes = torch.stack([t.dict_off, t.cell_cls]).cpu().numpy()
-    need = 4 * (2 * np.diff(sizes[0]) + np.diff(sizes[1]))
+    need = 4 * (2 * np.diff(sizes[0]) + np.diff(sizes[1]) + 1)
     scratch_off = np.full(C, -1, np.int64)
-    routes = _routes(need, int(lib.aft_em_smem_limit()))
+    routes = _kernels.launch_groups(need, int(lib.aft_smem_limit()))
     n_scratch = 0
     for cells, smem in routes:
         if smem < 0:
@@ -344,7 +418,9 @@ def em_run(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
         _kernels.check(lib.aft_em_cells(
             t.cell_cls.data_ptr(), t.lab_off.data_ptr(), t.lab_loc.data_ptr(),
             t.countf.data_ptr(), t.dict_off.data_ptr(), t.p1.data_ptr(), t.p2.data_ptr(),
-            t.occ_off.data_ptr(), t.occ.data_ptr(), cl.data_ptr(), len(cells),
+            t.occ_off.data_ptr(), t.occ.data_ptr(),
+            *(0, 0) if t.lab_w is None else (t.lab_w.data_ptr(), t.occ_w.data_ptr()),
+            cl.data_ptr(), len(cells),
             soff.data_ptr(), scratch.data_ptr(), max(smem, 0), t.init_value,
             int(t.with_last_round), alpha.data_ptr(), rounds.data_ptr(), stream,
         ), "K6 aft_em_cells")
@@ -353,6 +429,25 @@ def em_run(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 # --- the batch entry point -----------------------------------------------------
+
+def class_weights_from_prob_rows(label_offsets: np.ndarray, prob_rows) -> np.ndarray:
+    """Flat per-label EM weights from long-read probability rows
+    (em.rs:716-844): for each multi-label class, the per-label weight is
+    the mean of the class's molecule rows; a class without usable rows
+    (the large-component fallback's) keeps uniform weights 1.0, where the
+    reference would panic (docs/parity.md, divergence 6)."""
+    lens = np.diff(label_offsets)
+    w = np.ones(int(label_offsets[-1]), np.float32)
+    for i in np.flatnonzero(lens > 1):
+        ll = int(lens[i])
+        rows = prob_rows[i] if prob_rows is not None and i < len(prob_rows) else []
+        usable = [r[:ll] for r in rows if len(r) >= ll]
+        if usable:
+            w[label_offsets[i] : label_offsets[i + 1]] = np.mean(
+                np.stack(usable), axis=0
+            ).astype(np.float32)
+    return w
+
 
 def em_cells(
     cell_eq_offsets: np.ndarray,
@@ -364,14 +459,16 @@ def em_cells(
     init_uniform: bool,
     with_last_round: bool,
     device: torch.device,
+    weights: Optional[np.ndarray] = None,
 ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """The EM of every cell on ``device``: per cell (ids ascending, int64;
     values, float32), the contract of the reference's
-    ``em_cells_batched`` (em.py:917).  A cell whose classes all have one
-    label takes its counts without EM; a class with no label contributes
-    nothing; values below 0.01 are dropped."""
+    ``em_cells_batched`` (em.py:917), weighted by ``weights`` (one per
+    label) when given.  A cell whose classes all have one label takes its
+    counts without EM; a class with no label contributes nothing; values
+    below 0.01 are dropped."""
     plan = plan_cells(cell_eq_offsets, label_offsets, labels, counts, num_rows, usa_offsets,
-                      init_uniform, with_last_round)
+                      init_uniform, with_last_round, weights)
     alpha, rounds = (x.cpu().numpy() for x in em_run(plan.to(device)))
     C = len(plan.dict_off) - 1
     nu, ne = np.diff(plan.dict_off), np.diff(plan.cell_cls)

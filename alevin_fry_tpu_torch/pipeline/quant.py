@@ -17,18 +17,24 @@ record's barcode is listed (src/quant.rs:1732-1743).  In each block:
   grouped into per-cell equivalence classes, counted (only the classes
   the USA or gene-unique rules count) or solved by the EM on the device
   (kernel K6, ``ops/em.py``); ``trivial`` the host's distinct UMIs of
-  single-gene reads.
+  single-gene reads; the ``parsimony`` family the UMI graphs of
+  ``ops/pug.py`` (their connected components on the device, kernel K7),
+  whose gene-level classes are counted (USA or gene-unique, for
+  ``parsimony`` and ``parsimony-gene``) or solved by the EM (the
+  ``-em`` ones; long-read records weight it by their alignment
+  probabilities outside USA mode).
 
 Outputs the reference's artifacts: alevin/quants_mat.mtx with its rows
-and cols files, featureDump.txt, quant.json and, with ``-d``,
-alevin/geqc_counts.mtx and alevin/gene_eqclass.txt.gz.  The parsimony
-resolutions and bootstraps are not ported: they raise.
+and cols files, featureDump.txt, quant.json (with the cells that took the
+parsimony's large-component fallback) and, with ``-d``,
+alevin/geqc_counts.mtx and alevin/gene_eqclass.txt.gz.  Bootstraps are
+not ported: they raise.
 """
 
 from __future__ import annotations
 
 import gzip
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -44,9 +50,9 @@ from ..radz.unmapped import UnmappedLookup
 
 from .. import __version__
 from ..device import refuse_multi_process
-from ..ops import crlike
+from ..ops import crlike, pug
 from ..ops.barcodes import unpack_seqs
-from ..ops.em import em_cells
+from ..ops.em import class_weights_from_prob_rows, em_cells
 from ..utils import parse_tg_map, read_barcode_file, write_json
 from .collate import open_collated
 from .logging_ import get_logger
@@ -60,6 +66,8 @@ QUANT_BLOCK_RECORDS = 30_000_000
 # the reference serializes the enum's Debug name (src/quant.rs:92-96)
 RESOLUTION_NAMES = {
     "trivial": "Trivial", "cr-like": "CellRangerLike", "cr-like-em": "CellRangerLikeEm",
+    "parsimony": "Parsimony", "parsimony-em": "ParsimonyEm",
+    "parsimony-gene": "ParsimonyGene", "parsimony-gene-em": "ParsimonyGeneEm",
 }
 
 
@@ -96,14 +104,14 @@ class CellResult:
     # with -d: the large cells' classes as (row, label count, labels,
     # count) in class order
     eqc: Optional[tuple] = None
+    # cells (file numbers) that took the parsimony's large-component fallback
+    alt_cells: List[int] = field(default_factory=list)
 
 
 def _check_supported(opts: QuantOpts) -> None:
-    if opts.resolution.startswith("parsimony"):
-        raise NotImplementedError(f"the {opts.resolution} resolution is not ported yet")
     if opts.num_bootstraps:
         raise NotImplementedError("bootstraps are not ported yet")
-    if opts.resolution == "cr-like-em":
+    if opts.resolution.endswith("-em"):
         refuse_multi_process(mesh_var="AFT_EM_MESH")
 
 
@@ -194,18 +202,75 @@ def _coo_cell_stats(rows: np.ndarray, vals: np.ndarray, n_cells: int) -> tuple:
     return sum_umi, max_umi, num_expr, over_mean
 
 
-def _reads(batch: ReadBatch, cell_of_read: np.ndarray, sel: np.ndarray) -> tuple:
-    """(cell, umi, refs, alignment offsets) of the reads ``sel`` marks."""
-    if sel.all():
-        return cell_of_read, batch.umi, batch.refs, batch.aln_offsets
-    idx = np.flatnonzero(sel)
+def _aln_index(batch: ReadBatch, idx: np.ndarray) -> tuple:
+    """(alignment offsets, batch alignment indices) of the reads ``idx``."""
     nal = batch.num_aln_per_read[idx]
     offs = np.zeros(len(idx) + 1, np.int64)
     np.cumsum(nal, out=offs[1:])
     gather = np.repeat(batch.aln_offsets[:-1][idx], nal) + (
         np.arange(int(offs[-1])) - np.repeat(offs[:-1], nal)
     )
+    return offs, gather
+
+
+def _reads(batch: ReadBatch, cell_of_read: np.ndarray, sel: np.ndarray) -> tuple:
+    """(cell, umi, refs, alignment offsets) of the reads ``sel`` marks."""
+    if sel.all():
+        return cell_of_read, batch.umi, batch.refs, batch.aln_offsets
+    idx = np.flatnonzero(sel)
+    offs, gather = _aln_index(batch, idx)
     return cell_of_read[idx], batch.umi[idx], batch.refs[gather], offs
+
+
+def _aln_cols(batch: ReadBatch, sel: np.ndarray) -> dict:
+    """The other alignment fields (name -> column) of the reads ``sel``
+    marks: the long-read probabilities' inputs."""
+    if sel.all():
+        return batch.aln_cols
+    gather = _aln_index(batch, np.flatnonzero(sel))[1]
+    return {k: v[gather] for k, v in batch.aln_cols.items()}
+
+
+def _is_long_read(schema: RecordSchema) -> bool:
+    names = {n for n, _ in schema.aln_fields}
+    return {"as", "start", "end"} <= names
+
+
+def _longread_aln_probs(sub: dict) -> np.ndarray:
+    """Per-alignment probabilities for long-read records: the product of
+    the alignment-score model exp((AS - max_AS)/5) (eq_class.rs:20-38)
+    and the 3'-end distance model (eq_class.rs:40-85), normalized to sum
+    1 within each read."""
+    offs = sub["offs"]
+    n = len(offs) - 1
+    nal = np.diff(offs)
+    read_of_aln = np.repeat(np.arange(n), nal)
+    as_raw = np.ascontiguousarray(
+        sub["aln_cols"]["as"].astype(np.uint32)
+    ).view(np.int32).astype(np.float64)
+    max_as = np.full(n, -np.inf)
+    np.maximum.at(max_as, read_of_aln, as_raw)
+    score_p = np.exp((as_raw - max_as[read_of_aln]) / 5.0)
+
+    ends = sub["aln_cols"]["end"].astype(np.float64)
+    tlens = sub["aln_cols"].get("tlen")
+    if tlens is None:
+        # without a tlen tag the 3' model degenerates to distance 0
+        tlens = ends
+    else:
+        tlens = tlens.astype(np.float64)
+    dist = tlens - ends
+    extra = np.maximum(dist - 100.0, 0.0)
+    ln_w = -(extra * extra) * (0.5 / (100.0 * 100.0))
+    ln_floor = -3.0 * np.log(10.0)
+    end_p = np.exp(np.maximum(ln_w, ln_floor))
+
+    final = score_p * end_p
+    sums = np.zeros(n)
+    np.add.at(sums, read_of_aln, final)
+    ok = sums[read_of_aln] > 0
+    final[ok] = final[ok] / sums[read_of_aln][ok]
+    return final
 
 
 def _resolve_cells(
@@ -230,7 +295,7 @@ def _resolve_cells(
                                         num_rows, opts.device, usa=usa_mode, prefer_ambig=pa)
 
     # each block of triplets comes sorted by (cell, column)
-    blocks, eqc = [], None
+    blocks, eqc, alt_cells, classes = [], None, [], None
     if opts.resolution == "cr-like" and not opts.dump_eq and not prefer_ambig:
         # small and large cells resolve alike (src/quant.rs:453, :822)
         blocks.append(wta(read_keep))
@@ -244,6 +309,27 @@ def _resolve_cells(
                                                      num_genes)[:3])
             elif opts.resolution == "cr-like" and not opts.dump_eq:
                 blocks.append(wta(large, pa=True))
+            elif opts.resolution.startswith("parsimony"):
+                sub = dict(zip(("cell", "umi", "refs", "offs"), reads))
+                probs = None
+                if _is_long_read(batch.schema):
+                    sub["aln_cols"] = _aln_cols(batch, large)
+                    probs = _longread_aln_probs(sub)
+                classes, alt, eq_probs = pug.resolve_parsimony_cells(
+                    sub, tid_to_gid, opts.pug_exact_umi, opts.large_graph_thresh,
+                    opts.resolution in ("parsimony-gene", "parsimony-gene-em"), opts.device,
+                    probs,
+                )
+                alt_cells = [c + first for c in alt]
+                if opts.resolution.endswith("-em"):
+                    weights = None
+                    if eq_probs is not None and not usa_mode:
+                        # the long-read EM weights each label (em.rs:716-844)
+                        weights = class_weights_from_prob_rows(classes.label_offsets, eq_probs)
+                    blocks.append(_em_counts(classes, opts, usa_mode, num_genes, num_rows,
+                                             weights))
+                else:
+                    blocks.append(_unique_counts(classes, usa_mode, num_rows))
             else:
                 groups = crlike.resolve_crlike(*reads, tid_to_gid, prefer_ambig=prefer_ambig)
                 classes = crlike.group_eqclasses(groups)
@@ -254,9 +340,9 @@ def _resolve_cells(
                                                            num_rows))
                 else:
                     blocks.append(_em_counts(classes, opts, usa_mode, num_genes, num_rows))
-                if opts.dump_eq:
-                    eqc = (cell_row[np.repeat(classes.cell_ids, np.diff(classes.cell_eq_offsets))],
-                           np.diff(classes.label_offsets), classes.labels, classes.counts)
+            if opts.dump_eq and classes is not None:
+                eqc = (cell_row[np.repeat(classes.cell_ids, np.diff(classes.cell_eq_offsets))],
+                       np.diff(classes.label_offsets), classes.labels, classes.counts)
     rows = np.concatenate([cell_row[b[0]] for b in blocks] or [np.zeros(0, np.int64)])
     cols = np.concatenate([np.asarray(b[1], np.int64) for b in blocks] or [np.zeros(0, np.int64)])
     vals = np.concatenate([np.asarray(b[2], np.float32) for b in blocks]
@@ -268,14 +354,41 @@ def _resolve_cells(
     return CellResult(
         cells=processed + first, cell_bcs=cell_bcs, nrec=nrec_all[processed],
         rows=rows, cols=cols, vals=vals,
-        cell_stats=_coo_cell_stats(rows, vals, len(processed)), eqc=eqc,
+        cell_stats=_coo_cell_stats(rows, vals, len(processed)), eqc=eqc, alt_cells=alt_cells,
     )
 
 
+def _unique_counts(eqc: crlike.CellEqClasses, usa_mode: bool, num_rows: int) -> tuple:
+    """The classes' counts without EM -> (cell, column, value) sorted by
+    (cell, column): in USA mode each class counts for the slot of the USA
+    rule (utils.rs:656-739), else only single-gene classes count."""
+    if usa_mode:
+        g = crlike.UmiGroups(
+            cell=np.repeat(eqc.cell_ids, np.diff(eqc.cell_eq_offsets)),
+            umi=np.zeros(len(eqc.counts), np.uint64),
+            label_offsets=eqc.label_offsets,
+            labels=eqc.labels,
+        )
+        slot, valid = crlike.usa_slots_for_groups(g, num_rows)
+        c, col = g.cell[valid], slot[valid]
+        w = eqc.counts[valid].astype(np.float32)
+    else:
+        sgl = np.diff(eqc.label_offsets) == 1
+        c = np.repeat(eqc.cell_ids, np.diff(eqc.cell_eq_offsets))[sgl]
+        col = eqc.labels[eqc.label_offsets[:-1][sgl]].astype(np.int64)
+        w = eqc.counts[sgl].astype(np.float32)
+    key = c * np.int64(num_rows) + col
+    uk, inv = np.unique(key, return_inverse=True)
+    agg = np.zeros(len(uk), np.float32)
+    np.add.at(agg, inv, w)
+    return uk // num_rows, uk % num_rows, agg
+
+
 def _em_counts(eqc: crlike.CellEqClasses, opts: QuantOpts, usa_mode: bool,
-               num_genes: int, num_rows: int) -> tuple:
+               num_genes: int, num_rows: int, weights: Optional[np.ndarray] = None) -> tuple:
     """A block's large cells through the EM -> (cell, column, value)
-    sorted by (cell, column) (src/quant.rs:822-1000)."""
+    sorted by (cell, column) (src/quant.rs:822-1000); ``weights`` (one
+    per label, outside USA mode) for the long-read EM."""
     if usa_mode:
         # the USA EM couples each gene's three slots and runs the
         # thresholded last round (em_optimize_subset, em.rs:178-299)
@@ -284,7 +397,7 @@ def _em_counts(eqc: crlike.CellEqClasses, opts: QuantOpts, usa_mode: bool,
                        (num_rows // 3, 2 * num_rows // 3), opts.init_uniform, True, opts.device)
     else:
         res = em_cells(eqc.cell_eq_offsets, eqc.label_offsets, eqc.labels, eqc.counts,
-                       num_genes, None, opts.init_uniform, False, opts.device)
+                       num_genes, None, opts.init_uniform, False, opts.device, weights)
     n = [len(ids) for ids, _ in res]
     return (np.repeat(eqc.cell_ids, n),
             np.concatenate([ids for ids, _ in res] or [np.zeros(0, np.int64)]),
@@ -316,7 +429,7 @@ def _merge_results(parts: List[CellResult]) -> CellResult:
         cell_stats=tuple(
             np.concatenate([p.cell_stats[i] for p in parts]) for i in range(4)
         ),
-        eqc=eqc,
+        eqc=eqc, alt_cells=[c for p in parts for c in p.alt_cells],
     )
 
 
@@ -393,7 +506,7 @@ def _write_outputs(
         "num_genes": num_rows,
         "dump_eq": opts.dump_eq,
         "usa_mode": usa_mode,
-        "alt_resolved_cell_numbers": [],
+        "alt_resolved_cell_numbers": result.alt_cells,
         "empty_resolved_cell_numbers": [int(c) for c in result.cells[num_expr == 0]],
         "quant_options": {
             "input_dir": str(opts.input_dir),

@@ -157,6 +157,34 @@ def _load():
             ctypes.c_void_p, ctypes.c_int64,   # counts, n
             ctypes.c_void_p, ctypes.c_int32,   # out, n_threads
         ]
+        lib.radc_pug_graph_build.restype = ctypes.c_void_p
+        lib.radc_pug_graph_build.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64,   # cell_read_offsets, n_cells
+            ctypes.c_void_p, ctypes.c_void_p,  # umi, refs
+            ctypes.c_void_p, ctypes.c_void_p,  # aln_offsets, tid_to_gid
+            ctypes.c_int32, ctypes.c_int32,    # gene_level, exact
+            ctypes.c_void_p, ctypes.c_void_p,  # n_nodes, sym_entries
+            ctypes.c_int32,                    # n_threads
+        ]
+        lib.radc_pug_graph_export.restype = None
+        lib.radc_pug_graph_export.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.radc_pug_cover.restype = ctypes.c_int64
+        lib.radc_pug_cover.argtypes = [
+            ctypes.c_void_p,                   # handle
+            ctypes.c_void_p, ctypes.c_int64,   # cell_read_offsets, n_cells
+            ctypes.c_void_p, ctypes.c_void_p,  # aln_offsets, tid_to_gid
+            ctypes.c_int32, ctypes.c_int64,    # gene_level, large_thresh
+            ctypes.c_void_p,                   # comp_labels
+            ctypes.c_void_p, ctypes.c_void_p,  # n_eqc, used_alt
+            ctypes.c_void_p, ctypes.c_void_p,  # counts_out, lens_out
+            ctypes.c_void_p,                   # labels_out
+            ctypes.c_void_p, ctypes.c_void_p,  # range_info, label_counts
+            ctypes.c_int32,                    # n_threads
+        ]
+        lib.radc_pug_free.restype = None
+        lib.radc_pug_free.argtypes = [ctypes.c_void_p]
         lib.radc_gather_records.restype = None
         lib.radc_gather_records.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p,  # buf, rec_starts
@@ -519,6 +547,103 @@ def format_eqc_rows(vals: np.ndarray, offsets: np.ndarray) -> bytes:
     out = np.empty(21 * len(vals) + 22 * max(n_rows, 1), np.uint8)
     w = lib.radc_format_eqc_rows(vals.ctypes.data, offsets.ctypes.data, n_rows, out.ctypes.data)
     return out[:w].tobytes()
+
+
+def pug_graph_build(
+    cell_read_offsets: np.ndarray,
+    umi: np.ndarray,
+    refs: np.ndarray,
+    aln_offsets: np.ndarray,
+    tid_to_gid: np.ndarray,
+    gene_level: bool,
+    exact: bool,
+):
+    """Build every cell's PUG natively and export the symmetrized
+    adjacency.  Returns (handle, nodes per cell [int64], degree per node
+    [int64], neighbours [int32, cell-local ids]); the handle goes to
+    :func:`pug_cover`, then to :func:`pug_free`."""
+    lib = _load()
+    cell_read_offsets = np.ascontiguousarray(cell_read_offsets, np.int64)
+    umi = np.ascontiguousarray(umi, np.uint64)
+    refs = np.ascontiguousarray(refs, np.uint32)
+    aln_offsets = np.ascontiguousarray(aln_offsets, np.int64)
+    tid_to_gid = np.ascontiguousarray(tid_to_gid, np.uint32)
+    n_cells = len(cell_read_offsets) - 1
+    n_nodes = np.zeros(max(n_cells, 1), np.int64)
+    sym_entries = np.zeros(max(n_cells, 1), np.int64)
+    handle = lib.radc_pug_graph_build(
+        cell_read_offsets.ctypes.data, n_cells,
+        umi.ctypes.data, refs.ctypes.data,
+        aln_offsets.ctypes.data, tid_to_gid.ctypes.data,
+        1 if gene_level else 0, 1 if exact else 0,
+        n_nodes.ctypes.data, sym_entries.ctypes.data, _NTHREADS,
+    )
+    total_nodes = int(n_nodes[:n_cells].sum())
+    total_entries = int(sym_entries[:n_cells].sum())
+    deg = np.zeros(max(total_nodes, 1), np.int64)
+    nbrs = np.zeros(max(total_entries, 1), np.int32)
+    lib.radc_pug_graph_export(handle, deg.ctypes.data, nbrs.ctypes.data)
+    return handle, n_nodes[:n_cells], deg[:total_nodes], nbrs[:total_entries]
+
+
+def pug_cover(
+    handle,
+    cell_read_offsets: np.ndarray,
+    aln_offsets: np.ndarray,
+    tid_to_gid: np.ndarray,
+    gene_level: bool,
+    large_thresh: int,
+    comp_labels: np.ndarray,
+):
+    """Finish the PUG resolution from per-node component labels: the
+    greedy cover, or the cr-like fallback for a component larger than
+    ``large_thresh``.  Returns (classes per cell, whether each cell took
+    the fallback, class counts, class label lengths, flat labels)."""
+    lib = _load()
+    cell_read_offsets = np.ascontiguousarray(cell_read_offsets, np.int64)
+    aln_offsets = np.ascontiguousarray(aln_offsets, np.int64)
+    tid_to_gid = np.ascontiguousarray(tid_to_gid, np.uint32)
+    comp_labels = np.ascontiguousarray(comp_labels, np.int32)
+    n_cells = len(cell_read_offsets) - 1
+    n_reads = int(cell_read_offsets[-1]) if n_cells >= 0 else 0
+    n_aln = int(aln_offsets[-1]) if len(aln_offsets) else 0
+    n_eqc = np.zeros(max(n_cells, 1), np.int64)
+    used_alt = np.zeros(max(n_cells, 1), np.uint8)
+    counts = np.empty(max(n_reads, 1), np.int64)
+    lens = np.empty(max(n_reads, 1), np.int64)
+    labels = np.empty(max(n_aln, 1), np.uint32)
+    range_info = np.zeros((_NTHREADS, 4), np.int64)
+    label_counts = np.zeros(_NTHREADS, np.int64)
+    lib.radc_pug_cover(
+        handle, cell_read_offsets.ctypes.data, n_cells,
+        aln_offsets.ctypes.data, tid_to_gid.ctypes.data,
+        1 if gene_level else 0, large_thresh, comp_labels.ctypes.data,
+        n_eqc.ctypes.data, used_alt.ctypes.data,
+        counts.ctypes.data, lens.ctypes.data, labels.ctypes.data,
+        range_info.ctypes.data, label_counts.ctypes.data, _NTHREADS,
+    )
+    # each thread wrote its cells' classes at its own offsets
+    pieces_c, pieces_l, pieces_lab = [], [], []
+    for t in range(_NTHREADS):
+        _c0, rb, lb, ne = (int(x) for x in range_info[t])
+        lc = int(label_counts[t])
+        if ne:
+            pieces_c.append(counts[rb : rb + ne])
+            pieces_l.append(lens[rb : rb + ne])
+        if lc:
+            pieces_lab.append(labels[lb : lb + lc])
+    cat = lambda ps, dt: np.concatenate(ps) if ps else np.zeros(0, dt)  # noqa: E731
+    return (
+        n_eqc[:n_cells],
+        used_alt[:n_cells].view(bool),
+        cat(pieces_c, np.int64),
+        cat(pieces_l, np.int64),
+        cat(pieces_lab, np.uint32),
+    )
+
+
+def pug_free(handle) -> None:
+    _load().radc_pug_free(handle)
 
 
 def encode_records_native(

@@ -24,7 +24,13 @@ Phases, one line each:
    EM) against its twin bit for bit (tests/em_cases.py: USA and plain, with
    and without the last round, informative and uniform init, an
    all-singleton cell, zero-length classes, a 100-round cell, a cell past
-   the shared-memory limit, 10,000 random cells);
+   the shared-memory limit, 10,000 random cells), and its weighted mode
+   (the long-read EM) on the same batches with label weights and on cells
+   whose longest class crosses 8 and 128 labels; K7 (the UMI graphs'
+   connected components) against its twin and a union-find on
+   tests/pug_cases.py's graphs (random cells, isolated nodes, chains of
+   thousands of nodes, a giant component, a cell past the shared-memory
+   limit), 50 launches each;
 3. generates a 10x-v3-shaped synthetic dataset (tests/synth_hard.py:
    10,000 cells, 20M reads, 20,000 genes, 3-column t2g) and runs the
    port's generate-permit-list -> collate -> quant -r cr-like on the
@@ -76,7 +82,19 @@ Phases, one line each:
    every quant; the USA EM's cells, classes, labels, dictionary sizes,
    global-memory cells and rounds, and K6 and K1-K3 replayed on this
    path's largest inputs (K6: CUDA-event time, its bound from the bytes
-   and the float operations its rounds took, its twin's time).
+   and the float operations its rounds took, its twin's time);
+8. the parsimony family on phase 3's collated data, each against the
+   reference's host path with the same command line (in a thread beside
+   the port's runs): quant -r parsimony (USA), -r parsimony-em -d (USA),
+   -r parsimony-gene and -r parsimony-gene-em (plain t2g); every data
+   artifact byte for byte (the dump too) and quant.json field for field;
+   K7 launched in every run, K6 in the EM ones and K1-K3 (the small
+   cells' WTA); the graphs' nodes, edges, largest cell and rounds, the
+   cells on the large-component fallback; then a seeded long-read
+   dataset (tests/reference_host_path.py make-longread) through gpl,
+   collate and quant -r parsimony-em (plain t2g: the weighted EM on K6)
+   against the reference's host path; K7, K6 (plain and weighted) and
+   K1-K3 replayed on this phase's largest inputs.
 
 With --profile, phases 3, 5, 6 and 7 also run each stage under torch.profiler
 and cProfile and print the device's busy time (the union of its kernel
@@ -145,6 +163,7 @@ SOURCES = {
     "K4": ("alevin_fry_tpu_torch/csrc/hamming.cu", "alevin_fry_tpu/ops/pallas_hamming.py:145"),
     "K5": ("alevin_fry_tpu_torch/csrc/hamming.cu", "alevin_fry_tpu/ops/pallas_hamming.py:39"),
     "K6": ("alevin_fry_tpu_torch/csrc/em.cu", "alevin_fry_tpu/ops/em.py:446"),
+    "K7": ("alevin_fry_tpu_torch/csrc/pug_cc.cu", "alevin_fry_tpu/ops/pug_device.py:122"),
 }
 # phase 7: (name, t2g, the port's quant flags, the reference's quant
 # flags); infer --usa runs on the first one's dump
@@ -160,6 +179,19 @@ EM_QUANTS = (
 # init on the small ones, two on the large one
 K6_COMBOS = [(u, w, i) for u in (False, True) for w in (True, False) for i in (False, True)]
 K6_LARGE_COMBOS = [(True, True, False), (False, False, True)]
+# phase 8: (name, t2g, the port's quant flags, the reference's quant flags)
+PARSIMONY_QUANTS = (
+    ("parsimony", "t2g_3col.tsv", ["-r", "parsimony"], ["--resolution", "parsimony"]),
+    ("parsimony-em", "t2g_3col.tsv", ["-r", "parsimony-em", "-d"],
+     ["--resolution", "parsimony-em", "--dump-eq"]),
+    ("parsimony-gene", "t2g.tsv", ["-r", "parsimony-gene"], ["--resolution", "parsimony-gene"]),
+    ("parsimony-gene-em", "t2g.tsv", ["-r", "parsimony-gene-em"],
+     ["--resolution", "parsimony-gene-em"]),
+)
+# phase 8's long-read data: the size at which the reference's per-cell
+# Python resolution takes about a minute on a host core (PERF.md)
+LONGREAD_SEED, LONGREAD_CELLS, LONGREAD_READS, LONGREAD_GENES = 5, 2_000, 1_000_000, 20_000
+REPEATS = 50  # launches of each K7 case held against one result
 
 
 def card_line() -> str:
@@ -204,9 +236,11 @@ def ptxas_summary(text: str) -> list:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            op = re.search(r"(FwdOp|MinOp|LexOp|FirstIndex|MinValue)", m.group(1))
-            kern = re.search(r"(lookback_scan|hamming1_probe|em_cell)_kernel", m.group(1))
-            name = (kern.group(1) if kern else m.group(1)) + (f"<{op.group(1)}>" if op else "")
+            op = re.search(r"(FwdOp|MinOp|LexOp|FirstIndex|MinValue|Lb[01]E)", m.group(1))
+            kern = re.search(r"(lookback_scan|hamming1_probe|em_cell|pug_cc)_kernel",
+                             m.group(1))
+            op = op and {"Lb1E": "weighted", "Lb0E": "plain"}.get(op.group(1), op.group(1))
+            name = (kern.group(1) if kern else m.group(1)) + (f"<{op}>" if op else "")
             spill = "0"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -365,6 +399,8 @@ def phase2(dev, card: str) -> None:
                       + (f", brute-force twins {t[5]:.3f} / {t[6]:.3f} ms" if t[5] else "")
                       for shape, t in times.items()) + f" [{card}]", flush=True)
     k6_check(dev, card)
+    k6_weighted_check(dev, card)
+    k7_check(dev, card)
 
 
 def float_err(got, want) -> float:
@@ -414,6 +450,65 @@ def k6_check(dev, card: str) -> None:
           "global-memory route; 10k-cells (USA, last round, uniform): " + ", ".join(
               f"{k} {ms:.3f} ms, rounds max {mx}, median {med}"
               for k, (ms, mx, med) in timed.items()) + f" [{card}]", flush=True)
+
+
+def k6_weighted_check(dev, card: str) -> None:
+    """The weighted K6 (the long-read EM) against its twin (on the CPU)
+    on tests/em_cases.py's batches with label weights and on cells whose
+    longest class crosses 8 and 128 labels; raises on any differing bit."""
+    from alevin_fry_tpu_torch.ops import em
+    from em_cases import EM_CASES, em_case, label_weights, weighted_case
+
+    global_cells = em.STATS["global_cells"]
+    timed = {}
+    for kind in list(EM_CASES) + ["long-classes"]:
+        if kind == "long-classes":
+            batch, n_rows, w = weighted_case()
+        else:
+            batch, n_rows = em_case(kind)
+            w = label_weights(len(batch[2]))
+        for uniform in (False, True):
+            plan = em.plan_cells(*batch, n_rows, None, uniform, False, w)
+            t = plan.to(dev)
+            want = em.em_run_twin(plan.to("cpu"))
+            float_err(em.em_run(t), want)
+            if kind == "10k-cells":
+                timed[uniform] = (event_ms(lambda: em.em_run(t), 5), int(want[1].max()))
+    if em.STATS["global_cells"] == global_cells:
+        raise AssertionError("no weighted cell took K6's global-memory route")
+    print(f"phase 2: weighted K6 equals its twin bit for bit on {list(EM_CASES)} and "
+          "long-classes (longest class 7-300 labels), informative and uniform init; "
+          "10k-cells: " + ", ".join(f"uniform={u} {ms:.3f} ms, rounds max {mx}"
+                                    for u, (ms, mx) in timed.items()) + f" [{card}]", flush=True)
+
+
+def k7_check(dev, card: str) -> None:
+    """K7 against its twin (on the card) and a union-find on
+    tests/pug_cases.py's graphs, each case launched REPEATS times; raises
+    on any difference."""
+    import torch
+
+    from alevin_fry_tpu_torch.ops import pug_device
+    from pug_cases import PUG_CASES, pug_case, union_find_labels
+
+    global_cells = pug_device.STATS["global_cells"]
+    out = {}
+    for kind in PUG_CASES:
+        graph = pug_case(kind)
+        want = torch.from_numpy(union_find_labels(*graph))
+        t = pug_device.upload_csr(*graph, dev)
+        max_abs_err(pug_device.connected_components_twin(*t)[0], want)
+        for _ in range(REPEATS):
+            labels, rounds = pug_device.connected_components(*t)
+            max_abs_err(labels, want)
+        out[kind] = (len(graph[1]), len(graph[2]), int(rounds.max()),
+                     event_ms(lambda: pug_device.connected_components(*t), 10))
+    if pug_device.STATS["global_cells"] == global_cells:
+        raise AssertionError("no cell took K7's global-memory route")
+    print(f"phase 2: K7 equals its twin and a union-find on {list(PUG_CASES)}, {REPEATS} "
+          "launches each: " + ", ".join(f"{k} ({n} nodes, {e} entries) rounds max {r}, "
+                                         f"{ms:.4f} ms" for k, (n, e, r, ms) in out.items())
+          + f" [{card}]", flush=True)
 
 
 def hamming_check(q, k, length: int, perm, brute=None) -> None:
@@ -482,16 +577,16 @@ class Capture:
 
 
 def reset_launches() -> None:
-    from alevin_fry_tpu_torch.ops import em, hamming, segscan
+    from alevin_fry_tpu_torch.ops import em, hamming, pug_device, segscan
 
-    for counts in (segscan.LAUNCHES, hamming.LAUNCHES, em.LAUNCHES):
+    for counts in (segscan.LAUNCHES, hamming.LAUNCHES, em.LAUNCHES, pug_device.LAUNCHES):
         counts.update(dict.fromkeys(counts, 0))
 
 
 def launch_counts() -> dict:
-    from alevin_fry_tpu_torch.ops import em, hamming, segscan
+    from alevin_fry_tpu_torch.ops import em, hamming, pug_device, segscan
 
-    return {**segscan.LAUNCHES, **hamming.LAUNCHES, **em.LAUNCHES}
+    return {**segscan.LAUNCHES, **hamming.LAUNCHES, **em.LAUNCHES, **pug_device.LAUNCHES}
 
 
 def peaks_after(peaks: dict, then=None):
@@ -526,6 +621,7 @@ def device_busy(prof) -> tuple:
                 else "K5" if "MinValue" in name
                 else "K4" if "hamming1" in name
                 else "K6" if "em_cell" in name
+                else "K7" if "pug_cc" in name
                 else "torch sort" if re.search(r"[Ss]ort", name) else "other torch kernels")
         kinds[kind] = kinds.get(kind, 0.0) + (end - start) / 1e3
     busy, last = 0.0, float("-inf")
@@ -1110,11 +1206,13 @@ class K6Capture:
 
 def k6_work(t, rounds, alpha) -> tuple:
     """(bytes, float operations) of K6's work on ``t``: the labels, the
-    occurrence lists and the counts read once and each nonzero value
-    written with its id; per round of each cell, the abundances and the
-    convergence test (5 per id), the denominators (one add per label of a
-    multi-label class, one division per class) and the new values (a
-    multiply and an add per occurrence), times the rounds it took."""
+    occurrence lists and the counts (and the weights, in both orders) read
+    once and each nonzero value written with its id; per round of each
+    cell, the abundances and the convergence test (5 per id), the
+    denominators (one add per label of a multi-label class, one division
+    per class) and the new values (a multiply and an add per occurrence),
+    plus the weighted mode's two multiplies per label, times the rounds it
+    took."""
     import torch
 
     ne = (t.cell_cls[1:] - t.cell_cls[:-1])
@@ -1125,8 +1223,13 @@ def k6_work(t, rounds, alpha) -> tuple:
     C = len(ne)
     per_round = (5 * nu.double() + torch.bincount(cls_cell, lens * multi, C)
                  + torch.bincount(cls_cell, multi, C) + 2 * torch.bincount(cls_cell, lens.double(), C))
-    ops = float((rounds.double() * per_round).sum())
     nbytes = 4 * (2 * t.lab_loc.numel() + t.countf.numel()) + 8 * int((alpha != 0).sum())
+    if t.lab_w is not None:
+        # the weighted mode multiplies each label by its weight twice (the
+        # denominator and the new value) and reads the weights in both orders
+        per_round = per_round + 2 * torch.bincount(cls_cell, lens * multi, C)
+        nbytes += 8 * t.lab_w.numel()
+    ops = float((rounds.double() * per_round).sum())
     return nbytes, ops
 
 
@@ -1218,6 +1321,197 @@ def em_phase(work: Path, data: Path, chain: dict, card: str, profile: bool) -> l
     return rows + replay(cap.inputs, SCAN_KERNELS, total, "rna-em", "phase 7", card)
 
 
+# --- phase 8 ----------------------------------------------------------------
+
+class K7Capture:
+    """Spies on connected_components: keeps the largest K7 input (by
+    adjacency entries) the path gave it, and what it solved (cell graphs,
+    nodes, entries, the largest cell, each live cell's rounds)."""
+
+    def __init__(self):
+        self.largest = None
+        self.stats = {"cells": 0, "nodes": 0, "entries": 0, "max_nodes": 0}
+        self.rounds = []
+
+    def __enter__(self):
+        from alevin_fry_tpu_torch.ops import pug_device
+
+        self._orig = pug_device.connected_components
+
+        def spy(n_nodes, deg, nbrs):
+            if self.largest is None or nbrs.numel() > self.largest[2].numel():
+                self.largest = (n_nodes.copy(), deg.clone(), nbrs.clone())
+            labels, rounds = self._orig(n_nodes, deg, nbrs)
+            st = self.stats
+            st["cells"] += len(n_nodes)
+            st["nodes"] += len(deg)
+            st["entries"] += nbrs.numel()
+            st["max_nodes"] = max(st["max_nodes"], int(n_nodes.max()) if len(n_nodes) else 0)
+            self.rounds.append(rounds.cpu().numpy()[n_nodes > 0])
+            return labels, rounds
+
+        pug_device.connected_components = spy
+        return self
+
+    def __exit__(self, *exc):
+        from alevin_fry_tpu_torch.ops import pug_device
+
+        pug_device.connected_components = self._orig
+
+
+def k7_replay(graph, launches: int, path: str, label: str, card: str) -> dict:
+    """K7 and its twin (both on the card) on the captured graphs: equal
+    labels, CUDA-event times, the bound (degrees and neighbours read
+    once, one label written per node, at the device memory rate)."""
+    import numpy as np
+
+    from alevin_fry_tpu_torch.ops import pug_device
+
+    labels, rounds = pug_device.connected_components(*graph)
+    err = max_abs_err(labels, pug_device.connected_components_twin(*graph)[0])
+    n_nodes, n_entries = graph[1].numel(), graph[2].numel()
+    nbytes = 12 * n_nodes + 4 * n_entries
+    row = {
+        "name": "K7", "path": path, "route": "cuda", "source": SOURCES["K7"][0],
+        "replaces": SOURCES["K7"][1], "launches": launches,
+        "shape": [len(graph[0]), n_nodes, n_entries], "max_abs_err": err,
+        "ms": event_ms(lambda: pug_device.connected_components(*graph), 10),
+        "plain_ms": event_ms(lambda: pug_device.connected_components_twin(*graph), 3),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+    }
+    r = rounds.cpu().numpy()[graph[0] > 0]
+    print(f"{label}: replay of K7 at the main path's shape (cells, nodes, adjacency entries) "
+          f"{row['shape']}: {row['ms']:.4f} ms (twin on the card {row['plain_ms']:.2f} ms), "
+          f"bound {row['bound_ms']:.5f} ms by bytes ({nbytes} B); rounds median "
+          f"{float(np.median(r)):.0f}, max {int(r.max())} [{card}]", flush=True)
+    return row
+
+
+def parsimony_argv(work: Path, data: Path) -> dict:
+    """Phase 8's quant runs of the port on phase 3's collated data:
+    name -> argv."""
+    common = ["-t", str(THREADS), "--device", "cuda"]
+    return {name: ["quant", "-i", str(work / "port" / "gpl"), "-m", str(data / t2g),
+                   "-o", str(work / "p8_port" / name / "quant"), *flags, *common]
+            for name, t2g, flags, _ in PARSIMONY_QUANTS}
+
+
+def longread_stages(lr: Path, out: Path) -> dict:
+    """The long-read run of the port: gpl -> collate -> quant -r
+    parsimony-em (plain t2g)."""
+    common = ["-t", str(THREADS), "--device", "cuda"]
+    return {
+        "gpl": ["generate-permit-list", "-i", str(lr / "rad"), "-d", "fw",
+                "-o", str(out / "gpl"), "-u", str(lr / "permit.txt"), "-m", "10", *common],
+        "collate": ["collate", "-i", str(out / "gpl"), "-r", str(lr / "rad"), *common],
+        "quant": ["quant", "-i", str(out / "gpl"), "-m", str(lr / "t2g.tsv"),
+                  "-o", str(out / "quant"), "-r", "parsimony-em", *common],
+    }
+
+
+def parsimony_phase(work: Path, data: Path, card: str, profile: bool) -> list:
+    """Phase 8: the parsimony family on the card against the reference's
+    runs of the same command lines (started here, in a thread beside the
+    port's runs), then the long-read run.  Returns the replay rows of K7,
+    K6 (plain and weighted) and K1-K3."""
+    lr = work / "longread"
+    t0 = time.perf_counter()
+    made = helper(["make-longread", str(lr), "--seed", str(LONGREAD_SEED),
+                   "--n-cells", str(LONGREAD_CELLS), "--n-reads", str(LONGREAD_READS),
+                   "--n-genes", str(LONGREAD_GENES)])
+    print(f"phase 8: long-read data {made['n_reads']} reads, {made['n_alignments']} "
+          f"alignments, {made['n_cells']} cells generated in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    runs = parsimony_argv(work, data)
+    lr_stages = longread_stages(lr, work / "p8_lr_port")
+    (work / "p8_lr_cmdlines.json").write_text(json.dumps(
+        {k: "alevin-fry-tpu " + " ".join(v) for k, v in lr_stages.items()}))
+    cmds = [["quant", str(work / "ref" / "gpl"), str(work / "p8_ref" / name / "quant"),
+             "alevin-fry-tpu " + " ".join(runs[name]), "--t2g", str(data / t2g),
+             "--threads", str(THREADS), *ref_flags]
+            for name, t2g, _, ref_flags in PARSIMONY_QUANTS]
+    cmds.append(["run", str(lr), str(work / "p8_lr_ref"), str(work / "p8_lr_cmdlines.json"),
+                 "--threads", str(THREADS), "--resolution", "parsimony-em"])
+    chain = ref_chain_start(cmds, work / "p8_ref_log")
+    try:
+        return _parsimony_runs(work, runs, lr_stages, chain, card, profile)
+    finally:
+        ref_chain_stop(chain)
+
+
+def _parsimony_runs(work: Path, runs: dict, lr_stages: dict, chain: dict, card: str,
+                    profile: bool) -> list:
+    import numpy as np
+    import torch
+
+    from alevin_fry_tpu_torch.ops import pug_device
+    from reference_host_path import (
+        DUMP_ARTIFACTS, QUANT_ARTIFACTS, STAGE_JSONS, artifact_mismatches, rna_artifacts,
+    )
+
+    peaks, secs, launches = {}, {}, {}
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    pug_device.STATS["global_cells"] = 0
+    with Capture() as cap, K6Capture() as k6cap, K7Capture() as k7cap:
+        for name, argv in runs.items():
+            before = launch_counts()
+            secs.update(run_stages({name: argv}, "phase 8", profile, peaks_after(peaks)))
+            launches[name] = {k: v - before[k] for k, v in launch_counts().items()}
+    total = launch_counts()
+    for name in runs:
+        want = ("K7", *SCAN_KERNELS) + (("K6",) if name.endswith("-em") else ())
+        if not all(launches[name][k] > 0 for k in want):
+            raise AssertionError(f"phase 8 {name}: a kernel never launched: {launches[name]}")
+    stage_lines("phase 8: port on cuda", secs, peaks, card)
+    st = k7cap.stats
+    rounds = np.concatenate(k7cap.rounds)
+    alt = {name: len(json.loads((work / "p8_port" / name / "quant" / "quant.json").read_text())
+                     ["alt_resolved_cell_numbers"]) for name in runs}
+    print(f"phase 8: PUGs over the 4 runs: {st['cells']} cell graphs, {st['nodes']} nodes, "
+          f"{st['entries'] // 2} edges, largest cell {st['max_nodes']} nodes, "
+          f"{pug_device.STATS['global_cells']} cells on K7's global-memory route, "
+          f"K7 rounds median "
+          f"{float(np.median(rounds)):.0f} max {int(rounds.max())}; cells on the "
+          f"large-component fallback {alt}; launches per run {launches}", flush=True)
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    lr_peaks = {}
+    with K6Capture() as lr_k6:
+        lr_secs = run_stages(lr_stages, "phase 8 long-read", profile, peaks_after(lr_peaks))
+    lr_launches = launch_counts()
+    if lr_launches["K6"] == 0 or lr_k6.largest is None or lr_k6.largest.lab_w is None:
+        raise AssertionError(f"phase 8: the weighted K6 never launched: {lr_launches}")
+    stage_lines("phase 8: port long-read gpl, collate, quant -r parsimony-em on cuda", lr_secs,
+                lr_peaks, card)
+
+    ref_runs = ref_chain_wait(chain)
+    bad = []
+    for name in runs:
+        names = QUANT_ARTIFACTS + (DUMP_ARTIFACTS if name == "parsimony-em" else ())
+        port_dir, ref_dir = work / "p8_port" / name, work / "p8_ref" / name
+        bad += [f"{name}/{n}" for n in artifact_mismatches(
+            port_dir, ref_dir, names, ("quant/quant.json",))]
+        bad += [f"{name}/{n} (bytes)" for n in names
+                if (port_dir / n).read_bytes() != (ref_dir / n).read_bytes()]
+    bad += [f"long-read/{n}" for n in artifact_mismatches(
+        work / "p8_lr_port", work / "p8_lr_ref", rna_artifacts(), STAGE_JSONS)]
+    if bad:
+        raise AssertionError(f"phase 8: port and reference differ in {bad}")
+    print("phase 8: every data artifact of the 4 parsimony runs (the dump too) and of the "
+          "long-read run byte-identical, the stage JSONs equal to the reference host path "
+          "(host CPU, beside the port: " + ", ".join(
+              f"{name} {list(r.values())[0]:.2f} s" for name, r in zip(runs, ref_runs))
+          + "; long-read " + ", ".join(f"{k} {v:.2f} s" for k, v in ref_runs[-1].items())
+          + ")", flush=True)
+    rows = [k7_replay(k7cap.largest, total["K7"], "rna-parsimony", "phase 8", card),
+            k6_replay(k6cap.largest, total["K6"], "rna-parsimony-em", "phase 8", card),
+            k6_replay(lr_k6.largest, lr_launches["K6"], "longread-em", "phase 8 long-read",
+                      card)]
+    return rows + replay(cap.inputs, SCAN_KERNELS, total, "rna-parsimony", "phase 8", card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -1296,6 +1590,7 @@ def main() -> int:
         rows += em_phase(work, data, chain, card, args.profile)
     finally:
         ref_chain_stop(chain)
+    rows += parsimony_phase(work, data, card, args.profile)
     shutil.rmtree(work, ignore_errors=True)
     # the reference package ran only in helper subprocesses
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "alevin_fry_tpu")]

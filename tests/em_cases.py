@@ -1,7 +1,8 @@
 """Inputs of the EM tests: batches of equivalence classes made from numpy
-seeds, for tests/test_torch_em.py (the twin against the JAX package),
-tests/test_torch_cuda.py and chip_smoke.py phase 2 (kernel K6 against its
-twin).  Imports nothing of either package."""
+seeds, for tests/test_torch_em.py and tests/test_torch_parsimony.py (the
+twin against the JAX package), tests/test_torch_cuda.py and chip_smoke.py
+phase 2 (kernel K6 against its twin), with label weights for the
+weighted (long-read) EM.  Imports nothing of either package."""
 
 import numpy as np
 
@@ -59,3 +60,33 @@ def em_case(kind: str, seed: int = 3):
     """(batch, rows) of one of :data:`EM_CASES`."""
     n_cells, n_rows, max_classes, max_len, zero_len, wide = EM_CASES[kind]
     return em_batch(seed, n_cells, n_rows, max_classes, max_len, zero_len, wide), n_rows
+
+
+def label_weights(n_labels: int, seed: int = 5) -> np.ndarray:
+    """Random float32 weights of the weighted EM, one per label, one in
+    ten of them 0."""
+    rng = np.random.RandomState(seed)
+    return (rng.rand(n_labels) * (rng.rand(n_labels) > 0.1)).astype(np.float32)
+
+
+# the longest class of a cell sets the order of the weighted EM's sums
+# (NumPy's pairwise order changes at 8 and past 128 values)
+LMAX_CELLS = (7, 8, 9, 16, 128, 129, 137, 300)
+
+
+def weighted_case(seed: int = 4):
+    """(batch, rows, weights): em_case's 10k-cells batch cut to 120
+    cells, then one cell for each length of :data:`LMAX_CELLS`, its
+    longest class beside 30 classes of 2-9 labels."""
+    rng = np.random.RandomState(seed)
+    (ceo, lo, labels, counts), n_rows = em_case("10k-cells")
+    ceo = ceo[:121]
+    lo, labels, counts = lo[:ceo[-1] + 1], labels[:lo[ceo[-1]]], counts[:ceo[-1]]
+    for lmax in LMAX_CELLS:
+        lens = np.append(rng.randint(2, 10, 30), lmax)
+        labs = [np.sort(rng.choice(n_rows, k, replace=False)) for k in lens]
+        labels = np.concatenate([labels, *labs]).astype(np.uint32)
+        lo = np.concatenate([lo, lo[-1] + np.cumsum(lens)])
+        counts = np.concatenate([counts, rng.randint(1, 20, len(lens))]).astype(np.uint32)
+        ceo = np.append(ceo, ceo[-1] + len(lens))
+    return (ceo, lo, labels, counts), n_rows, label_weights(len(labels), seed)

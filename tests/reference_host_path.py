@@ -17,6 +17,11 @@ As a script (this imports nothing of the port):
 
     python tests/reference_host_path.py make DIR --n-cells C --n-reads R --n-genes G [--seed S]
         writes tests/synth_hard.make_hard_dataset(DIR, RandomState(S), ...)
+    python tests/reference_host_path.py make-longread DIR --n-cells C --n-reads R --n-genes G
+            [--seed S]
+        writes make_longread_dataset(DIR, RandomState(S), ...): long-read
+        records (as / start / end / tlen) in DIR/rad, DIR/permit.txt and
+        DIR/t2g.tsv
     python tests/reference_host_path.py run DIR OUT CMDLINES.json [--usa] [--min-reads M]
             [--threads T] [--filter knee|force:N|expect:N|explicit:PATH] [--compress]
             [--max-records R] [QUANT OPTIONS]
@@ -24,8 +29,9 @@ As a script (this imports nothing of the port):
         unless --filter names a filtered method; collate -c with
         --compress) and prints their seconds as one JSON line.  QUANT
         OPTIONS: --resolution R, --sa-model M, --dump-eq, --quant-subset
-        FILE, --init-uniform, --t2g FILE (default DIR/t2g_3col.tsv with
-        --usa, else DIR/t2g.tsv)
+        FILE, --init-uniform, --umi-edit-dist D, --large-graph-thresh N
+        (both as the CLI defaults them when left out), --t2g FILE (default
+        DIR/t2g_3col.tsv with --usa, else DIR/t2g.tsv)
     python tests/reference_host_path.py quant GPL OUT CMDLINE --t2g FILE [--threads T]
             [QUANT OPTIONS]
         runs quant alone on the collated directory GPL into OUT and prints
@@ -70,6 +76,8 @@ HOST_ENV = {
     "AFT_GPL_MESH": "0",
     "AFT_EM_MESH": "0",
     "AFT_EM_BACKEND": "host",
+    # parsimony: the monolithic native resolver, no accelerator probe
+    "AFT_PUG_CC_BACKEND": "host",
 }
 
 # the artifacts both packages must write byte for byte, and the stage
@@ -215,9 +223,17 @@ def run_reference(d: Path, out: Path, cmdlines: dict, usa: bool,
 def run_reference_quant(gpl: Path, out: Path, t2g: Path, cmdline: str, threads: int = 4,
                         resolution: str = "cr-like", sa_model: str = "winner-take-all",
                         dump_eq: bool = False, quant_subset=None,
-                        init_uniform: bool = False) -> float:
+                        init_uniform: bool = False, umi_edit_dist=None,
+                        large_graph_thresh=None) -> float:
     """The reference's quant on the collated directory ``gpl`` into
-    ``out``, with the quant options of its CLI; returns its seconds."""
+    ``out``, with the quant options of its CLI (``umi_edit_dist`` and
+    ``large_graph_thresh`` defaulted as the CLI does); returns its
+    seconds."""
+    parsimony = resolution.startswith("parsimony")
+    if umi_edit_dist is None:
+        umi_edit_dist = 1 if parsimony else 0
+    if large_graph_thresh is None:
+        large_graph_thresh = 1000 if parsimony else 0
     with host_policies():
         from alevin_fry_tpu.pipeline.quant import QuantOpts, quantify
         from alevin_fry_tpu.radz import _native
@@ -228,7 +244,8 @@ def run_reference_quant(gpl: Path, out: Path, t2g: Path, cmdline: str, threads: 
             input_dir=gpl, tg_map=t2g, output_dir=out, num_threads=threads,
             resolution=resolution, sa_model=sa_model, dump_eq=dump_eq,
             filter_list=quant_subset, init_uniform=init_uniform,
-            large_graph_thresh=0, cmdline=cmdline,
+            pug_exact_umi=parsimony and umi_edit_dist == 0,
+            large_graph_thresh=large_graph_thresh, cmdline=cmdline,
         ))
         return time.perf_counter() - t0
 
@@ -312,13 +329,94 @@ def _quant_flags(p) -> None:
     p.add_argument("--dump-eq", action="store_true")
     p.add_argument("--quant-subset", type=Path, default=None)
     p.add_argument("--init-uniform", action="store_true")
+    p.add_argument("--umi-edit-dist", type=int, default=None)
+    p.add_argument("--large-graph-thresh", type=int, default=None)
     p.add_argument("--t2g", type=Path, default=None)
 
 
 def _quant_opts(args) -> dict:
     return {"resolution": args.resolution, "sa_model": args.sa_model,
             "dump_eq": args.dump_eq, "quant_subset": args.quant_subset,
-            "init_uniform": args.init_uniform}
+            "init_uniform": args.init_uniform, "umi_edit_dist": args.umi_edit_dist,
+            "large_graph_thresh": args.large_graph_thresh}
+
+
+def make_longread_dataset(d: Path, rng, n_cells: int, n_reads: int, n_genes: int,
+                          txps_per_gene: int = 4, bc_len: int = 16, umi_len: int = 12,
+                          umi_error_rate: float = 0.05, chunk: int = 100_000) -> dict:
+    """A long-read dataset in ``d``: ``rad/map.rad`` (the record layout of
+    tests/synth.py::write_longread_rad: alignment fields as / start /
+    end / tlen), ``permit.txt`` and a plain ``t2g.tsv``.  Molecules of
+    Zipf-drawn genes amplify to 1 + Poisson(2) reads, a fraction with a
+    one-base UMI error; a molecule aligns to one transcript of its gene
+    (half of them), to several of them (a third) or to transcripts of
+    its gene and of its paralog (the rest); each alignment carries a
+    score and a 3' distance drawn per read.  Reads are shuffled and
+    written in chunks of ``chunk``.  Returns the counts written."""
+    import sys as _sys
+
+    import numpy as np
+
+    _sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from synth import make_longread_prelude
+
+    from alevin_fry_tpu.ops.barcodes import unpack_seqs_to_strings
+    from alevin_fry_tpu.radz import RadWriter
+
+    n_txps = n_genes * txps_per_gene
+    bcs = np.unique(rng.randint(0, 1 << 62, 2 * n_cells, dtype=np.int64).astype(np.uint64)
+                    & np.uint64((1 << (2 * bc_len)) - 1))[:n_cells]
+    bcs = bcs[rng.permutation(len(bcs))]
+    n_mols = max(1, n_reads // 3)
+    mol_cell = rng.randint(0, len(bcs), n_mols)
+    mol_umi = rng.randint(0, 1 << (2 * umi_len), n_mols, dtype=np.int64).astype(np.uint64)
+    mol_gene = np.minimum(rng.zipf(1.3, n_mols) - 1, n_genes - 1)
+    mol_gene = rng.permutation(n_genes)[mol_gene]
+    reads_per = 1 + rng.poisson(2.0, n_mols)
+    read_mol = np.repeat(np.arange(n_mols), reads_per)[:n_reads]
+    read_mol = read_mol[rng.permutation(len(read_mol))]
+    n = len(read_mol)
+    umi = mol_umi[read_mol].copy()
+    err = rng.rand(n) < umi_error_rate
+    pos = rng.randint(0, umi_len, int(err.sum())).astype(np.uint64)
+    umi[err] ^= np.uint64(1) << (np.uint64(2) * pos)
+    # each molecule's label set: (kind, count) drawn per molecule
+    kind = rng.choice(3, n_mols, p=[0.5, 0.33, 0.17])
+    n_own = np.where(kind == 0, 1, rng.randint(2, txps_per_gene + 1, n_mols))
+    n_para = np.where(kind == 2, rng.randint(1, txps_per_gene + 1, n_mols), 0)
+    nal = (n_own + n_para)[read_mol]
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(nal, out=offs[1:])
+    aln_read = np.repeat(np.arange(n), nal)
+    slot = np.arange(int(offs[-1])) - offs[:-1][aln_read]
+    m = read_mol[aln_read]
+    own = slot < n_own[m]
+    gene = np.where(own, mol_gene[m], (mol_gene[m] ^ 1) % n_genes)
+    k = np.where(own, slot, slot - n_own[m])
+    refs = (gene * txps_per_gene + (k + mol_gene[m]) % txps_per_gene).astype(np.uint32)
+    tlen = rng.randint(800, 3000, len(refs)).astype(np.uint64)
+    end = tlen - np.minimum(rng.geometric(0.01, len(refs)), tlen - 1).astype(np.uint64)
+    score = rng.randint(-40, 200, len(refs)).astype(np.int64)
+    prelude, ftv = make_longread_prelude([f"tx_{i}" for i in range(n_txps)], bc_len, umi_len)
+    (d / "rad").mkdir(parents=True, exist_ok=True)
+    with open(d / "rad" / "map.rad", "wb") as fh:
+        w = RadWriter(fh, prelude, ftv)
+        for s0 in range(0, n, chunk):
+            s1 = min(s0 + chunk, n)
+            a0, a1 = offs[s0], offs[s1]
+            w.write_chunk(
+                read_cols={"b": bcs[mol_cell[read_mol[s0:s1]]], "u": umi[s0:s1]},
+                aln_offsets=offs[s0:s1 + 1] - a0, refs=refs[a0:a1],
+                dirs=np.ones(a1 - a0, bool),
+                aln_cols={"as": (score[a0:a1] & 0xFFFFFFFF).astype(np.uint64),
+                          "start": np.zeros(a1 - a0, np.uint64), "end": end[a0:a1],
+                          "tlen": tlen[a0:a1]},
+            )
+        w.finalize()
+    (d / "permit.txt").write_text("".join(f"{b}\n" for b in unpack_seqs_to_strings(bcs, bc_len)))
+    (d / "t2g.tsv").write_text("".join(f"tx_{i}\tg_{i // txps_per_gene}\n"
+                                       for i in range(n_txps)))
+    return {"n_reads": n, "n_alignments": int(offs[-1]), "n_cells": len(bcs)}
 
 
 def main(argv=None) -> int:
@@ -353,6 +451,12 @@ def main(argv=None) -> int:
     inf.add_argument("out", type=Path)
     inf.add_argument("--usa", action="store_true")
     inf.add_argument("--quant-subset", type=Path, default=None)
+    ml = sub.add_parser("make-longread")
+    ml.add_argument("dir", type=Path)
+    ml.add_argument("--n-cells", type=int, required=True)
+    ml.add_argument("--n-reads", type=int, required=True)
+    ml.add_argument("--n-genes", type=int, required=True)
+    ml.add_argument("--seed", type=int, default=5)
     ma = sub.add_parser("make-atac")
     ma.add_argument("dir", type=Path)
     ma.add_argument("--n-cells", type=int, required=True)
@@ -385,6 +489,15 @@ def main(argv=None) -> int:
             n_reads=args.n_reads, n_genes=args.n_genes,
         )
         print(json.dumps({"seconds": time.perf_counter() - t0, "n_reads": stats["n_reads"]}))
+        return 0
+    if args.cmd == "make-longread":
+        import numpy as np
+
+        args.dir.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        stats = make_longread_dataset(args.dir, np.random.RandomState(args.seed),
+                                      args.n_cells, args.n_reads, args.n_genes)
+        print(json.dumps({"seconds": time.perf_counter() - t0, **stats}))
         return 0
     if args.cmd == "make-atac":
         import numpy as np

@@ -1,12 +1,12 @@
-"""CUDA kernels K1-K6 of alevin_fry_tpu_torch against their plain
+"""CUDA kernels K1-K7 of alevin_fry_tpu_torch against their plain
 PyTorch twins, and the ATAC sort and run-length count and the
 multi-word and prefer-ambig cr-like WTA on the card against their CPU
 results.
 
 Every test needs a CUDA device and skips without one; whether there is
 one is decided inside the ``cuda`` fixture, never at import.  K1-K5's
-outputs are integers and K6's floats must equal its twin's bit for bit,
-so every comparison is exact equality.  This file imports
+and K7's outputs are integers and K6's floats (plain and weighted) must
+equal its twin's bit for bit, so every comparison is exact equality.  This file imports
 no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from alevin_fry_tpu_torch.interop import barcodes_to_torch
-from alevin_fry_tpu_torch.ops import atac_device, em, hamming, segscan
-from em_cases import EM_CASES, em_case, usa_offsets
+from alevin_fry_tpu_torch.ops import atac_device, em, hamming, pug_device, segscan
+from em_cases import EM_CASES, em_case, label_weights, usa_offsets, weighted_case
+from pug_cases import PUG_CASES, pug_case, union_find_labels
 
 
 @pytest.fixture
@@ -375,3 +376,63 @@ def test_prefer_ambig_wta_cuda_matches_cpu(cuda, words):
             key.to(dev), 6, gbits, n_rows, usa=True, prefer_ambig=True)
     for g, w in zip(run(cuda), run(torch.device("cpu"))):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init_uniform", [False, True])
+@pytest.mark.parametrize("kind", list(EM_CASES) + ["long-classes"])
+def test_k6_weighted_matches_twin(cuda, kind, init_uniform):
+    """The weighted K6 (the long-read EM) equals its twin bit for bit,
+    values and rounds, on em_cases' batches with label weights (one past
+    the shared-memory limit) and on cells whose longest class crosses 8
+    and 128 labels; 50 launches give one result."""
+    if kind == "long-classes":
+        batch, n_rows, w = weighted_case()
+    else:
+        batch, n_rows = em_case(kind)
+        w = label_weights(len(batch[2]))
+    plan = em.plan_cells(*batch, n_rows, None, init_uniform, False, w)
+    want = [_bits(x) for x in em.em_run_twin(plan.to("cpu"))]
+    t = plan.to(cuda)
+    launches, global_cells = em.LAUNCHES["K6"], em.STATS["global_cells"]
+    for _ in range(REPEATS):
+        for g, x in zip(em.em_run(t), want):
+            assert torch.equal(_bits(g), x)
+    assert em.LAUNCHES["K6"] > launches
+    assert (em.STATS["global_cells"] > global_cells) == (kind == "global-route")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", PUG_CASES)
+def test_k7_matches_twin_and_union_find(cuda, kind):
+    """K7's labels equal a union-find's and its twin's on the card:
+    random cells, isolated nodes, long chains, one giant component, a
+    cell past the shared-memory limit (global scratch); 50 launches give
+    one result."""
+    graph = pug_case(kind)
+    want = union_find_labels(*graph)
+    t = pug_device.upload_csr(*graph, cuda)
+    launches, global_cells = pug_device.LAUNCHES["K7"], pug_device.STATS["global_cells"]
+    for _ in range(REPEATS):
+        labels, rounds = pug_device.connected_components(*t)
+        np.testing.assert_array_equal(labels.cpu().numpy(), want)
+    assert pug_device.LAUNCHES["K7"] > launches
+    assert (pug_device.STATS["global_cells"] > global_cells) == (kind == "past-smem")
+    assert bool((rounds.cpu().numpy()[t[0] > 0] >= 1).all())
+    twin, _ = pug_device.connected_components_twin(*t)
+    np.testing.assert_array_equal(twin.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_k7_refuses_bad_inputs(cuda):
+    """The wrapper raises on types the kernel does not take, on tensors
+    on two devices, and on node counts that do not match the degrees."""
+    n, deg, nbr = pug_device.upload_csr(*pug_case("isolated"), cuda)
+    with pytest.raises(ValueError):
+        pug_device.connected_components(n, deg, nbr.long())
+    with pytest.raises(ValueError):
+        pug_device.connected_components(n, deg.cpu(), nbr)
+    with pytest.raises(ValueError):
+        pug_device.connected_components(n.astype(np.int32), deg, nbr)
+    with pytest.raises(ValueError):
+        pug_device.connected_components(n[:-1], deg, nbr)

@@ -158,6 +158,8 @@ assert main(["quant", "-i", o + "/gpl", "-m", d + "/t2g_3col.tsv", "-o", o + "/e
              "-r", "cr-like-em", "-d", *dev]) == 0
 assert main(["infer", "-c", o + "/equant/alevin/geqc_counts.mtx", "-e",
              o + "/equant/alevin/gene_eqclass.txt.gz", "-o", o + "/infer", "--usa", *dev]) == 0
+assert main(["quant", "-i", o + "/gpl", "-m", d + "/t2g.tsv", "-o", o + "/pquant",
+             "-r", "parsimony-em", "-d", *dev]) == 0
 g = o + "/agpl"
 assert main(["atac", "generate-permit-list", "-i", a + "/rad", "-o", g,
              "-u", a + "/wl.txt", "-m", "1", *dev]) == 0
@@ -179,7 +181,9 @@ print(json.dumps(sorted(m for m in sys.modules if m.startswith("alevin_fry_tpu")
     assert any(m.startswith("alevin_fry_tpu_torch.pipeline") for m in loaded)
     assert any(m.startswith("alevin_fry_tpu_torch.radz") for m in loaded)
     assert {"alevin_fry_tpu_torch.ops.knee", "alevin_fry_tpu_torch.radz.snappyz",
-            "alevin_fry_tpu_torch.ops.em", "alevin_fry_tpu_torch.pipeline.infer"} <= set(loaded)
+            "alevin_fry_tpu_torch.ops.em", "alevin_fry_tpu_torch.pipeline.infer",
+            "alevin_fry_tpu_torch.ops.pug", "alevin_fry_tpu_torch.ops.pug_device"} <= set(loaded)
+    assert (out / "pquant" / "alevin" / "quants_mat.mtx").exists()
     assert (out / "infer" / "quants_mat.mtx").exists()
     assert (out / "kquant" / "alevin" / "quants_mat.mtx").exists()
     assert [m for m in loaded if m.split(".")[0] == "alevin_fry_tpu"] == []
@@ -201,9 +205,7 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     assert port_main(["generate-permit-list", "-i", str(d / "rad"), "-d", "fw",
                       "-o", str(tmp_path / "knee"), "-k", "--device", "cpu"]) == 0
     _run_port(d, out, True, min_reads=1)
-    for extra, what in ((["-r", "parsimony"], "parsimony"),
-                        (["-r", "parsimony-em"], "parsimony-em"),
-                        (["-r", "cr-like-em", "-b", "2"], "bootstraps")):
+    for extra, what in ((["-r", "cr-like-em", "-b", "2"], "bootstraps"),):
         with pytest.raises(NotImplementedError, match=what):
             port_main(["quant", "-i", str(out / "gpl"), "-m", str(d / "t2g_3col.tsv"),
                        "-o", str(out / "q2"), *extra, "--device", "cpu"])
