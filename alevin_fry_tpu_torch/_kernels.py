@@ -22,7 +22,7 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("segscan.cu", "hamming.cu", "em.cu", "pug_cc.cu")
+SOURCES = ("segscan.cu", "hamming.cu", "em.cu", "pug_cc.cu", "mt19937.cu")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 LIB_NAME = "libaft_kernels.so"
@@ -123,11 +123,12 @@ def load() -> ctypes.CDLL:
     lib.aft_smem_limit.argtypes = []
     lib.aft_smem_limit.restype = I64
     lib.aft_em_cells.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I32, P, P, I64, F32, I32, P, P,
-                                 P]
+                                 P, P, I32, I64, I64, I64, I64, P]
     lib.aft_pug_cc.argtypes = [P, P, P, P, I32, P, P, I64, P, P, P]
+    lib.aft_mt_init.argtypes = [P, P, P, I32, I32, I64, P, P]
     for fn in ("aft_segscan_tile", "aft_segscan_fwd", "aft_segscan_min", "aft_segscan_lex",
                "aft_hamming1", "aft_hamming1_min", "aft_hamming1_plan", "aft_em_cells",
-               "aft_pug_cc"):
+               "aft_pug_cc", "aft_mt_init"):
         getattr(lib, fn).restype = I32
     _lib = lib
     return lib

@@ -57,6 +57,19 @@
 // class, Lmax, with NumPy's pairwise order (np_row_sum below), so the
 // denominator follows that order at Lmax, not the class's own length.
 //
+// The bootstrap mode runs the replicate EMs of the reference's host
+// bootstraps (alevin_fry_tpu/ops/bootstrap.py:71-340): one block per (cell,
+// replicate) row, grid (cells, replicates), over the same layout, with the
+// row's resampled counts (countf, E floats a replicate) and its random init
+// (init, U floats a replicate; kernel K8 draws it).  Every row runs its
+// rounds from that init, even a cell whose classes all have one label, with
+// the last round.  A cell of at most 1,024 classes took em_batch_np there,
+// whose denominators NumPy sums over rows padded to its rung's width Lp
+// (cell_lp: np_row_sum at n = Lp) with inv = count / max(denom, 1e-30); a
+// larger cell took em_optimize_cell_np (cell_lp 0): sequential
+// denominators, inv = count / denom.  A row on the global-memory route
+// takes its slice of scratch at scratch_off[c] + r * scratch_stride.
+//
 // Bound: what each round reads again is the cell's own labels, occurrence
 // lists and inverses, which stay in shared memory and L1/L2; the device
 // memory traffic is one read of the layout and one write of the values.
@@ -76,6 +89,8 @@ constexpr float kRelTol = 1e-2f;
 constexpr int kMinIter = 2;
 constexpr int kMaxIter = 100;
 
+enum Mode { kPlain = 0, kWeighted = 1, kBoot = 2 };
+
 struct EmArgs {
   const long long* cell_cls;     // (C+1) classes of each cell
   const long long* lab_off;      // (E+1) labels of each class
@@ -93,14 +108,22 @@ struct EmArgs {
   float* scratch;
   float init_value;              // 1/R for the uniform init, 0: informative
   int with_last_round;
-  float* alpha_out;              // (U) final values
-  int* rounds_out;               // (C) rounds run (0: no EM)
+  float* alpha_out;              // (U) final values; bootstrap: (N, U)
+  int* rounds_out;               // (C) rounds run (0: no EM); bootstrap: (N, C)
+  // the bootstrap mode only
+  const int* cell_lp;            // (C) row-sum width of the cell's rung, 0: sequential
+  const float* init;             // (N, U) each row's initial values
+  long long n_cls, n_dict, n_cells;  // E, U and C: the strides of a replicate
+  long long scratch_stride;      // scratch floats of a replicate
 };
 
-// One weighted label value of a class, or 0 past the class's labels.
+// One label value of a class (weighted by w when kW), or 0 past the
+// class's labels.
+template <bool kW>
 __device__ __forceinline__ float row_value(const float* ab, const int* loc, const float* w,
                                            int len, int i) {
-  return i < len ? __fmul_rn(ab[loc[i]], w[i]) : 0.0f;
+  if (i >= len) return 0.0f;
+  return kW ? __fmul_rn(ab[loc[i]], w[i]) : ab[loc[i]];
 }
 
 // NumPy's float32 sum of one row of n values (pairwise_sum in its
@@ -110,74 +133,88 @@ __device__ __forceinline__ float row_value(const float* ab, const int* loc, cons
 // past 128, the two halves split at n/2 rounded down to a multiple of 8,
 // each summed the same way.  The row is the class's len values padded
 // with zeros to n; a part wholly in the padding adds nothing.
+template <bool kW>
 __device__ float np_row_sum(const float* ab, const int* loc, const float* w, int len, int lo,
                             int n) {
   if (lo >= len) return 0.0f;
   if (n < 8) {
     float r = 0.0f;
-    for (int i = 0; i < n; ++i) r = __fadd_rn(r, row_value(ab, loc, w, len, lo + i));
+    for (int i = 0; i < n; ++i) r = __fadd_rn(r, row_value<kW>(ab, loc, w, len, lo + i));
     return r;
   }
   if (n <= 128) {
     float r[8];
-    for (int k = 0; k < 8; ++k) r[k] = row_value(ab, loc, w, len, lo + k);
+    for (int k = 0; k < 8; ++k) r[k] = row_value<kW>(ab, loc, w, len, lo + k);
     int i = 8;
     for (; i < n - n % 8; i += 8)
-      for (int k = 0; k < 8; ++k) r[k] = __fadd_rn(r[k], row_value(ab, loc, w, len, lo + i + k));
+      for (int k = 0; k < 8; ++k)
+        r[k] = __fadd_rn(r[k], row_value<kW>(ab, loc, w, len, lo + i + k));
     float res = __fadd_rn(__fadd_rn(__fadd_rn(r[0], r[1]), __fadd_rn(r[2], r[3])),
                           __fadd_rn(__fadd_rn(r[4], r[5]), __fadd_rn(r[6], r[7])));
-    for (; i < n; ++i) res = __fadd_rn(res, row_value(ab, loc, w, len, lo + i));
+    for (; i < n; ++i) res = __fadd_rn(res, row_value<kW>(ab, loc, w, len, lo + i));
     return res;
   }
   int n2 = n / 2;
   n2 -= n2 % 8;
-  return __fadd_rn(np_row_sum(ab, loc, w, len, lo, n2),
-                   np_row_sum(ab, loc, w, len, lo + n2, n - n2));
+  return __fadd_rn(np_row_sum<kW>(ab, loc, w, len, lo, n2),
+                   np_row_sum<kW>(ab, loc, w, len, lo + n2, n - n2));
 }
 
-// kWeighted: the weighted mode (its recursive row sum takes registers and
-// a stack frame that the plain mode is kept free of).
-template <bool kWeighted>
+// kMode: plain, weighted (its recursive row sum takes registers and a
+// stack frame that the plain mode is kept free of) or bootstrap.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads) em_cell_kernel(EmArgs a) {
+  constexpr bool kW = kMode == kWeighted;
+  constexpr bool kB = kMode == kBoot;
   extern __shared__ float smem[];
   const int c = a.cell_list[blockIdx.x];
+  const long long r = kB ? blockIdx.y : 0;  // the replicate
   const long long e0 = a.cell_cls[c];
   const int ne = static_cast<int>(a.cell_cls[c + 1] - e0);
   const long long d0 = a.dict_off[c];
   const int nu = static_cast<int>(a.dict_off[c + 1] - d0);
-  float* alpha = a.scratch_off[c] >= 0 ? a.scratch + a.scratch_off[c] : smem;
+  float* alpha = smem;
+  if (a.scratch_off[c] >= 0) alpha = a.scratch + (kB ? r * a.scratch_stride : 0) + a.scratch_off[c];
   float* ab = alpha + nu;
   float* inv = ab + nu;
   int* lmax_slot = reinterpret_cast<int*>(inv + ne);  // the longest multi-label class
   const long long* lo = a.lab_off + e0;
-  const float* cnt = a.countf + e0;
+  const float* cnt = a.countf + (kB ? r * a.n_cls : 0) + e0;
   const long long* oo = a.occ_off + d0;
   const int* p1 = a.p1 + d0;
   const int* p2 = a.p2 + d0;
+  const long long out0 = (kB ? r * a.n_dict : 0) + d0;
 
-  if (threadIdx.x == 0) *lmax_slot = 0;
-  __syncthreads();
-  int multi = 0;
-  for (int e = threadIdx.x; e < ne; e += kThreads) {
-    const int len = static_cast<int>(lo[e + 1] - lo[e]);
-    if (len > 1) {
-      multi = 1;
-      if (kWeighted) atomicMax(lmax_slot, len);
+  bool needs_em = true;
+  int lmax = 0;
+  if constexpr (kB) {
+    lmax = a.cell_lp[c];
+    for (int t = threadIdx.x; t < nu; t += kThreads) alpha[t] = a.init[out0 + t];
+  } else {
+    if (threadIdx.x == 0) *lmax_slot = 0;
+    __syncthreads();
+    int multi = 0;
+    for (int e = threadIdx.x; e < ne; e += kThreads) {
+      const int len = static_cast<int>(lo[e + 1] - lo[e]);
+      if (len > 1) {
+        multi = 1;
+        if (kW) atomicMax(lmax_slot, len);
+      }
     }
-  }
-  const bool needs_em = __syncthreads_or(multi);
-  const int lmax = *lmax_slot;
+    needs_em = __syncthreads_or(multi);
+    lmax = *lmax_slot;
 
-  for (int t = threadIdx.x; t < nu; t += kThreads) {
-    float seed = 0.0f;
-    for (long long k = oo[t]; k < oo[t + 1]; ++k) {
-      const int v = a.occ[k];
-      if (v >= 0) break;  // the single-label classes come first
-      seed = __fadd_rn(seed, cnt[~v]);
+    for (int t = threadIdx.x; t < nu; t += kThreads) {
+      float seed = 0.0f;
+      for (long long k = oo[t]; k < oo[t + 1]; ++k) {
+        const int v = a.occ[k];
+        if (v >= 0) break;  // the single-label classes come first
+        seed = __fadd_rn(seed, cnt[~v]);
+      }
+      alpha[t] = !needs_em           ? seed
+                 : a.init_value > 0  ? a.init_value
+                                     : __fmul_rn(__fadd_rn(seed, 0.5f), 1e-3f);
     }
-    alpha[t] = !needs_em           ? seed
-               : a.init_value > 0  ? a.init_value
-                                   : __fmul_rn(__fadd_rn(seed, 0.5f), 1e-3f);
   }
 
   int it = 0;
@@ -198,11 +235,14 @@ __global__ void __launch_bounds__(kThreads) em_cell_kernel(EmArgs a) {
       for (int e = threadIdx.x; e < ne; e += kThreads) {
         const long long ls = lo[e], le = lo[e + 1];
         if (le - ls < 2) continue;
-        if (kWeighted) {
-          const float denom = np_row_sum(ab, a.lab_loc + ls, a.lab_w + ls,
-                                         static_cast<int>(le - ls), 0, lmax);
-          inv[e] = denom > 0.0f ? __fdiv_rn(cnt[e], fmaxf(denom, 1e-30f)) : 0.0f;
-          continue;
+        if constexpr (kW || kB) {
+          if (lmax > 0) {
+            // NumPy's pairwise order over the row padded to lmax
+            const float denom = np_row_sum<kW>(ab, a.lab_loc + ls, kW ? a.lab_w + ls : nullptr,
+                                               static_cast<int>(le - ls), 0, lmax);
+            inv[e] = denom > 0.0f ? __fdiv_rn(cnt[e], fmaxf(denom, 1e-30f)) : 0.0f;
+            continue;
+          }
         }
         float denom = 0.0f;
         for (long long j = ls; j < le; ++j) denom = __fadd_rn(denom, ab[a.lab_loc[j]]);
@@ -216,7 +256,7 @@ __global__ void __launch_bounds__(kThreads) em_cell_kernel(EmArgs a) {
         float o = 0.0f;
         for (long long k = oo[t]; k < oo[t + 1]; ++k) {
           const int v = a.occ[k];
-          const float m = kWeighted ? __fmul_rn(abt, a.occ_w[k]) : abt;
+          const float m = kW ? __fmul_rn(abt, a.occ_w[k]) : abt;
           o = __fadd_rn(o, v < 0 ? cnt[~v] : __fmul_rn(m, inv[v]));
         }
         moved |= o > kCheckCutoff && fabsf(__fsub_rn(alpha[t], o)) > kRelTol;
@@ -237,9 +277,9 @@ __global__ void __launch_bounds__(kThreads) em_cell_kernel(EmArgs a) {
   }
   for (int t = threadIdx.x; t < nu; t += kThreads) {
     const float v = alpha[t];
-    a.alpha_out[d0 + t] = v < kMinOut ? 0.0f : v;
+    a.alpha_out[out0 + t] = v < kMinOut ? 0.0f : v;
   }
-  if (threadIdx.x == 0) a.rounds_out[c] = it;
+  if (threadIdx.x == 0) a.rounds_out[(kB ? r * a.n_cells : 0) + c] = it;
 }
 
 }  // namespace
@@ -256,9 +296,12 @@ long long aft_smem_limit() {
   return bytes;
 }
 
-// K6 over the n_list cells of cell_list, one block each, with smem_bytes
+// K6 over the n_list cells of cell_list, one block each (bootstrap mode:
+// one block per cell and replicate, grid (n_list, n_rep)), with smem_bytes
 // of dynamic shared memory (0 for cells whose scratch_off is >= 0);
-// weighted when lab_w and occ_w are not null.
+// weighted when lab_w and occ_w are not null, bootstrap when cell_lp and
+// init are not null (countf, alpha_out and rounds_out then hold n_rep
+// replicates of n_cls, n_dict and n_cells values).
 // Returns the CUDA error of the launch (0 when it was accepted).
 int aft_em_cells(const long long* cell_cls, const long long* lab_off, const int* lab_loc,
                  const float* countf, const long long* dict_off, const int* p1, const int* p2,
@@ -266,17 +309,23 @@ int aft_em_cells(const long long* cell_cls, const long long* lab_off, const int*
                  const float* occ_w, const int* cell_list, int n_list,
                  const long long* scratch_off, float* scratch, long long smem_bytes,
                  float init_value, int with_last_round, float* alpha_out, int* rounds_out,
-                 void* stream) {
-  if (n_list <= 0) return 0;
-  const auto kernel = lab_w != nullptr ? em_cell_kernel<true> : em_cell_kernel<false>;
+                 const int* cell_lp, const float* init, int n_rep, long long n_cls,
+                 long long n_dict, long long n_cells, long long scratch_stride, void* stream) {
+  if (n_list <= 0 || n_rep <= 0) return 0;
+  const bool boot = cell_lp != nullptr;
+  if (n_rep > (boot ? 65535 : 1)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const auto kernel = lab_w != nullptr ? em_cell_kernel<kWeighted>
+                      : boot           ? em_cell_kernel<kBoot>
+                                       : em_cell_kernel<kPlain>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  EmArgs a{cell_cls, lab_off,     lab_loc,    countf,          dict_off,        p1,
-           p2,       occ_off,     occ,        lab_w,           occ_w,           cell_list,
-           scratch_off, scratch,  init_value, with_last_round, alpha_out,       rounds_out};
-  kernel<<<n_list, kThreads, static_cast<size_t>(smem_bytes), static_cast<cudaStream_t>(stream)>>>(
-      a);
+  EmArgs a{cell_cls,   lab_off,  lab_loc,        countf,          dict_off,  p1,
+           p2,         occ_off,  occ,            lab_w,           occ_w,     cell_list,
+           scratch_off, scratch, init_value,     with_last_round, alpha_out, rounds_out,
+           cell_lp,    init,     n_cls,          n_dict,          n_cells,   scratch_stride};
+  kernel<<<dim3(n_list, n_rep), kThreads, static_cast<size_t>(smem_bytes),
+           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,12 +36,23 @@ pairwise order at the cell's longest class, and each occurrence adds
 ``(alpha * w) * scale``; :func:`class_weights_from_prob_rows` makes the
 weights from the parsimony path's probability rows.
 
+The bootstrap mode runs the replicate EMs of the reference's host
+bootstraps (``ops/bootstrap.py``): one plan serves every replicate, and
+each (cell, replicate) row brings its resampled counts and its random
+init (:class:`EmTensors`' ``boot_counts`` and ``boot_init``).  Every row
+runs its rounds from that init with the last round, and each cell's
+``cell_lp`` chooses its denominators: NumPy's pairwise order over rows
+padded to its rung's width with ``count / max(denom, 1e-30)``
+(``em_batch_np`` :831), or, at 0, sequential sums with ``count / denom``
+(``em_optimize_cell_np`` :54).
+
 :func:`em_run` launches K6 for tensors on a CUDA device and takes the
 plain PyTorch twin :func:`em_run_twin` for tensors on the CPU.  The twin
 keeps the same order of additions: it sums the ragged occurrence lists
-column by column.  ``LAUNCHES`` counts K6's launches; ``STATS`` counts
-what :func:`em_cells` solved (cells, classes, labels, dictionary sizes,
-rounds, cells on the global-memory route).
+column by column.  ``LAUNCHES`` counts K6's launches (``K6-boot`` those
+of its bootstrap mode); ``STATS`` counts what :func:`em_cells` laid out
+(cells, classes, labels, dictionary sizes) and the cells on the
+global-memory route; the rounds stay on the device.
 """
 
 from __future__ import annotations
@@ -58,9 +69,9 @@ from ..radz.constants import (
     ALPHA_CHECK_CUTOFF, EM_MAX_ITER, EM_MIN_ITER, EM_REL_DIFF_TOLERANCE, MIN_OUTPUT_ALPHA,
 )
 
-LAUNCHES = {"K6": 0}
-STATS = {"calls": 0, "cells": 0, "em_cells": 0, "classes": 0, "labels": 0, "max_u": 0,
-         "max_e": 0, "global_cells": 0, "rounds": []}
+LAUNCHES = {"K6": 0, "K6-boot": 0}
+STATS = {"calls": 0, "cells": 0, "classes": 0, "labels": 0, "max_u": 0, "max_e": 0,
+         "global_cells": 0}
 
 _F32 = torch.float32
 
@@ -87,11 +98,13 @@ class EmPlan:
     init_value: float      # the uniform init 1/R, or 0 for the informative init
     with_last_round: bool
     dict_id: np.ndarray    # (U,) int64: each entry's global id (host side only)
+    # the bootstrap mode: (C,) int32 row-sum width of each cell, 0: sequential
+    cell_lp: Optional[np.ndarray] = None
 
     def to(self, device) -> "EmTensors":
         arrays = {f.name: None if getattr(self, f.name) is None else
                   torch.from_numpy(np.ascontiguousarray(getattr(self, f.name))).to(device)
-                  for f in fields(EmTensors) if f.name not in ("init_value", "with_last_round")}
+                  for f in fields(EmTensors) if f.name in _PLAN_ARRAYS}
         return EmTensors(**arrays, init_value=self.init_value,
                          with_last_round=self.with_last_round)
 
@@ -113,6 +126,15 @@ class EmTensors:
     occ_w: Optional[torch.Tensor]
     init_value: float
     with_last_round: bool
+    # the bootstrap mode: each cell's row-sum width, and per replicate
+    # (N, E) resampled counts and (N, U) initial values
+    cell_lp: Optional[torch.Tensor] = None
+    boot_counts: Optional[torch.Tensor] = None
+    boot_init: Optional[torch.Tensor] = None
+
+
+_PLAN_ARRAYS = ("cell_cls", "lab_off", "lab_loc", "countf", "dict_off", "p1", "p2", "occ_off",
+                "occ", "lab_w", "occ_w", "cell_lp")
 
 
 def _sort_segments(keys: np.ndarray, seg_off: np.ndarray) -> np.ndarray:
@@ -265,37 +287,66 @@ def np_row_sums(x: torch.Tensor) -> torch.Tensor:
     return np_row_sums(x[:, :n2]) + np_row_sums(x[:, n2:])
 
 
-def _weighted_rows(t: EmTensors, lab_cls: torch.Tensor, lab_pos: torch.Tensor,
-                   lab_g: torch.Tensor, cls_cell: torch.Tensor, lens: torch.Tensor) -> list:
-    """The weighted EM's denominator rows: per distinct longest class
-    of a cell (Lmax), the multi-label classes of those cells as (class
-    indices, (M, Lmax) dictionary indices and weights, zero past each
-    class's labels)."""
+def _row_groups(t: EmTensors, width: torch.Tensor, lab_cls: torch.Tensor,
+                lab_pos: torch.Tensor, lab_g: torch.Tensor, lens: torch.Tensor) -> list:
+    """The multi-label classes whose denominator NumPy sums over a row
+    padded to ``width`` (one per class; 0: a sequential sum): per
+    distinct width, (class indices, (M, width) dictionary indices and
+    weights, the label's weight or 1, zero past each class's labels)."""
     dev = t.occ.device
-    C = len(t.cell_cls) - 1
-    multi = lens > 1
-    lmax = torch.zeros(C, dtype=torch.int64, device=dev)
-    lmax.scatter_reduce_(0, cls_cell[multi], lens[multi], reduce="amax")
+    multi = (lens > 1) & (width > 0)
     rows = []
-    for width in torch.unique(lmax[cls_cell[multi]]).tolist():
-        cls = torch.nonzero(multi & (lmax[cls_cell] == width)).flatten()
+    for wd in torch.unique(width[multi]).tolist():
+        cls = torch.nonzero(multi & (width == wd)).flatten()
         slot = torch.full((len(lens),), -1, dtype=torch.int64, device=dev)
         slot[cls] = torch.arange(len(cls), device=dev)
         sel = slot[lab_cls] >= 0
-        g = torch.zeros((len(cls), width), dtype=torch.int64, device=dev)
-        w = torch.zeros((len(cls), width), dtype=_F32, device=dev)
+        g = torch.zeros((len(cls), wd), dtype=torch.int64, device=dev)
+        w = torch.zeros((len(cls), wd), dtype=_F32, device=dev)
         g[slot[lab_cls[sel]], lab_pos[sel]] = lab_g[sel]
-        w[slot[lab_cls[sel]], lab_pos[sel]] = t.lab_w[sel]
+        w[slot[lab_cls[sel]], lab_pos[sel]] = 1.0 if t.lab_w is None else t.lab_w[sel]
         rows.append((cls, g, w))
     return rows
+
+
+def _tile(off: torch.Tensor, n: int) -> torch.Tensor:
+    """CSR offsets ``off`` repeated ``n`` times end to end."""
+    step = off[-1:]
+    body = off[:-1][None, :] + step * torch.arange(n, device=off.device)[:, None]
+    return torch.cat([body.reshape(-1), n * step])
+
+
+def _replicated(t: EmTensors) -> EmTensors:
+    """A bootstrap batch as N copies of its cells, copy r with replicate
+    r's counts (the twin's layout of the (cell, replicate) rows)."""
+    n = t.boot_counts.shape[0]
+    rep = lambda x: x.repeat(n)  # noqa: E731
+    return EmTensors(
+        cell_cls=_tile(t.cell_cls, n), lab_off=_tile(t.lab_off, n), lab_loc=rep(t.lab_loc),
+        countf=t.boot_counts.reshape(-1), dict_off=_tile(t.dict_off, n), p1=rep(t.p1),
+        p2=rep(t.p2), occ_off=_tile(t.occ_off, n), occ=rep(t.occ), lab_w=None, occ_w=None,
+        init_value=t.init_value, with_last_round=t.with_last_round, cell_lp=rep(t.cell_lp),
+    )
 
 
 def em_run_twin(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6's plain PyTorch version: every cell's EM, batched, with the
     per-cell round state of ``em_batch_np`` (em.py:831-914) and each sum
     taken in the host's order (the weighted EM's: that of
-    ``em_optimize_weighted_cell_np``).  Returns (final values per dictionary
-    entry, float32; rounds per cell, int32)."""
+    ``em_optimize_weighted_cell_np``; the bootstrap rows': that of their
+    route).  Returns (final values per dictionary entry, float32; rounds
+    per cell, int32), each (N, U) and (N, C) in the bootstrap mode."""
+    if t.boot_counts is not None:
+        n = t.boot_counts.shape[0]
+        alpha, rounds = _twin(_replicated(t), t.boot_init.reshape(-1))
+        return alpha.view(n, -1), rounds.view(n, -1)
+    return _twin(t, None)
+
+
+def _twin(t: EmTensors, init: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`em_run_twin` of a plain, weighted or replicated bootstrap
+    batch; ``init`` (one value per dictionary entry) starts every cell's
+    rounds from it."""
     dev = t.occ.device
     C, U = len(t.dict_off) - 1, len(t.occ_off) - 1
     f32 = lambda x: torch.tensor(x, dtype=_F32, device=dev)  # noqa: E731
@@ -305,14 +356,22 @@ def em_run_twin(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
     cls_cell, _ = _ragged_pos(t.cell_cls)
     lab_g = t.dict_off[cls_cell[lab_cls]] + t.lab_loc.long()
     lens = t.lab_off[1:] - t.lab_off[:-1]
+    multi = lens > 1
     needs = torch.zeros(C, dtype=torch.bool, device=dev)
-    needs[cls_cell[lens > 1]] = True
+    needs[cls_cell[multi]] = True
     weighted = t.lab_w is not None
     if weighted:
-        w_rows = _weighted_rows(t, lab_cls, lab_pos, lab_g, cls_cell, lens)
+        # the weighted EM pads every class to its cell's longest
+        lmax = torch.zeros(C, dtype=torch.int64, device=dev)
+        lmax.scatter_reduce_(0, cls_cell[multi], lens[multi], reduce="amax")
+        width = lmax[cls_cell]
+    elif t.cell_lp is not None:
+        width = t.cell_lp.long()[cls_cell]
     else:
-        den_cols = _columns(lab_pos[lens[lab_cls] > 1], lab_cls[lens[lab_cls] > 1],
-                            lab_g[lens[lab_cls] > 1])
+        width = torch.zeros_like(lens)
+    groups = _row_groups(t, width, lab_cls, lab_pos, lab_g, lens)
+    seq = (multi & (width == 0))[lab_cls]
+    den_cols = _columns(lab_pos[seq], lab_cls[seq], lab_g[seq])
     occ_id, occ_pos = _ragged_pos(t.occ_off)
     occ = t.occ.long()
     single = occ < 0
@@ -331,13 +390,18 @@ def em_run_twin(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
             o[ids] = o[ids] + torch.where(sgl, t.countf[cls], m * inv[cls])
         return o
 
-    seed = m_step(torch.zeros(U, dtype=_F32, device=dev),
-                  torch.zeros(len(t.countf), dtype=_F32, device=dev))
-    if t.init_value:
-        init = torch.full_like(seed, t.init_value)
+    if init is not None:
+        # the bootstrap rows: every cell runs its rounds from its init
+        needs[:] = True
+        alpha = init.clone()
     else:
-        init = (seed + f32(0.5)) * f32(1e-3)
-    alpha = torch.where(needs[id_cell], init, seed)
+        seed = m_step(torch.zeros(U, dtype=_F32, device=dev),
+                      torch.zeros(len(t.countf), dtype=_F32, device=dev))
+        if t.init_value:
+            start = torch.full_like(seed, t.init_value)
+        else:
+            start = (seed + f32(0.5)) * f32(1e-3)
+        alpha = torch.where(needs[id_cell], start, seed)
     active, last = needs.clone(), torch.zeros_like(needs)
     rounds = torch.zeros(C, dtype=torch.int32, device=dev)
     it = 0
@@ -349,14 +413,13 @@ def em_run_twin(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
         else:
             ab = alpha
         denom = torch.zeros(len(t.countf), dtype=_F32, device=dev)
-        if weighted:
-            for cls, g, w in w_rows:
-                denom[cls] = np_row_sums(ab[g] * w)
-            inv = torch.where(denom > zero, t.countf / denom.clamp_min(1e-30), zero)
-        else:
-            for cls, g in den_cols:
-                denom[cls] = denom[cls] + ab[g]
-            inv = torch.where(denom > zero, t.countf / denom, zero)
+        for cls, g, w in groups:
+            denom[cls] = np_row_sums(ab[g] * w)
+        for cls, g in den_cols:
+            denom[cls] = denom[cls] + ab[g]
+        # a padded row's sum divides at least by 1e-30 (em_batch_np)
+        inv = torch.where(denom > zero,
+                          t.countf / torch.where(width > 0, denom.clamp_min(1e-30), denom), zero)
         out = m_step(ab, inv)
         moved = (out > f32(ALPHA_CHECK_CUTOFF)) & ((alpha - out).abs() > f32(EM_REL_DIFF_TOLERANCE))
         not_conv = torch.zeros(C, dtype=torch.bool, device=dev)
@@ -381,51 +444,60 @@ def em_run_twin(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
 def em_run(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 on ``t``'s CUDA device, or its twin for tensors on the CPU.
     Returns (final values per dictionary entry, float32; rounds per
-    cell, int32)."""
+    cell, int32), each (N, U) and (N, C) in the bootstrap mode."""
     if t.occ.device.type == "cpu":
         return em_run_twin(t)
     lib = _kernels.load()
     dev = t.occ.device
-    for name in ("cell_cls", "lab_off", "lab_loc", "countf", "dict_off", "p1", "p2", "occ_off",
-                 "occ", "lab_w", "occ_w"):
+    boot = t.boot_counts is not None
+    names = ["cell_cls", "lab_off", "lab_loc", "countf", "dict_off", "p1", "p2", "occ_off", "occ"]
+    names += ["lab_w", "occ_w"] if t.lab_w is not None else []
+    names += ["cell_lp", "boot_counts", "boot_init"] if boot else []
+    for name in names:
         x = getattr(t, name)
-        if x is None and name in ("lab_w", "occ_w"):
-            continue
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"K6 takes contiguous tensors on one CUDA device ({name})")
-    C = len(t.dict_off) - 1
-    alpha = torch.empty(len(t.occ_off) - 1, dtype=_F32, device=dev)
-    rounds = torch.empty(C, dtype=torch.int32, device=dev)
-    if C == 0:
-        return alpha, rounds
+    C, E, U = len(t.dict_off) - 1, len(t.countf), len(t.occ_off) - 1
+    n_rep = t.boot_counts.shape[0] if boot else 1
+    if boot and (t.boot_counts.shape != (n_rep, E) or t.boot_init.shape != (n_rep, U)
+                 or t.cell_lp.shape != (C,) or t.lab_w is not None or n_rep > 65535):
+        raise ValueError("K6's bootstrap mode takes (N, E) counts, (N, U) initial values and "
+                         "one row-sum width per cell, unweighted, N <= 65535")
+    alpha = torch.empty((n_rep, U), dtype=_F32, device=dev)
+    rounds = torch.empty((n_rep, C), dtype=torch.int32, device=dev)
+    if C == 0 or n_rep == 0:
+        return (alpha, rounds) if boot else (alpha[0], rounds[0])
     # per cell: alphas and abundances (U floats each), the class inverses
     # and the longest class's length
     sizes = torch.stack([t.dict_off, t.cell_cls]).cpu().numpy()
     need = 4 * (2 * np.diff(sizes[0]) + np.diff(sizes[1]) + 1)
     scratch_off = np.full(C, -1, np.int64)
     routes = _kernels.launch_groups(need, int(lib.aft_smem_limit()))
-    n_scratch = 0
+    n_scratch = 0  # floats of one replicate's scratch
     for cells, smem in routes:
         if smem < 0:
             scratch_off[cells] = np.cumsum(need[cells] // 4) - need[cells] // 4
             n_scratch = int((need[cells] // 4).sum())
-            STATS["global_cells"] += len(cells)
-    scratch = torch.empty(n_scratch, dtype=_F32, device=dev)
+            STATS["global_cells"] += len(cells) * n_rep
+    scratch = torch.empty(n_rep * n_scratch, dtype=_F32, device=dev)
     soff = torch.from_numpy(scratch_off).to(dev)
     stream = _kernels.stream_of(alpha)
+    counts = t.boot_counts if boot else t.countf
     for cells, smem in routes:
         cl = torch.from_numpy(cells.astype(np.int32)).to(dev)
         _kernels.check(lib.aft_em_cells(
             t.cell_cls.data_ptr(), t.lab_off.data_ptr(), t.lab_loc.data_ptr(),
-            t.countf.data_ptr(), t.dict_off.data_ptr(), t.p1.data_ptr(), t.p2.data_ptr(),
+            counts.data_ptr(), t.dict_off.data_ptr(), t.p1.data_ptr(), t.p2.data_ptr(),
             t.occ_off.data_ptr(), t.occ.data_ptr(),
             *(0, 0) if t.lab_w is None else (t.lab_w.data_ptr(), t.occ_w.data_ptr()),
             cl.data_ptr(), len(cells),
             soff.data_ptr(), scratch.data_ptr(), max(smem, 0), t.init_value,
-            int(t.with_last_round), alpha.data_ptr(), rounds.data_ptr(), stream,
+            int(t.with_last_round), alpha.data_ptr(), rounds.data_ptr(),
+            *(t.cell_lp.data_ptr(), t.boot_init.data_ptr()) if boot else (0, 0),
+            n_rep, E, U, C, n_scratch, stream,
         ), "K6 aft_em_cells")
-        LAUNCHES["K6"] += 1
-    return alpha, rounds
+        LAUNCHES["K6-boot" if boot else "K6"] += 1
+    return (alpha, rounds) if boot else (alpha[0], rounds[0])
 
 
 # --- the batch entry point -----------------------------------------------------
@@ -469,17 +541,15 @@ def em_cells(
     below 0.01 are dropped."""
     plan = plan_cells(cell_eq_offsets, label_offsets, labels, counts, num_rows, usa_offsets,
                       init_uniform, with_last_round, weights)
-    alpha, rounds = (x.cpu().numpy() for x in em_run(plan.to(device)))
+    alpha = em_run(plan.to(device))[0].cpu().numpy()
     C = len(plan.dict_off) - 1
     nu, ne = np.diff(plan.dict_off), np.diff(plan.cell_cls)
     STATS["calls"] += 1
     STATS["cells"] += C
-    STATS["em_cells"] += int((rounds > 0).sum())
     STATS["classes"] += int(ne.sum())
     STATS["labels"] += len(plan.lab_loc)
     STATS["max_u"] = max(STATS["max_u"], int(nu.max()) if C else 0)
     STATS["max_e"] = max(STATS["max_e"], int(ne.max()) if C else 0)
-    STATS["rounds"].append(rounds[rounds > 0])
     if C == 0:
         return []
     nz = alpha != 0

@@ -24,11 +24,16 @@ record's barcode is listed (src/quant.rs:1732-1743).  In each block:
   ``-em`` ones; long-read records weight it by their alignment
   probabilities outside USA mode).
 
+With ``-b N`` the EM resolutions also run N bootstrap replicates of
+every large cell's EM on the device (``ops/bootstrap.py``: the random
+init on kernel K8, the replicate EMs on K6) and write their mean and
+variance; as in the reference, USA mode refuses them.
+
 Outputs the reference's artifacts: alevin/quants_mat.mtx with its rows
 and cols files, featureDump.txt, quant.json (with the cells that took the
-parsimony's large-component fallback) and, with ``-d``,
-alevin/geqc_counts.mtx and alevin/gene_eqclass.txt.gz.  Bootstraps are
-not ported: they raise.
+parsimony's large-component fallback), with ``-d``
+alevin/geqc_counts.mtx and alevin/gene_eqclass.txt.gz, and with ``-b``
+alevin/bootstraps_mean.mtx and alevin/bootstraps_var.mtx.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from .. import __version__
 from ..device import refuse_multi_process
 from ..ops import crlike, pug
 from ..ops.barcodes import unpack_seqs
+from ..ops.bootstrap import run_bootstraps
 from ..ops.em import class_weights_from_prob_rows, em_cells
 from ..utils import parse_tg_map, read_barcode_file, write_json
 from .collate import open_collated
@@ -106,11 +112,13 @@ class CellResult:
     eqc: Optional[tuple] = None
     # cells (file numbers) that took the parsimony's large-component fallback
     alt_cells: List[int] = field(default_factory=list)
+    # with -b, when the EM ran: the bootstraps' (row, column, value)
+    # triplets of the mean and of the variance
+    boot_mean: Optional[tuple] = None
+    boot_var: Optional[tuple] = None
 
 
 def _check_supported(opts: QuantOpts) -> None:
-    if opts.num_bootstraps:
-        raise NotImplementedError("bootstraps are not ported yet")
     if opts.resolution.endswith("-em"):
         refuse_multi_process(mesh_var="AFT_EM_MESH")
 
@@ -138,6 +146,9 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
     tid_to_gid, gene_names, gene_name_to_id, usa_mode = parse_tg_map(
         Path(opts.tg_map), hdr.ref_names
     )
+    if usa_mode and opts.num_bootstraps:
+        # the reference's refusal (its assert), kept under python -O
+        raise AssertionError("currently USA-mode analysis cannot be used with bootstrapping.")
     _check_supported(opts)
     if usa_mode and opts.resolution == "trivial":
         raise ValueError("the trivial resolution strategy is not available in USA mode")
@@ -295,7 +306,7 @@ def _resolve_cells(
                                         num_rows, opts.device, usa=usa_mode, prefer_ambig=pa)
 
     # each block of triplets comes sorted by (cell, column)
-    blocks, eqc, alt_cells, classes = [], None, [], None
+    blocks, eqc, alt_cells, classes, boot = [], None, [], None, None
     if opts.resolution == "cr-like" and not opts.dump_eq and not prefer_ambig:
         # small and large cells resolve alike (src/quant.rs:453, :822)
         blocks.append(wta(read_keep))
@@ -326,8 +337,9 @@ def _resolve_cells(
                     if eq_probs is not None and not usa_mode:
                         # the long-read EM weights each label (em.rs:716-844)
                         weights = class_weights_from_prob_rows(classes.label_offsets, eq_probs)
-                    blocks.append(_em_counts(classes, opts, usa_mode, num_genes, num_rows,
-                                             weights))
+                    counts, boot = _em_counts(classes, opts, usa_mode, num_genes, num_rows,
+                                              first, weights)
+                    blocks.append(counts)
                 else:
                     blocks.append(_unique_counts(classes, usa_mode, num_rows))
             else:
@@ -339,7 +351,8 @@ def _resolve_cells(
                     blocks.append(crlike.counts_from_slots(groups.cell, *slots, len(nrec_all),
                                                            num_rows))
                 else:
-                    blocks.append(_em_counts(classes, opts, usa_mode, num_genes, num_rows))
+                    counts, boot = _em_counts(classes, opts, usa_mode, num_genes, num_rows, first)
+                    blocks.append(counts)
             if opts.dump_eq and classes is not None:
                 eqc = (cell_row[np.repeat(classes.cell_ids, np.diff(classes.cell_eq_offsets))],
                        np.diff(classes.label_offsets), classes.labels, classes.counts)
@@ -351,10 +364,14 @@ def _resolve_cells(
         # two sorted runs of distinct (row, column) keys: one merge
         order = np.argsort(rows * np.int64(num_rows) + cols, kind="stable")
         rows, cols, vals = rows[order], cols[order], vals[order]
+    boot_mean = boot_var = None
+    if boot is not None:
+        boot_mean, boot_var = ((cell_row[r], c, v) for r, c, v in boot)
     return CellResult(
         cells=processed + first, cell_bcs=cell_bcs, nrec=nrec_all[processed],
         rows=rows, cols=cols, vals=vals,
         cell_stats=_coo_cell_stats(rows, vals, len(processed)), eqc=eqc, alt_cells=alt_cells,
+        boot_mean=boot_mean, boot_var=boot_var,
     )
 
 
@@ -385,10 +402,14 @@ def _unique_counts(eqc: crlike.CellEqClasses, usa_mode: bool, num_rows: int) -> 
 
 
 def _em_counts(eqc: crlike.CellEqClasses, opts: QuantOpts, usa_mode: bool,
-               num_genes: int, num_rows: int, weights: Optional[np.ndarray] = None) -> tuple:
-    """A block's large cells through the EM -> (cell, column, value)
-    sorted by (cell, column) (src/quant.rs:822-1000); ``weights`` (one
-    per label, outside USA mode) for the long-read EM."""
+               num_genes: int, num_rows: int, first: int,
+               weights: Optional[np.ndarray] = None) -> tuple:
+    """A block's large cells through the EM -> ((cell, column, value)
+    sorted by (cell, column), and with -b the bootstraps' mean and
+    variance triplets, else None) (src/quant.rs:822-1000); ``first`` is
+    the block's first cell number in the file; ``weights`` (one per
+    label, outside USA mode) for the long-read EM, which the bootstraps
+    do not take."""
     if usa_mode:
         # the USA EM couples each gene's three slots and runs the
         # thresholded last round (em_optimize_subset, em.rs:178-299)
@@ -399,9 +420,13 @@ def _em_counts(eqc: crlike.CellEqClasses, opts: QuantOpts, usa_mode: bool,
         res = em_cells(eqc.cell_eq_offsets, eqc.label_offsets, eqc.labels, eqc.counts,
                        num_genes, None, opts.init_uniform, False, opts.device, weights)
     n = [len(ids) for ids, _ in res]
+    boot = None
+    if opts.num_bootstraps > 0:
+        boot = run_bootstraps(eqc, eqc.label_offsets, eqc.labels, num_genes,
+                              opts.num_bootstraps, opts.device, cell_offset=first)
     return (np.repeat(eqc.cell_ids, n),
             np.concatenate([ids for ids, _ in res] or [np.zeros(0, np.int64)]),
-            np.concatenate([v for _, v in res] or [np.zeros(0, np.float32)]))
+            np.concatenate([v for _, v in res] or [np.zeros(0, np.float32)])), boot
 
 
 def _merge_results(parts: List[CellResult]) -> CellResult:
@@ -422,6 +447,15 @@ def _merge_results(parts: List[CellResult]) -> CellResult:
     if dumped:
         eqc = (np.concatenate([e[0] + o for e, o in dumped]),
                *(np.concatenate([e[i] for e, _ in dumped]) for i in (1, 2, 3)))
+
+    def boot(field):
+        got = [(getattr(p, field), o) for p, o in zip(parts, offs)
+               if getattr(p, field) is not None]
+        if not got:
+            return None
+        return (np.concatenate([t[0] + o for t, o in got]),
+                *(np.concatenate([t[i] for t, _ in got]) for i in (1, 2)))
+
     return CellResult(
         cells=cat("cells"), cell_bcs=cat("cell_bcs"), nrec=cat("nrec"),
         rows=np.concatenate([p.rows + o for p, o in zip(parts, offs)]),
@@ -430,6 +464,7 @@ def _merge_results(parts: List[CellResult]) -> CellResult:
             np.concatenate([p.cell_stats[i] for p in parts]) for i in range(4)
         ),
         eqc=eqc, alt_cells=[c for p in parts for c in p.alt_cells],
+        boot_mean=boot("boot_mean"), boot_var=boot("boot_var"),
     )
 
 
@@ -493,6 +528,10 @@ def _write_outputs(
         mat_path / "quants_mat.mtx", result.rows, result.cols, result.vals,
         (n_rows_out, num_rows),
     )
+    if result.boot_mean is not None:
+        for name, (r, c, v) in (("bootstraps_mean.mtx", result.boot_mean),
+                                ("bootstraps_var.mtx", result.boot_var)):
+            write_matrix_market(mat_path / name, r, c, v, (n_rows_out, num_rows))
     if opts.dump_eq:
         # small cells contribute no class (src/quant.rs:1269-1272), but
         # both files are written

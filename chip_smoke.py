@@ -30,7 +30,12 @@ Phases, one line each:
    connected components) against its twin and a union-find on
    tests/pug_cases.py's graphs (random cells, isolated nodes, chains of
    thousands of nodes, a giant component, a cell past the shared-memory
-   limit), 50 launches each;
+   limit), 50 launches each; K8 (the bootstraps' MT19937 init) against
+   NumPy's RandomState stream for the seeds 0, 271828 and 2**32 - 1 over
+   ten twists and against its twin on 33 replicates of 200 cells; K6's
+   bootstrap mode against its twin bit for bit on tests/em_cases.py's
+   bootstrap cells (rungs at width 4 and 16, a cell past the ladder,
+   cells past the shared-memory limit) with 1 and 33 replicates;
 3. generates a 10x-v3-shaped synthetic dataset (tests/synth_hard.py:
    10,000 cells, 20M reads, 20,000 genes, 3-column t2g) and runs the
    port's generate-permit-list -> collate -> quant -r cr-like on the
@@ -94,7 +99,18 @@ Phases, one line each:
    dataset (tests/reference_host_path.py make-longread) through gpl,
    collate and quant -r parsimony-em (plain t2g: the weighted EM on K6)
    against the reference's host path; K7, K6 (plain and weighted) and
-   K1-K3 replayed on this phase's largest inputs.
+   K1-K3 replayed on this phase's largest inputs;
+9. bootstraps on phase 3's collated data (plain t2g): (b) right after
+   phase 4, the port alone, quant -r cr-like-em -b 20 at full width,
+   asserting that K1-K3, K6, K6's bootstrap mode and K8 launched, with
+   its seconds, peak device memory, replicate rows, rounds and routes,
+   then K6-boot and K8 replayed on its largest inputs; from its cells a
+   --quant-subset of the cells past the ladder (more than 1,024
+   classes) and others, on which the reference's runs of (c) start in a
+   thread beside phases 5-8; (c) after phase 8, quant -r cr-like-em -b
+   20 --summary-stat and quant -r parsimony-em -b 20 with that subset,
+   every data artifact (the two bootstrap matrices too) byte for byte
+   and quant.json field for field.
 
 With --profile, phases 3, 5, 6 and 7 also run each stage under torch.profiler
 and cProfile and print the device's busy time (the union of its kernel
@@ -152,6 +168,10 @@ HAMMING_50M, BRUTE_QUERIES = (1_700_000, 1_100_000, 16, False), 20_000
 # (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# int32 instructions a second, one a lane a cycle: 64 INT32 lanes per SM
+# (Hopper white paper),
+# 132 SMs, at the clock that gives the 67 TFLOP/s fp32 rate (1.98 GHz)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 RNA_KERNELS = ("K1", "K2", "K3", "K4")  # the RNA path's kernels
 ATAC_KERNELS = ("K1", "K2", "K5")     # the ATAC path's kernels
 SCAN_KERNELS = ("K1", "K2", "K3")     # quant's, the multi-word WTA's
@@ -164,6 +184,10 @@ SOURCES = {
     "K5": ("alevin_fry_tpu_torch/csrc/hamming.cu", "alevin_fry_tpu/ops/pallas_hamming.py:39"),
     "K6": ("alevin_fry_tpu_torch/csrc/em.cu", "alevin_fry_tpu/ops/em.py:446"),
     "K7": ("alevin_fry_tpu_torch/csrc/pug_cc.cu", "alevin_fry_tpu/ops/pug_device.py:122"),
+    # the bootstraps' device EM (bootstrap.py:220 runs the compact program
+    # with its random init) and that init (init_random, em.py:340)
+    "K6-boot": ("alevin_fry_tpu_torch/csrc/em.cu", "alevin_fry_tpu/ops/em.py:446"),
+    "K8": ("alevin_fry_tpu_torch/csrc/mt19937.cu", "alevin_fry_tpu/ops/em.py:340"),
 }
 # phase 7: (name, t2g, the port's quant flags, the reference's quant
 # flags); infer --usa runs on the first one's dump
@@ -192,6 +216,20 @@ PARSIMONY_QUANTS = (
 # Python resolution takes about a minute on a host core (PERF.md)
 LONGREAD_SEED, LONGREAD_CELLS, LONGREAD_READS, LONGREAD_GENES = 5, 2_000, 1_000_000, 20_000
 REPEATS = 50  # launches of each K7 case held against one result
+# phase 9: the full-width run, and the parity runs on a --quant-subset
+# (name, the port's quant flags, the reference's quant flags), plain t2g
+BOOT_N = 20
+BOOT_FULL = ["-r", "cr-like-em", "-b", str(BOOT_N)]
+BOOT_QUANTS = (
+    ("cr-like-em", ["-r", "cr-like-em", "-b", str(BOOT_N), "--summary-stat"],
+     ["--resolution", "cr-like-em", "--num-bootstraps", str(BOOT_N), "--summary-stat"]),
+    ("parsimony-em", ["-r", "parsimony-em", "-b", str(BOOT_N)],
+     ["--resolution", "parsimony-em", "--num-bootstraps", str(BOOT_N)]),
+)
+# the subset: at most this many cells past the ladder and this many others,
+# which the reference's host bootstraps take minutes to run (PERF.md)
+BOOT_SUBSET_PAST, BOOT_SUBSET_RUNG = 300, 300
+K8_CASE = (33, 200, 20_000)  # replicates, cells, ids below
 
 
 def card_line() -> str:
@@ -236,10 +274,11 @@ def ptxas_summary(text: str) -> list:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            op = re.search(r"(FwdOp|MinOp|LexOp|FirstIndex|MinValue|Lb[01]E)", m.group(1))
-            kern = re.search(r"(lookback_scan|hamming1_probe|em_cell|pug_cc)_kernel",
+            op = re.search(r"(FwdOp|MinOp|LexOp|FirstIndex|MinValue|ILi[012]E)", m.group(1))
+            kern = re.search(r"(lookback_scan|hamming1_probe|em_cell|pug_cc|mt_init)_kernel",
                              m.group(1))
-            op = op and {"Lb1E": "weighted", "Lb0E": "plain"}.get(op.group(1), op.group(1))
+            op = op and {"ILi0E": "plain", "ILi1E": "weighted", "ILi2E": "bootstrap"}.get(
+                op.group(1), op.group(1))
             name = (kern.group(1) if kern else m.group(1)) + (f"<{op}>" if op else "")
             spill = "0"
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -401,6 +440,8 @@ def phase2(dev, card: str) -> None:
     k6_check(dev, card)
     k6_weighted_check(dev, card)
     k7_check(dev, card)
+    k8_check(dev, card)
+    k6_boot_check(dev, card)
 
 
 def float_err(got, want) -> float:
@@ -511,6 +552,69 @@ def k7_check(dev, card: str) -> None:
           + f" [{card}]", flush=True)
 
 
+def k8_check(dev, card: str) -> None:
+    """K8 against NumPy's stream (seeds 0, 271828, 2**32 - 1; 3,000
+    doubles, ten twists) and against its twin (on the CPU) on K8_CASE;
+    raises on any differing bit."""
+    import numpy as np
+    import torch
+
+    from alevin_fry_tpu_torch.ops import mtrand
+
+    n = 3000
+    for seed in (0, 271828, 2**32 - 1):
+        want = np.random.RandomState(seed).random_sample(n).astype(np.float32) + 1e-5
+        got = mtrand.random_init(torch.tensor([[seed]], device=dev),
+                                 torch.tensor([0, n], device=dev),
+                                 torch.arange(n, dtype=torch.int32, device=dev))
+        if not np.array_equal(got.cpu().numpy()[0].view(np.int32), want.view(np.int32)):
+            raise AssertionError(f"K8 differs from NumPy's stream for seed {seed}")
+    n_rep, n_cells, top = K8_CASE
+    rng = np.random.RandomState(8)
+    ids = [np.sort(rng.choice(top, rng.randint(1, 600), replace=False)) for _ in range(n_cells)]
+    off = torch.from_numpy(np.concatenate(([0], np.cumsum([len(i) for i in ids]))))
+    seeds = torch.from_numpy(rng.randint(0, 2**32, (n_rep, n_cells), dtype=np.int64))
+    ids = torch.from_numpy(np.concatenate(ids).astype(np.int32))
+    want = mtrand.random_init_twin(seeds, off, ids)
+    args = (seeds.to(dev), off.to(dev), ids.to(dev))
+    float_err([mtrand.random_init(*args)], [want])
+    ms = event_ms(lambda: mtrand.random_init(*args), 10)
+    print(f"phase 2: K8 equals NumPy's RandomState stream (float32 + 1e-5) for the seeds 0, "
+          f"271828 and 2**32 - 1 over {n} doubles, and its twin on {n_rep} replicates of "
+          f"{n_cells} cells ({len(ids)} ids below {top}): {ms:.4f} ms [{card}]", flush=True)
+
+
+def k6_boot_check(dev, card: str) -> None:
+    """K6's bootstrap mode against its twin (on the card) on
+    tests/em_cases.py's bootstrap cells with 1 and 33 replicates, its init
+    from K8 against K8's twin (on the CPU); raises on any differing bit."""
+    from alevin_fry_tpu_torch.ops import bootstrap, em
+    from em_cases import BOOT_CASES, boot_case
+
+    global_cells = em.STATS["global_cells"]
+    timed = {}
+    for kind in BOOT_CASES:
+        batch, n_rows = boot_case(kind)
+        ceo, lo, labels, counts = batch
+        cells = list(range(len(ceo) - 1))
+        width = bootstrap.cell_widths(ceo, lo)
+        for n in (1, 33):
+            args = (ceo, lo, labels, n_rows, width, bootstrap.resample(counts, ceo, cells, n),
+                    bootstrap.init_seeds(bootstrap.SEED, cells, n))
+            t = bootstrap.replicate_plan(*args, dev)[1]
+            if kind != "global-route":
+                float_err([t.boot_init], [bootstrap.replicate_plan(*args, "cpu")[1].boot_init])
+            want = em.em_run_twin(t)
+            float_err(em.em_run(t), want)
+            timed[(kind, n)] = (event_ms(lambda: em.em_run(t), 3), int(want[1].max()))
+    if em.STATS["global_cells"] == global_cells:
+        raise AssertionError("no bootstrap row took K6's global-memory route")
+    print(f"phase 2: K6's bootstrap mode equals its twin bit for bit (values and rounds) on "
+          f"{list(BOOT_CASES)} with 1 and 33 replicates, K8's init its twin's: " + ", ".join(
+              f"{k} N={n} {ms:.3f} ms, rounds max {mx}" for (k, n), (ms, mx) in timed.items())
+          + f" [{card}]", flush=True)
+
+
 def hamming_check(q, k, length: int, perm, brute=None) -> None:
     """K4 (``k`` in ascending unsigned order) and K5 (on ``k[perm]``)
     against the probe twin, their brute-force twins (on the first
@@ -577,16 +681,18 @@ class Capture:
 
 
 def reset_launches() -> None:
-    from alevin_fry_tpu_torch.ops import em, hamming, pug_device, segscan
+    from alevin_fry_tpu_torch.ops import em, hamming, mtrand, pug_device, segscan
 
-    for counts in (segscan.LAUNCHES, hamming.LAUNCHES, em.LAUNCHES, pug_device.LAUNCHES):
+    for counts in (segscan.LAUNCHES, hamming.LAUNCHES, em.LAUNCHES, pug_device.LAUNCHES,
+                   mtrand.LAUNCHES):
         counts.update(dict.fromkeys(counts, 0))
 
 
 def launch_counts() -> dict:
-    from alevin_fry_tpu_torch.ops import em, hamming, pug_device, segscan
+    from alevin_fry_tpu_torch.ops import em, hamming, mtrand, pug_device, segscan
 
-    return {**segscan.LAUNCHES, **hamming.LAUNCHES, **em.LAUNCHES, **pug_device.LAUNCHES}
+    return {**segscan.LAUNCHES, **hamming.LAUNCHES, **em.LAUNCHES, **pug_device.LAUNCHES,
+            **mtrand.LAUNCHES}
 
 
 def peaks_after(peaks: dict, then=None):
@@ -620,7 +726,9 @@ def device_busy(prof) -> tuple:
                 else "K1-K3" if "lookback_scan" in name
                 else "K5" if "MinValue" in name
                 else "K4" if "hamming1" in name
+                else "K6-boot" if "em_cell_kernel<2>" in name
                 else "K6" if "em_cell" in name
+                else "K8" if "mt_init" in name
                 else "K7" if "pug_cc" in name
                 else "torch sort" if re.search(r"[Ss]ort", name) else "other torch kernels")
         kinds[kind] = kinds.get(kind, 0.0) + (end - start) / 1e3
@@ -1176,10 +1284,12 @@ def em_ref_chain(work: Path, data: Path) -> dict:
 
 
 class K6Capture:
-    """Keeps the largest K6 input (by occurrences) the path gave em_run."""
+    """Keeps the largest K6 input (by occurrences) the path gave em_run,
+    and each call's rounds per cell (0: no EM)."""
 
     def __init__(self):
         self.largest = None
+        self.rounds = []
 
     def __enter__(self):
         import dataclasses
@@ -1190,10 +1300,10 @@ class K6Capture:
 
         def spy(t):
             if self.largest is None or t.occ.numel() > self.largest.occ.numel():
-                self.largest = dataclasses.replace(t, **{
-                    f.name: getattr(t, f.name).clone() for f in dataclasses.fields(t)
-                    if hasattr(getattr(t, f.name), "clone")})
-            return self._orig(t)
+                self.largest = clone_tensors(t)
+            out = self._orig(t)
+            self.rounds.append(out[1].cpu().numpy())
+            return out
 
         em.em_run = spy
         return self
@@ -1204,6 +1314,15 @@ class K6Capture:
         em.em_run = self._orig
 
 
+def clone_tensors(t):
+    """A copy of EmTensors ``t`` with its own tensors."""
+    import dataclasses
+
+    return dataclasses.replace(t, **{f.name: getattr(t, f.name).clone()
+                                     for f in dataclasses.fields(t)
+                                     if hasattr(getattr(t, f.name), "clone")})
+
+
 def k6_work(t, rounds, alpha) -> tuple:
     """(bytes, float operations) of K6's work on ``t``: the labels, the
     occurrence lists and the counts (and the weights, in both orders) read
@@ -1212,7 +1331,8 @@ def k6_work(t, rounds, alpha) -> tuple:
     denominators (one add per label of a multi-label class, one division
     per class) and the new values (a multiply and an add per occurrence),
     plus the weighted mode's two multiplies per label, times the rounds it
-    took."""
+    took (the bootstrap mode: its counts and initial values read and all
+    its values written, per replicate, and each replicate's rounds)."""
     import torch
 
     ne = (t.cell_cls[1:] - t.cell_cls[:-1])
@@ -1224,6 +1344,8 @@ def k6_work(t, rounds, alpha) -> tuple:
     per_round = (5 * nu.double() + torch.bincount(cls_cell, lens * multi, C)
                  + torch.bincount(cls_cell, multi, C) + 2 * torch.bincount(cls_cell, lens.double(), C))
     nbytes = 4 * (2 * t.lab_loc.numel() + t.countf.numel()) + 8 * int((alpha != 0).sum())
+    if t.boot_counts is not None:
+        nbytes = 4 * (2 * t.lab_loc.numel() + t.boot_counts.numel() + 2 * alpha.numel())
     if t.lab_w is not None:
         # the weighted mode multiplies each label by its weight twice (the
         # denominator and the new value) and reads the weights in both orders
@@ -1234,8 +1356,8 @@ def k6_work(t, rounds, alpha) -> tuple:
 
 
 def k6_replay(t, launches: int, path: str, label: str, card: str) -> dict:
-    """K6 and its twin (both on the card) on the captured input: equal
-    bits, CUDA-event times, the bound."""
+    """K6 (or its bootstrap mode) and its twin (both on the card) on the
+    captured input: equal bits, CUDA-event times, the bound."""
     from alevin_fry_tpu_torch.ops import em
 
     got = em.em_run(t)
@@ -1243,16 +1365,21 @@ def k6_replay(t, launches: int, path: str, label: str, card: str) -> dict:
     nbytes, ops = k6_work(t, got[1], got[0])
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     shape = [len(t.dict_off) - 1, t.countf.numel(), t.lab_loc.numel(), t.occ_off.numel() - 1]
+    name = "K6"
+    if t.boot_counts is not None:
+        name = "K6-boot"
+        shape.append(t.boot_counts.shape[0])
     row = {
-        "name": "K6", "path": path, "route": "cuda", "source": SOURCES["K6"][0],
-        "replaces": SOURCES["K6"][1], "launches": launches, "shape": shape,
+        "name": name, "path": path, "route": "cuda", "source": SOURCES[name][0],
+        "replaces": SOURCES[name][1], "launches": launches, "shape": shape,
         "max_abs_err": err, "ms": event_ms(lambda: em.em_run(t), 5),
         "plain_ms": event_ms(lambda: em.em_run_twin(t), 1),
         "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
         "library_ms": None,
     }
-    print(f"{label}: replay of K6 at the main path's shape (cells, classes, labels, dictionary "
-          f"entries) {shape}: {row['ms']:.4f} ms (twin on the card {row['plain_ms']:.2f} ms), "
+    print(f"{label}: replay of {name} at the main path's shape (cells, classes, labels, "
+          f"dictionary entries{', replicates' if name == 'K6-boot' else ''}) {shape}: "
+          f"{row['ms']:.4f} ms (twin on the card {row['plain_ms']:.2f} ms), "
           f"bound {row['bound_ms']:.5f} ms by {row['bound_by']} ({nbytes} B, {ops:.4g} float "
           f"operations over the rounds taken) [{card}]", flush=True)
     return row
@@ -1272,8 +1399,7 @@ def em_phase(work: Path, data: Path, chain: dict, card: str, profile: bool) -> l
     peaks, secs, launches = {}, {}, {}
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    em.STATS.update(calls=0, cells=0, em_cells=0, classes=0, labels=0, max_u=0, max_e=0,
-                    global_cells=0, rounds=[])
+    em.STATS.update(calls=0, cells=0, classes=0, labels=0, max_u=0, max_e=0, global_cells=0)
     usa_stats = None
     with Capture() as cap, K6Capture() as k6cap:
         for name, argv in runs.items():
@@ -1281,7 +1407,7 @@ def em_phase(work: Path, data: Path, chain: dict, card: str, profile: bool) -> l
             secs.update(run_stages({name: argv}, "phase 7", profile, peaks_after(peaks)))
             launches[name] = {k: v - before[k] for k, v in launch_counts().items()}
             if name == "em-usa":
-                usa_stats = {k: (list(v) if k == "rounds" else v) for k, v in em.STATS.items()}
+                usa_stats = dict(em.STATS, rounds=np.concatenate(k6cap.rounds))
     total = launch_counts()
     for name in runs:
         want = ("K6",) if name.startswith(("em", "infer")) else ()
@@ -1289,8 +1415,8 @@ def em_phase(work: Path, data: Path, chain: dict, card: str, profile: bool) -> l
         if not all(launches[name][k] > 0 for k in want):
             raise AssertionError(f"phase 7 {name}: a kernel never launched: {launches[name]}")
     stage_lines("phase 7: port on cuda", secs, peaks, card)
-    rounds = np.concatenate(usa_stats["rounds"]) if usa_stats["rounds"] else np.zeros(1)
-    print(f"phase 7: USA cr-like-em EM: {usa_stats['em_cells']} EM cells of "
+    rounds = usa_stats["rounds"][usa_stats["rounds"] > 0]
+    print(f"phase 7: USA cr-like-em EM: {len(rounds)} EM cells of "
           f"{usa_stats['cells']} with classes, {usa_stats['classes']} classes, "
           f"{usa_stats['labels']} labels, largest dictionary U {usa_stats['max_u']} and class "
           f"count E {usa_stats['max_e']}, {usa_stats['global_cells']} cells on the "
@@ -1512,6 +1638,266 @@ def _parsimony_runs(work: Path, runs: dict, lr_stages: dict, chain: dict, card: 
     return rows + replay(cap.inputs, SCAN_KERNELS, total, "rna-parsimony", "phase 8", card)
 
 
+# --- phase 9 ----------------------------------------------------------------
+
+class BootCapture:
+    """Spies on the bootstraps without copying on the card or waiting for
+    it: each K6-boot call's rounds (left on the card until the run ends);
+    the host inputs of the batch with the most replicate occurrences
+    (K6-boot's) and of the one with the most rows x ids (K8's), to rebuild
+    them for the replays once the timed run is over; each quant block's
+    classes and cell numbers; the file numbers of its cells in row order."""
+
+    def __init__(self):
+        self.largest = {"K6-boot": (0, None), "K8": (0, None)}
+        self.rounds, self.blocks, self.row_cells = [], [], []
+
+    def __enter__(self):
+        from alevin_fry_tpu_torch.ops import bootstrap
+        from alevin_fry_tpu_torch.pipeline import quant
+
+        orig = {"em_run": bootstrap.em_run, "replicate_plan": bootstrap.replicate_plan,
+                "run_bootstraps": quant.run_bootstraps, "resolve": quant._resolve_cells}
+
+        def em_run(t):
+            out = orig["em_run"](t)
+            self.rounds.append(out[1])
+            return out
+
+        def replicate_plan(*args):
+            plan, t = orig["replicate_plan"](*args)
+            n = args[5].shape[0]
+            for name, size in (("K6-boot", n * len(plan.occ)), ("K8", n * len(plan.dict_id))):
+                if size > self.largest[name][0]:
+                    self.largest[name] = (size, args)
+            return plan, t
+
+        def run_bootstraps(eqc, label_offsets, *args, cell_offset=0, **kwargs):
+            self.blocks.append((eqc, label_offsets, cell_offset))
+            return orig["run_bootstraps"](eqc, label_offsets, *args, cell_offset=cell_offset,
+                                          **kwargs)
+
+        def resolve(*args, **kwargs):
+            res = orig["resolve"](*args, **kwargs)
+            self.row_cells.append(res.cells)
+            return res
+
+        self._saved = [(bootstrap, "em_run", orig["em_run"]),
+                       (bootstrap, "replicate_plan", orig["replicate_plan"]),
+                       (quant, "run_bootstraps", orig["run_bootstraps"]),
+                       (quant, "_resolve_cells", orig["resolve"])]
+        bootstrap.em_run, bootstrap.replicate_plan = em_run, replicate_plan
+        quant.run_bootstraps, quant._resolve_cells = run_bootstraps, resolve
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def cells(self) -> tuple:
+        """(file numbers, class counts, denominator widths) of the cells
+        with classes, over the blocks in order (width 0: past the ladder)."""
+        import numpy as np
+
+        from alevin_fry_tpu_torch.ops import bootstrap
+
+        parts = []
+        for eqc, lo, first in self.blocks:
+            ceo = np.asarray(eqc.cell_eq_offsets, np.int64)
+            ne = np.diff(ceo)
+            has = ne > 0
+            width = bootstrap.cell_widths(np.append(ceo[:-1][has], ceo[-1]),
+                                          np.asarray(lo, np.int64))
+            parts.append((np.asarray(eqc.cell_ids, np.int64)[has] + first, ne[has], width))
+        return tuple(np.concatenate(x) for x in zip(*parts))
+
+    def replay_inputs(self) -> tuple:
+        """The largest batches rebuilt from their host inputs: (K6-boot's
+        tensors, K8's seeds, offsets and ids)."""
+        import numpy as np
+        import torch
+
+        from alevin_fry_tpu_torch.ops import bootstrap
+
+        t = bootstrap.replicate_plan(*self.largest["K6-boot"][1])[1]
+        args = self.largest["K8"][1]
+        plan, t8 = bootstrap.replicate_plan(*args)
+        dev = t8.occ.device
+        return t, (torch.from_numpy(np.ascontiguousarray(args[6])).to(dev), t8.dict_off,
+                   torch.from_numpy(plan.dict_id.astype(np.int32)).to(dev))
+
+
+def k8_work(seeds, dict_off, ids) -> tuple:
+    """(bytes, int32 instructions) of the work K8's function needs: the
+    seeds, offsets and ids read once and one float written per (row,
+    entry); per row the 623 seeding steps (a shift, a xor and a multiply-add
+    each) and each twist up to the row's largest id (5 a word: a LOP3 to
+    join the bits, a shift, two for the matrix select, a LOP3 to xor); per
+    (row, entry) its two words tempered (a shift and a LOP3 a step, four
+    steps) and the two shifts that pair them: 18."""
+    import numpy as np
+
+    n_rep = seeds.shape[0]
+    off, idv = dict_off.cpu().numpy(), ids.cpu().numpy().astype(np.int64)
+    has = np.diff(off) > 0
+    twists = int((idv[off[1:][has] - 1] // 312 + 1).sum())
+    ops = n_rep * (int(has.sum()) * 623 * 3 + twists * 624 * 5 + len(idv) * 18)
+    nbytes = 8 * seeds.numel() + 8 * dict_off.numel() + 4 * ids.numel() * (1 + n_rep)
+    return nbytes, ops
+
+
+def k8_replay(args, launches: int, path: str, label: str, card: str) -> dict:
+    """K8 and its twin (both on the card) on the captured input: equal
+    bits, CUDA-event times, the bound."""
+    from alevin_fry_tpu_torch.ops import mtrand
+
+    err = float_err([mtrand.random_init(*args)], [mtrand.random_init_twin(*args)])
+    nbytes, ops = k8_work(*args)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    shape = [*args[0].shape, args[2].numel()]
+    row = {
+        "name": "K8", "path": path, "route": "cuda", "source": SOURCES["K8"][0],
+        "replaces": SOURCES["K8"][1], "launches": launches, "shape": shape, "max_abs_err": err,
+        "ms": event_ms(lambda: mtrand.random_init(*args), 10),
+        "plain_ms": event_ms(lambda: mtrand.random_init_twin(*args), 2),
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations", "library_ms": None,
+    }
+    print(f"{label}: replay of K8 at the main path's shape (replicates, cells, ids) {shape}: "
+          f"{row['ms']:.4f} ms (twin on the card {row['plain_ms']:.2f} ms), bound "
+          f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({nbytes} B, {ops:.4g} int32 "
+          f"instructions) [{card}]", flush=True)
+    return row
+
+
+def mtx_values(path: Path) -> tuple:
+    """((rows, columns, entries) of a MatrixMarket file's header line, its values)."""
+    import numpy as np
+
+    lines = path.read_text().splitlines()
+    body = [ln for ln in lines if not ln.startswith("%")]
+    dims = tuple(map(int, body[0].split()))
+    return dims, np.array([float(ln.split()[2]) for ln in body[1:]])
+
+
+def boot_full_width(work: Path, data: Path, card: str, profile: bool) -> tuple:
+    """Phase 9 (b): quant -r cr-like-em -b 20 on phase 3's collated data,
+    the port alone.  Returns (the replay inputs of K6-boot and K8, the
+    launches, the --quant-subset file of phase 9 (c))."""
+    import numpy as np
+    import torch
+
+    from alevin_fry_tpu_torch.ops import em
+
+    out = work / "p9_full"
+    argv = ["quant", "-i", str(work / "port" / "gpl"), "-m", str(data / "t2g.tsv"),
+            "-o", str(out / "quant"), *BOOT_FULL, "-t", str(THREADS), "--device", "cuda"]
+    peaks = {}
+    em.STATS["global_cells"] = 0
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with BootCapture() as cap:
+        secs = run_stages({"quant -b": argv}, "phase 9 (b)", profile, peaks_after(peaks))
+    launches = launch_counts()
+    if not all(launches[k] > 0 for k in ("K6", "K6-boot", "K8", *SCAN_KERNELS)):
+        raise AssertionError(f"phase 9 (b): a kernel never launched: {launches}")
+    alevin = out / "quant" / "alevin"
+    dims, _ = mtx_values(alevin / "quants_mat.mtx")
+    for name in ("bootstraps_mean.mtx", "bootstraps_var.mtx"):
+        bdims, vals = mtx_values(alevin / name)
+        if bdims[:2] != dims[:2] or not bdims[2] or not np.isfinite(vals).all() or (
+                name == "bootstraps_mean.mtx" and not (vals > 0).all()):
+            raise AssertionError(f"phase 9 (b): unexpected {name} {bdims}")
+    rounds = np.concatenate([r.cpu().numpy().ravel() for r in cap.rounds])
+    cells, classes, widths = cap.cells()
+    print(f"phase 9 (b): port quant -r cr-like-em -b {BOOT_N} on cuda {secs['quant -b']:.2f} s; "
+          f"peak device memory {peaks['quant -b'] / 2**20:.0f} MiB; {len(classes)} cells with "
+          f"classes x {BOOT_N} replicates = {len(rounds)} rows, {int((widths == 0).sum())} cells "
+          f"past the ladder (largest {int(classes.max())} classes), widths "
+          f"{dict(zip(*map(np.ndarray.tolist, np.unique(widths, return_counts=True))))}; rounds "
+          f"median {float(np.median(rounds))} max {int(rounds.max())}; "
+          f"{em.STATS['global_cells']} rows on K6's global-memory route; launches {launches} "
+          f"[{card}]", flush=True)
+
+    # the subset: cells past the ladder and others, spread over the file
+    past, rung = cells[widths == 0], cells[widths > 0]
+    if not len(past):
+        raise AssertionError("phase 9 (b): no cell past the ladder")
+    past = past[::max(1, len(past) // BOOT_SUBSET_PAST)][:BOOT_SUBSET_PAST]
+    rung = rung[::max(1, len(rung) // BOOT_SUBSET_RUNG)][:BOOT_SUBSET_RUNG]
+    chosen = np.sort(np.concatenate([past, rung]))
+    row_cells = np.concatenate(cap.row_cells)
+    barcodes = (alevin / "quants_mat_rows.txt").read_text().split()
+    pos = np.searchsorted(row_cells, chosen)
+    if len(barcodes) != len(row_cells) or not np.array_equal(row_cells[pos], chosen):
+        raise AssertionError("phase 9 (b): the rows do not follow the cells")
+    subset = work / "p9_subset.txt"
+    subset.write_text("".join(f"{barcodes[i]}\n" for i in pos))
+    print(f"phase 9 (b): --quant-subset of {len(past)} cells past the ladder and {len(rung)} "
+          "others for (c)", flush=True)
+    return cap.replay_inputs(), launches, subset
+
+
+def boot_port_argv(work: Path, data: Path, subset: Path) -> dict:
+    """Phase 9 (c)'s quant runs of the port: name -> argv."""
+    return {name: ["quant", "-i", str(work / "port" / "gpl"), "-m", str(data / "t2g.tsv"),
+                   "-o", str(work / "p9_port" / name / "quant"), *flags,
+                   "--quant-subset", str(subset), "-t", str(THREADS), "--device", "cuda"]
+            for name, flags, _ in BOOT_QUANTS}
+
+
+def boot_ref_chain(work: Path, data: Path, subset: Path) -> dict:
+    """Start the reference's runs of phase 9 (c) on phase 4's collated
+    directory, in a thread."""
+    port = boot_port_argv(work, data, subset)
+    cmds = [["quant", str(work / "ref" / "gpl"), str(work / "p9_ref" / name / "quant"),
+             "alevin-fry-tpu " + " ".join(port[name]), "--t2g", str(data / "t2g.tsv"),
+             "--threads", str(THREADS), "--quant-subset", str(subset), *ref_flags]
+            for name, _, ref_flags in BOOT_QUANTS]
+    return ref_chain_start(cmds, work / "p9_ref_log")
+
+
+def boot_parity(work: Path, data: Path, subset: Path, chain: dict, card: str,
+                profile: bool) -> None:
+    """Phase 9 (c): the port's runs against the reference's in ``chain``."""
+    import numpy as np
+    import torch
+
+    from alevin_fry_tpu_torch.ops import bootstrap
+    from reference_host_path import BOOT_ARTIFACTS, QUANT_ARTIFACTS, artifact_mismatches
+
+    runs = boot_port_argv(work, data, subset)
+    peaks, secs, launches, past = {}, {}, {}, {}
+    for name, argv in runs.items():
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with BootCapture() as cap:
+            secs.update(run_stages({name: argv}, "phase 9 (c)", profile, peaks_after(peaks)))
+        launches[name] = launch_counts()
+        if not all(launches[name][k] > 0 for k in ("K6", "K6-boot", "K8")):
+            raise AssertionError(f"phase 9 (c) {name}: a kernel never launched: "
+                                 f"{launches[name]}")
+        past[name] = int((cap.cells()[1] > bootstrap.EP_LADDER[-1]).sum())
+    if not past["cr-like-em"]:
+        raise AssertionError("phase 9 (c): no cell of the subset took the route past the ladder")
+    stage_lines("phase 9 (c): port on cuda", secs, peaks, card)
+    ref_runs = ref_chain_wait(chain)
+    bad = []
+    names = QUANT_ARTIFACTS + BOOT_ARTIFACTS
+    for name in runs:
+        port_dir, ref_dir = work / "p9_port" / name, work / "p9_ref" / name
+        bad += [f"{name}/{n}" for n in artifact_mismatches(
+            port_dir, ref_dir, names, ("quant/quant.json",))]
+    if bad:
+        raise AssertionError(f"phase 9 (c): port and reference differ in {bad}")
+    print(f"phase 9 (c): every data artifact of the {len(runs)} runs (bootstraps_mean.mtx and "
+          "bootstraps_var.mtx too) byte-identical and quant.json equal to the reference host "
+          f"path; cells past the ladder {past}; launches {launches} (reference on the host CPU, "
+          "beside phases 5-8: " + ", ".join(
+              f"{name} {list(r.values())[0]:.2f} s" for name, r in zip(runs, ref_runs)) + ")",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -1580,17 +1966,29 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f} s" for k, v in ref_secs.items()) + ")", flush=True)
     rows = replay(cap.inputs, RNA_KERNELS, launches, "rna", "phase 4", card)
 
-    # the reference's phase-7 runs go on beside phases 5-7
-    chain = em_ref_chain(work, data)
+    # phase 9 (b) picks the subset on which the reference's runs of (c)
+    # go on beside phases 5-8, as phase 7's go on beside phases 5-7
+    boot, boot_launches, subset = boot_full_width(work, data, card, args.profile)
+    boot_chain = boot_ref_chain(work, data, subset)
     try:
-        rows += atac_phase(work, card, args.profile)
-        rows += rna_sz_phase(work, data, card, args.profile)
-        rows += atac_sz_phase(work, card, args.profile)
-        rows += wide_wta_phase(dev, card)
-        rows += em_phase(work, data, chain, card, args.profile)
+        rows += [
+            k6_replay(boot[0], boot_launches["K6-boot"], "rna-boot", "phase 9 (b)", card),
+            k8_replay(boot[1], boot_launches["K8"], "rna-boot", "phase 9 (b)", card),
+        ]
+        del boot
+        chain = em_ref_chain(work, data)
+        try:
+            rows += atac_phase(work, card, args.profile)
+            rows += rna_sz_phase(work, data, card, args.profile)
+            rows += atac_sz_phase(work, card, args.profile)
+            rows += wide_wta_phase(dev, card)
+            rows += em_phase(work, data, chain, card, args.profile)
+        finally:
+            ref_chain_stop(chain)
+        rows += parsimony_phase(work, data, card, args.profile)
+        boot_parity(work, data, subset, boot_chain, card, args.profile)
     finally:
-        ref_chain_stop(chain)
-    rows += parsimony_phase(work, data, card, args.profile)
+        ref_chain_stop(boot_chain)
     shutil.rmtree(work, ignore_errors=True)
     # the reference package ran only in helper subprocesses
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "alevin_fry_tpu")]

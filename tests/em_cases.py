@@ -90,3 +90,44 @@ def weighted_case(seed: int = 4):
         counts = np.concatenate([counts, rng.randint(1, 20, len(lens))]).astype(np.uint32)
         ceo = np.append(ceo, ceo[-1] + len(lens))
     return (ceo, lo, labels, counts), n_rows, label_weights(len(labels), seed)
+
+
+# the bootstraps' cells, (classes, longest class) each; a cell of at most
+# 64, 256 or 1,024 classes falls on a rung whose longest class sets the
+# width of its denominators' sums (4: left to right; 8 and more: NumPy's
+# pairwise order), a larger one sums them in order
+BOOT_CASES = {
+    # the 64 rung at width 4 (4-label classes), the 256 rung at width 16,
+    # the 1,024 rung at width 4, an all-singleton cell
+    "rungs": (300, [(5, 4), (40, 4), (64, 4), (65, 9), (200, 9), (300, 4), (20, 1)]),
+    # a cell past the ladder beside a rung cell whose classes reach 20 labels
+    "past-ladder": (300, [(3, 2), (1100, 5), (600, 20)]),
+    # cells past the shared-memory limit: one past the ladder (30,000
+    # classes of 1-2 ids), one on the 1,024 rung at width 128 (1,000
+    # classes of 1-70 ids, some 35,000 ids)
+    "global-route": (90_000, [(30_000, 2), (1000, 70), (10, 3)]),
+}
+
+
+def boot_case(kind: str, seed: int = 3):
+    """(batch, rows) of one of :data:`BOOT_CASES`: each cell's classes
+    have 1 to its longest number of distinct ids (one class of exactly
+    that many), counts 1-5; the global-route cells draw their ids from
+    disjoint ranges, so the cell has as many distinct ids as labels."""
+    n_rows, cells = BOOT_CASES[kind]
+    rng = np.random.RandomState(seed)
+    lens, labels, counts = [], [], []
+    for n_cls, longest in cells:
+        k = rng.randint(1, longest + 1, n_cls)
+        k[0] = longest
+        if kind == "global-route" and n_cls * longest > 5_000:
+            base = np.cumsum(np.concatenate(([0], k[:-1])))
+            labels += [b + np.arange(m) for b, m in zip(base, k)]
+        else:
+            labels += [np.sort(rng.choice(n_rows, m, replace=False)) for m in k]
+        lens.append(k)
+        counts.append(rng.randint(1, 6, n_cls))
+    ceo = np.concatenate(([0], np.cumsum([n for n, _ in cells]))).astype(np.int64)
+    lo = np.concatenate(([0], np.cumsum(np.concatenate(lens)))).astype(np.int64)
+    return (ceo, lo, np.concatenate(labels).astype(np.uint32),
+            np.concatenate(counts).astype(np.uint32)), n_rows

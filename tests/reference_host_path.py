@@ -30,8 +30,9 @@ As a script (this imports nothing of the port):
         --compress) and prints their seconds as one JSON line.  QUANT
         OPTIONS: --resolution R, --sa-model M, --dump-eq, --quant-subset
         FILE, --init-uniform, --umi-edit-dist D, --large-graph-thresh N
-        (both as the CLI defaults them when left out), --t2g FILE (default
-        DIR/t2g_3col.tsv with --usa, else DIR/t2g.tsv)
+        (both as the CLI defaults them when left out), --num-bootstraps N,
+        --summary-stat, --t2g FILE (default DIR/t2g_3col.tsv with --usa,
+        else DIR/t2g.tsv)
     python tests/reference_host_path.py quant GPL OUT CMDLINE --t2g FILE [--threads T]
             [QUANT OPTIONS]
         runs quant alone on the collated directory GPL into OUT and prints
@@ -78,6 +79,8 @@ HOST_ENV = {
     "AFT_EM_BACKEND": "host",
     # parsimony: the monolithic native resolver, no accelerator probe
     "AFT_PUG_CC_BACKEND": "host",
+    # bootstraps: the NumPy EMs and the RandomState init
+    "AFT_BOOT_BACKEND": "host",
 }
 
 # the artifacts both packages must write byte for byte, and the stage
@@ -91,8 +94,10 @@ DATA_ARTIFACTS = (
 STAGE_JSONS = (
     "gpl/generate_permit_list.json", "gpl/collate.json", "quant/quant.json",
 )
-# quant -d's dump, and infer's outputs (into an infer/ directory)
+# quant -d's dump, quant -b's matrices, and infer's outputs (into an
+# infer/ directory)
 DUMP_ARTIFACTS = ("quant/alevin/geqc_counts.mtx", "quant/alevin/gene_eqclass.txt.gz")
+BOOT_ARTIFACTS = ("quant/alevin/bootstraps_mean.mtx", "quant/alevin/bootstraps_var.mtx")
 INFER_ARTIFACTS = ("infer/quants_mat.mtx", "infer/quants_mat_rows.txt",
                    "infer/quants_mat_cols.txt")
 QUANT_ARTIFACTS = tuple(n for n in DATA_ARTIFACTS if n.startswith("quant/"))
@@ -224,7 +229,8 @@ def run_reference_quant(gpl: Path, out: Path, t2g: Path, cmdline: str, threads: 
                         resolution: str = "cr-like", sa_model: str = "winner-take-all",
                         dump_eq: bool = False, quant_subset=None,
                         init_uniform: bool = False, umi_edit_dist=None,
-                        large_graph_thresh=None) -> float:
+                        large_graph_thresh=None, num_bootstraps: int = 0,
+                        summary_stat: bool = False) -> float:
     """The reference's quant on the collated directory ``gpl`` into
     ``out``, with the quant options of its CLI (``umi_edit_dist`` and
     ``large_graph_thresh`` defaulted as the CLI does); returns its
@@ -245,7 +251,8 @@ def run_reference_quant(gpl: Path, out: Path, t2g: Path, cmdline: str, threads: 
             resolution=resolution, sa_model=sa_model, dump_eq=dump_eq,
             filter_list=quant_subset, init_uniform=init_uniform,
             pug_exact_umi=parsimony and umi_edit_dist == 0,
-            large_graph_thresh=large_graph_thresh, cmdline=cmdline,
+            large_graph_thresh=large_graph_thresh, num_bootstraps=num_bootstraps,
+            summary_stat=summary_stat, cmdline=cmdline,
         ))
         return time.perf_counter() - t0
 
@@ -331,6 +338,8 @@ def _quant_flags(p) -> None:
     p.add_argument("--init-uniform", action="store_true")
     p.add_argument("--umi-edit-dist", type=int, default=None)
     p.add_argument("--large-graph-thresh", type=int, default=None)
+    p.add_argument("--num-bootstraps", type=int, default=0)
+    p.add_argument("--summary-stat", action="store_true")
     p.add_argument("--t2g", type=Path, default=None)
 
 
@@ -338,7 +347,8 @@ def _quant_opts(args) -> dict:
     return {"resolution": args.resolution, "sa_model": args.sa_model,
             "dump_eq": args.dump_eq, "quant_subset": args.quant_subset,
             "init_uniform": args.init_uniform, "umi_edit_dist": args.umi_edit_dist,
-            "large_graph_thresh": args.large_graph_thresh}
+            "large_graph_thresh": args.large_graph_thresh,
+            "num_bootstraps": args.num_bootstraps, "summary_stat": args.summary_stat}
 
 
 def make_longread_dataset(d: Path, rng, n_cells: int, n_reads: int, n_genes: int,

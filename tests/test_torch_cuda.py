@@ -1,12 +1,13 @@
-"""CUDA kernels K1-K7 of alevin_fry_tpu_torch against their plain
+"""CUDA kernels K1-K8 of alevin_fry_tpu_torch against their plain
 PyTorch twins, and the ATAC sort and run-length count and the
 multi-word and prefer-ambig cr-like WTA on the card against their CPU
 results.
 
 Every test needs a CUDA device and skips without one; whether there is
 one is decided inside the ``cuda`` fixture, never at import.  K1-K5's
-and K7's outputs are integers and K6's floats (plain and weighted) must
-equal its twin's bit for bit, so every comparison is exact equality.  This file imports
+and K7's outputs are integers and K6's floats (plain, weighted and
+bootstrap) and K8's must equal their twins' bit for bit, so every
+comparison is exact equality.  This file imports
 no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -17,8 +18,11 @@ import pytest
 import torch
 
 from alevin_fry_tpu_torch.interop import barcodes_to_torch
-from alevin_fry_tpu_torch.ops import atac_device, em, hamming, pug_device, segscan
-from em_cases import EM_CASES, em_case, label_weights, usa_offsets, weighted_case
+from alevin_fry_tpu_torch.ops import (
+    atac_device, bootstrap, em, hamming, mtrand, pug_device, segscan,
+)
+from em_cases import BOOT_CASES, EM_CASES, boot_case, em_case, label_weights, usa_offsets, \
+    weighted_case
 from pug_cases import PUG_CASES, pug_case, union_find_labels
 
 
@@ -436,3 +440,73 @@ def test_k7_refuses_bad_inputs(cuda):
         pug_device.connected_components(n.astype(np.int32), deg, nbr)
     with pytest.raises(ValueError):
         pug_device.connected_components(n[:-1], deg, nbr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 271828, 2**32 - 1])
+def test_k8_matches_numpy_stream_and_twin(cuda, seed):
+    """K8 equals NumPy's stream (float32 + 1e-5) over 3,000 doubles (ten
+    twists), and its twin on 33 replicates of 50 cells whose ids reach
+    20,000."""
+    n = 3000
+    want = np.random.RandomState(seed).random_sample(n).astype(np.float32) + 1e-5
+    launches = mtrand.LAUNCHES["K8"]
+    got = mtrand.random_init(torch.tensor([[seed]], device=cuda),
+                             torch.tensor([0, n], device=cuda),
+                             torch.arange(n, dtype=torch.int32, device=cuda))
+    assert mtrand.LAUNCHES["K8"] == launches + 1
+    np.testing.assert_array_equal(got.cpu().numpy()[0].view(np.int32), want.view(np.int32))
+    rng = np.random.RandomState(seed % 997)
+    ids = [np.sort(rng.choice(20_000, rng.randint(1, 400), replace=False)) for _ in range(50)]
+    off = torch.from_numpy(np.concatenate(([0], np.cumsum([len(i) for i in ids]))))
+    seeds = torch.from_numpy((rng.randint(0, 2**32, (33, 50), dtype=np.int64) ^ seed)
+                             & 0xFFFFFFFF)
+    ids = torch.from_numpy(np.concatenate(ids).astype(np.int32))
+    want = mtrand.random_init_twin(seeds, off, ids)
+    for _ in range(REPEATS):
+        got = mtrand.random_init(seeds.to(cuda), off.to(cuda), ids.to(cuda))
+        assert torch.equal(_bits(got), _bits(want))
+
+
+def _boot_tensors(kind: str, n: int, device):
+    batch, n_rows = boot_case(kind)
+    ceo, lo, labels, counts = batch
+    cells = np.arange(len(ceo) - 1)
+    return bootstrap.replicate_plan(
+        ceo, lo, labels, n_rows, bootstrap.cell_widths(ceo, lo),
+        bootstrap.resample(counts, ceo, cells, n),
+        bootstrap.init_seeds(bootstrap.SEED, cells, n), device)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33])
+@pytest.mark.parametrize("kind", list(BOOT_CASES))
+def test_k6_bootstrap_matches_twin(cuda, kind, n):
+    """K6's bootstrap mode equals its twin bit for bit, values and rounds
+    (the twin on the card): rungs at width 4 and 16, a cell past the
+    ladder, cells past the shared-memory limit (global scratch per
+    replicate); K8's init equals its twin's on the CPU."""
+    t = _boot_tensors(kind, n, cuda)
+    if kind != "global-route":
+        assert torch.equal(_bits(t.boot_init), _bits(_boot_tensors(kind, n, "cpu").boot_init))
+    want = [_bits(x) for x in em.em_run_twin(t)]
+    launches, global_cells = em.LAUNCHES["K6-boot"], em.STATS["global_cells"]
+    for _ in range(3):
+        for g, x in zip(em.em_run(t), want):
+            assert torch.equal(_bits(g), x)
+    assert em.LAUNCHES["K6-boot"] > launches
+    assert (em.STATS["global_cells"] > global_cells) == (kind == "global-route")
+    assert want[0].shape == (n, len(t.occ_off) - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 20, 33])
+def test_replicate_summary_on_the_card_equals_the_cpu(cuda, n):
+    """The bootstraps' float64 mean and variance on the card equal the
+    CPU's, bit for bit (the divisor is a device tensor)."""
+    rng = np.random.RandomState(n)
+    alpha = (rng.rand(n, 100_000) * 10.0 ** rng.randint(-2, 4, (n, 100_000))).astype(np.float32)
+    got = bootstrap._summarize(torch.from_numpy(alpha).to(cuda))
+    want = bootstrap._summarize(torch.from_numpy(alpha))
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))

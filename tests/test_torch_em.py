@@ -48,12 +48,12 @@ def assert_bit_equal(got, want):
 @pytest.mark.parametrize("usa", [None, USA])
 def test_em_twin_bit_identical_to_native_host_em(usa, with_last_round, init_uniform, zero_len):
     batch = em_batch(11 + zero_len, zero_len=zero_len)
-    em.STATS["rounds"].clear()
     got = em.em_cells(*batch, R_PLAIN, usa, init_uniform, with_last_round, CPU)
     want = em_cells_batched(*batch, R_PLAIN, usa, init_uniform, with_last_round, use_jax=False)
     assert_bit_equal(got, want)
     assert got[-2][0].size == 0 and list(got[-3][0]) == [0, 2]
-    assert int(em.STATS["rounds"][-1].max()) == 100  # the last cell runs to the cap
+    plan = em.plan_cells(*batch, R_PLAIN, usa, init_uniform, with_last_round)
+    assert int(em.em_run_twin(plan.to(CPU))[1][-1]) == 100  # the last cell runs to the cap
 
 
 @pytest.mark.parametrize("usa", [False, True])

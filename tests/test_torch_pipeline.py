@@ -205,8 +205,10 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     assert port_main(["generate-permit-list", "-i", str(d / "rad"), "-d", "fw",
                       "-o", str(tmp_path / "knee"), "-k", "--device", "cpu"]) == 0
     _run_port(d, out, True, min_reads=1)
-    for extra, what in ((["-r", "cr-like-em", "-b", "2"], "bootstraps"),):
-        with pytest.raises(NotImplementedError, match=what):
+    # bootstraps are ported; USA mode refuses them, as the reference does
+    for extra, what in ((["-r", "cr-like-em", "-b", "2"], "USA-mode analysis cannot be used "
+                                                          "with bootstrapping"),):
+        with pytest.raises(AssertionError, match=what):
             port_main(["quant", "-i", str(out / "gpl"), "-m", str(d / "t2g_3col.tsv"),
                        "-o", str(out / "q2"), *extra, "--device", "cpu"])
     assert port_main(["collate", "-i", str(out / "gpl"), "-r", str(d / "rad"), "-c",
