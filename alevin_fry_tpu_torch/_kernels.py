@@ -30,6 +30,7 @@ GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
+_streams = {}  # device -> side streams (fork)
 
 
 class BuildInfo:
@@ -122,8 +123,8 @@ def load() -> ctypes.CDLL:
     lib.aft_hamming1_plan.argtypes = [I64, P]
     lib.aft_smem_limit.argtypes = []
     lib.aft_smem_limit.restype = I64
-    lib.aft_em_cells.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I32, P, P, I64, F32, I32, P, P,
-                                 P, P, I32, I64, I64, I64, I64, P]
+    lib.aft_em_cells.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, P, P, I64,
+                                 F32, I32, I32, P, P, P, P, I32, I64, I64, I64, I64, P]
     lib.aft_pug_cc.argtypes = [P, P, P, P, I32, P, P, I64, P, P, P]
     lib.aft_mt_init.argtypes = [P, P, P, I32, I32, I64, P, P]
     for fn in ("aft_segscan_tile", "aft_segscan_fwd", "aft_segscan_min", "aft_segscan_lex",
@@ -150,6 +151,33 @@ def launch_groups(need, limit: int) -> list:
         cells = np.flatnonzero(bucket == b)
         out.append((cells, -1 if b == 63 else int(need[cells].max())))
     return out
+
+
+def fork(device, n: int) -> list:
+    """``n`` side streams of ``device`` (made once and kept), each made
+    to wait for the work enqueued so far on its current stream."""
+    import torch
+
+    pool = _streams.setdefault(torch.device(device), [])
+    while len(pool) < n:
+        pool.append(torch.cuda.Stream(device))
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(device))
+    for s in pool[:n]:
+        s.wait_event(ready)
+    return pool[:n]
+
+
+def join(device, streams: list) -> None:
+    """Make ``device``'s current stream wait for the work enqueued on
+    ``streams`` (from :func:`fork`)."""
+    import torch
+
+    cur = torch.cuda.current_stream(device)
+    for s in streams:
+        done = torch.cuda.Event()
+        done.record(s)
+        cur.wait_event(done)
 
 
 def check(err: int, what: str) -> None:

@@ -16,31 +16,37 @@
 // of words 2k and 2k + 1 (exact in double), rounded to float and added to
 // 1e-5f with round-to-nearest intrinsics, as NumPy does in float32.
 //
-// One block runs one row, with the 624-word state in shared memory.  A
-// twist runs in four dependency-free phases (i < 227, 227 <= i < 454,
-// 454 <= i < 623, then i = 623, which reads the new word 0), each a read
-// into registers, a barrier and a write.  After each twist the block finds
-// the dictionary entries whose ids fall in its 312 doubles (the ids
-// ascend), and each such entry tempers its own two words and writes its
-// value; the next twist's first barrier orders those reads before its
-// writes.  The block stops after the twist that holds the row's largest id.
-//
 // Bound: per row the seeding's 623 sequential steps (3 instructions each),
 // the twists up to the row's largest id (5 a word: LOP3, shift, the
 // matrix select in two, LOP3), and per entry two tempered words (8 each:
 // a shift and a LOP3 a step) and the two shifts that pair them; the output
-// is one float per entry.  The work per twist is a few hundred cycles
-// between barriers, so enough blocks must be resident: 320 threads and
-// 2.5 KB of shared memory a block let an SM hold six.
+// is one float per entry.  So the kernel is bound by its int32 instructions
+// (it runs at 2.5x that bound, PERF.md), and the design's aim is to keep
+// enough rows in flight that the SM's issue slots, not barriers or
+// dependent loads, are the limit.
+//
+// One warp runs one row, with the row's 624-word state in shared memory
+// (2,496 B), and a block holds kWarps rows (the replicates of a cell side
+// by side, so they read the same ids), so an SM holds up to 64 rows.  A
+// twist runs in four dependency-free runs (i < 227, 227 <= i < 454,
+// 454 <= i < 623, then i = 623, which reads the new word 0): each lane
+// reads its words of a run into registers, __syncwarp, writes them.  The
+// seeding stays a sequential chain on one lane; the other warps' twists
+// hide its latency.  After each twist a cursor walks the row's entries:
+// the ids ascend, so a ballot of id < base + 312 over the next 32 entries
+// finds those the twist serves, with no search; each such lane tempers its
+// entry's two words and writes its value.  The warp stops after the twist
+// that holds the row's largest id.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 320;
+constexpr int kWarps = 16;  // rows a block
 constexpr int kN = 624;
 constexpr int kM = 397;
+constexpr int kRun = kN - kM;  // 227 words in each of the first two runs
 constexpr int kDoubles = kN / 2;
 constexpr unsigned kMatrixA = 0x9908B0DFu;
 constexpr unsigned kUpper = 0x80000000u;
@@ -58,44 +64,44 @@ __device__ __forceinline__ unsigned temper(unsigned y) {
   return y ^ (y >> 18);
 }
 
-// One phase of the twist: words [lo, hi) take twist_word(mt[i], mt[i+1],
-// mt[i + off]); every read lands before any write.
-__device__ __forceinline__ void twist_phase(unsigned* mt, int lo, int hi, int off) {
-  const int i = lo + static_cast<int>(threadIdx.x);
-  unsigned v = 0;
-  if (i < hi) v = twist_word(mt[i], mt[i + 1], mt[i + off]);
-  __syncthreads();
-  if (i < hi) mt[i] = v;
-  __syncthreads();
-}
-
-// The first entry at or past `from` whose id is >= bound (ids ascend).
-__device__ __forceinline__ long long lower_bound(const int* id, long long from, long long n,
-                                                 int bound) {
-  long long lo = from, hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (id[mid] < bound) lo = mid + 1;
-    else hi = mid;
+// One run of the twist by one warp: words [lo, lo + n) take
+// twist_word(mt[i], mt[i+1], mt[i + off]); every read lands before any write.
+template <int kLo, int kCount, int kOff>
+__device__ __forceinline__ void twist_run(unsigned* mt, int lane) {
+  constexpr int kPer = (kCount + 31) / 32;
+  unsigned v[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int i = kLo + lane + 32 * q;
+    if (lane + 32 * q < kCount) v[q] = twist_word(mt[i], mt[i + 1], mt[i + kOff]);
   }
-  return lo;
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < kPer; ++q)
+    if (lane + 32 * q < kCount) mt[kLo + lane + 32 * q] = v[q];
+  __syncwarp();
 }
 
-__global__ void __launch_bounds__(kThreads) mt_init_kernel(const long long* seeds,
-                                                           const long long* dict_off,
-                                                           const int* ids, int n_cells,
-                                                           long long n_dict, float* out) {
-  __shared__ unsigned mt[kN];
-  const int c = blockIdx.x;
-  const int r = blockIdx.y;
+__global__ void __launch_bounds__(kWarps * 32) mt_init_kernel(const long long* seeds,
+                                                              const long long* dict_off,
+                                                              const int* ids, int n_cells,
+                                                              int n_rep, long long n_dict,
+                                                              float* out) {
+  __shared__ unsigned state[kWarps][kN];
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= static_cast<long long>(n_cells) * n_rep) return;  // the whole warp
+  const int c = static_cast<int>(row / n_rep);
+  const int r = static_cast<int>(row - static_cast<long long>(c) * n_rep);
   const long long d0 = dict_off[c];
-  const long long n = dict_off[c + 1] - d0;
+  const int n = static_cast<int>(dict_off[c + 1] - d0);
   if (n <= 0) return;
+  unsigned* mt = state[threadIdx.x >> 5];
   const int* id = ids + d0;
   float* o = out + static_cast<long long>(r) * n_dict + d0;
   const int last = id[n - 1];
 
-  if (threadIdx.x == 0) {
+  if (lane == 0) {
     unsigned s = static_cast<unsigned>(seeds[static_cast<long long>(r) * n_cells + c]);
     mt[0] = s;
     for (int i = 1; i < kN; ++i) {
@@ -103,27 +109,32 @@ __global__ void __launch_bounds__(kThreads) mt_init_kernel(const long long* seed
       mt[i] = s;
     }
   }
-  __syncthreads();
+  __syncwarp();
 
   const float eps = __int_as_float(0x3727C5AC);  // float32(1e-5)
-  long long j = 0;  // the next dictionary entry
+  int j = 0;  // the next entry
   for (int base = 0; base <= last; base += kDoubles) {
-    twist_phase(mt, 0, kN - kM, kM);
-    twist_phase(mt, kN - kM, 2 * (kN - kM), -(kN - kM));
-    twist_phase(mt, 2 * (kN - kM), kN - 1, -(kN - kM));
-    if (threadIdx.x == 0)
-      mt[kN - 1] = twist_word(mt[kN - 1], mt[0], mt[kM - 1]);
-    __syncthreads();
-    const long long hi = lower_bound(id, j, n, base + kDoubles);
-    for (long long k = j + threadIdx.x; k < hi; k += kThreads) {
-      const int t = id[k] - base;
-      const unsigned a = temper(mt[2 * t]) >> 5;
-      const unsigned b = temper(mt[2 * t + 1]) >> 6;
-      const double d = __ull2double_rn((static_cast<unsigned long long>(a) << 26) | b) *
-                       (1.0 / 9007199254740992.0);
-      o[k] = __fadd_rn(__double2float_rn(d), eps);
+    twist_run<0, kRun, kM>(mt, lane);
+    twist_run<kRun, kRun, -kRun>(mt, lane);
+    twist_run<2 * kRun, kN - 1 - 2 * kRun, -kRun>(mt, lane);
+    if (lane == 0) mt[kN - 1] = twist_word(mt[kN - 1], mt[0], mt[kM - 1]);
+    __syncwarp();
+    for (;;) {
+      const int k = j + lane;
+      const bool in = k < n && id[k] < base + kDoubles;
+      const unsigned m = __ballot_sync(0xffffffffu, in);
+      if (in) {
+        const int t = id[k] - base;
+        const unsigned a = temper(mt[2 * t]) >> 5;
+        const unsigned b = temper(mt[2 * t + 1]) >> 6;
+        const double d = __ull2double_rn((static_cast<unsigned long long>(a) << 26) | b) *
+                         (1.0 / 9007199254740992.0);
+        o[k] = __fadd_rn(__double2float_rn(d), eps);
+      }
+      j += __popc(m);
+      if (m != 0xffffffffu) break;
     }
-    j = hi;
+    __syncwarp();  // the next twist writes the words these lanes read
   }
 }
 
@@ -131,16 +142,18 @@ __global__ void __launch_bounds__(kThreads) mt_init_kernel(const long long* seed
 
 extern "C" {
 
-// K8 over n_cells x n_rep rows, one block each: row (c, r) seeds from
-// seeds[r * n_cells + c] and writes out[r * n_dict + e] for each entry e of
-// cell c's dictionary (ids[dict_off[c]:dict_off[c+1]], ascending).
+// K8 over n_cells x n_rep rows, one warp each, kWarps a block: row (c, r)
+// seeds from seeds[r * n_cells + c] and writes out[r * n_dict + e] for each
+// entry e of cell c's dictionary (ids[dict_off[c]:dict_off[c+1]], ascending).
 // Returns the CUDA error of the launch (0 when it was accepted).
 int aft_mt_init(const long long* seeds, const long long* dict_off, const int* ids, int n_cells,
                 int n_rep, long long n_dict, float* out, void* stream) {
   if (n_cells <= 0 || n_rep <= 0) return 0;
-  if (n_rep > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  mt_init_kernel<<<dim3(n_cells, n_rep), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      seeds, dict_off, ids, n_cells, n_dict, out);
+  const long long blocks = (static_cast<long long>(n_cells) * n_rep + kWarps - 1) / kWarps;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  mt_init_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0,
+                   static_cast<cudaStream_t>(stream)>>>(seeds, dict_off, ids, n_cells, n_rep,
+                                                         n_dict, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,10 +49,14 @@ padded to its rung's width with ``count / max(denom, 1e-30)``
 :func:`em_run` launches K6 for tensors on a CUDA device and takes the
 plain PyTorch twin :func:`em_run_twin` for tensors on the CPU.  The twin
 keeps the same order of additions: it sums the ragged occurrence lists
-column by column.  ``LAUNCHES`` counts K6's launches (``K6-boot`` those
-of its bootstrap mode); ``STATS`` counts what :func:`em_cells` laid out
-(cells, classes, labels, dictionary sizes) and the cells on the
-global-memory route; the rounds stay on the device.
+column by column.  :func:`launch_plan` chooses each cell's route from
+its bytes before the launch: (a) its layout and state in shared memory,
+in the bootstrap mode with a tile of up to 32 replicates a block; (b)
+its state alone there; (c) its state in global scratch.  ``LAUNCHES``
+counts K6's launches (``K6-boot`` those of its bootstrap mode);
+``STATS`` counts what :func:`em_cells` laid out (cells, classes, labels,
+dictionary sizes), the (cell, replicate) rows on each route and those
+whose block ran more than one replicate; the rounds stay on the device.
 """
 
 from __future__ import annotations
@@ -71,7 +75,7 @@ from ..radz.constants import (
 
 LAUNCHES = {"K6": 0, "K6-boot": 0}
 STATS = {"calls": 0, "cells": 0, "classes": 0, "labels": 0, "max_u": 0, "max_e": 0,
-         "global_cells": 0}
+         "staged_cells": 0, "shared_cells": 0, "global_cells": 0, "tiled_rows": 0}
 
 _F32 = torch.float32
 
@@ -105,8 +109,11 @@ class EmPlan:
         arrays = {f.name: None if getattr(self, f.name) is None else
                   torch.from_numpy(np.ascontiguousarray(getattr(self, f.name))).to(device)
                   for f in fields(EmTensors) if f.name in _PLAN_ARRAYS}
+        sizes = np.stack([np.diff(self.cell_cls), np.diff(self.lab_off[self.cell_cls]),
+                          np.diff(self.dict_off)])
         return EmTensors(**arrays, init_value=self.init_value,
-                         with_last_round=self.with_last_round)
+                         with_last_round=self.with_last_round, sizes=sizes,
+                         usa=bool((self.p1 >= 0).any()))
 
 
 @dataclass
@@ -126,6 +133,10 @@ class EmTensors:
     occ_w: Optional[torch.Tensor]
     init_value: float
     with_last_round: bool
+    # on the host, for K6's launch plan: each cell's classes, labels and
+    # dictionary entries (3, C), and whether some entry has a USA partner
+    sizes: Optional[np.ndarray] = None
+    usa: bool = False
     # the bootstrap mode: each cell's row-sum width, and per replicate
     # (N, E) resampled counts and (N, U) initial values
     cell_lp: Optional[torch.Tensor] = None
@@ -439,6 +450,123 @@ def _twin(t: EmTensors, init: Optional[torch.Tensor]) -> Tuple[torch.Tensor, tor
     return torch.where(alpha < f32(MIN_OUTPUT_ALPHA), zero, alpha), rounds
 
 
+# --- the launch plan ---------------------------------------------------------------
+
+# K6's shared-memory layout (csrc/em.cu): a header (the mbarrier, the
+# moved masks, the longest class, two counts), the cell's int32 arrays,
+# the staged slices (route a) and each replicate's state
+HEADER = 32
+MAX_TILE = 32  # replicates a block: one bit each of the kernel's round masks
+CHUNK = 2  # replicates a bootstrap work item carries
+MAX_THREADS = 512
+SM_THREADS = 2048  # resident threads an SM holds
+SM_BLOCK_RESERVE = 1024  # shared bytes the device keeps back for each block
+MAX_STREAMS = 8  # side streams the launches of one call spread over
+ROUTES = ("staged", "shared", "global")  # (a), (b), (c)
+
+
+def _r16(b):
+    return (b + 15) // 16 * 16
+
+
+def _slice(n):
+    """Bytes of a slice of n words staged by bulk copy: 16-byte aligned,
+    the array at its source's offset within 16 bytes."""
+    return _r16(4 * n) + 16
+
+
+def cell_bytes(ne, nl, nu, usa: bool, weighted: bool, tile=1) -> tuple:
+    """Per cell of ``ne`` classes, ``nl`` labels and ``nu`` dictionary
+    entries (int64 arrays): (route (a)'s shared bytes with ``tile``
+    replicates, route (b)'s shared bytes).  Route (c) keeps route (b)'s
+    bytes but its header in global scratch, for each replicate."""
+    ne, nl, nu = (np.asarray(x, np.int64) for x in (ne, nl, nu))
+    u = int(usa)
+    lists = _r16(4 * (2 * nu + ne))  # first multi-label occurrences, multi ids, multi classes
+    state = (2 + u) * nu + ne  # alphas, seeds, abundances (USA), inverses
+    layout = (_r16(4 * (ne + nu + 2)) + 2 * _slice(nl) + 2 * u * _slice(nu)
+              + (2 * _slice(nl) if weighted else 0))
+    staged = HEADER + lists + layout + _r16(4 * np.asarray(tile, np.int64) * (state + ne))
+    return staged, HEADER + lists + _r16(4 * state)
+
+
+def _pow2_floor(x):
+    x = np.maximum(np.asarray(x, np.int64), 1)
+    return np.left_shift(1, np.floor(np.log2(x)).astype(np.int64))
+
+
+def block_threads(items, smem, limit: int):
+    """Threads of each cell's block, 64 to 512 in powers of two: about one
+    per four of its first round's ``items`` (chunks of replicates x ids),
+    and no fewer than fill the SM's threads with the blocks that its
+    shared bytes let an SM hold (at most 32)."""
+    per_sm = np.clip((limit + SM_BLOCK_RESERVE) // (np.asarray(smem) + SM_BLOCK_RESERVE), 1, 32)
+    fill = _pow2_floor(SM_THREADS // per_sm)
+    want = 2 * _pow2_floor(np.maximum(np.asarray(items) // 4, 1) - 1)
+    return np.clip(np.maximum(fill, want), 64, MAX_THREADS)
+
+
+@dataclass
+class Launch:
+    """One K6 launch: ``cells`` (indices into the batch) on ``route`` (0,
+    1, 2: (a), (b), (c)), ``tile`` replicates and ``threads`` threads a
+    block, ``smem`` dynamic shared bytes."""
+
+    cells: np.ndarray
+    route: int
+    tile: int
+    threads: int
+    smem: int
+
+
+def launch_plan(ne, nl, nu, n_rep: int, usa: bool, weighted: bool,
+                limit: int) -> Tuple[List[Launch], np.ndarray, int]:
+    """K6's launches for cells of ``ne`` classes, ``nl`` labels and ``nu``
+    dictionary entries under ``limit`` shared bytes a block, with
+    ``n_rep`` replicates (1 outside the bootstrap mode).  A cell takes
+    route (a) when its layout and one replicate's state fit, with a tile
+    of the most replicates (up to ``n_rep`` and 32) that fit, evened out
+    over its blocks; else route (b) when its state fits; else (c).  The
+    cells of one route and tile go in groups of like shared bytes
+    (``_kernels.launch_groups``), with the block size of the group's
+    largest; the groups of the largest cells come first.  Returns (the
+    launches, each cell's float offset in one replicate's scratch or -1,
+    the scratch floats of a replicate)."""
+    from .. import _kernels
+
+    ne, nl, nu = (np.asarray(x, np.int64) for x in (ne, nl, nu))
+    fixed, shared = cell_bytes(ne, nl, nu, usa, weighted, 0)
+    per_rep = 4 * ((2 + int(usa)) * nu + 2 * ne)
+    # fixed is a multiple of 16, so tile * per_rep rounded up to 16 fits
+    # exactly when tile * per_rep fits in the room rounded down to 16
+    room = np.maximum(limit - fixed, 0) // 16 * 16
+    fit = np.where(per_rep > 0, room // np.maximum(per_rep, 1), MAX_TILE)
+    route = np.where(fit >= 1, 0, np.where(shared <= limit, 1, 2))
+    tile = np.ones(len(ne), np.int64)
+    if n_rep > 1:
+        tiles = -(-n_rep // np.where(route == 0, np.minimum(np.minimum(fit, MAX_TILE), n_rep), 1))
+        tile = -(-n_rep // tiles)
+    smem = np.where(route == 0, fixed + _r16(tile * per_rep), np.where(route == 1, shared, HEADER))
+    items = -(-tile // (CHUNK if n_rep > 1 else 1)) * np.maximum(nu, ne)
+    scratch_off = np.full(len(ne), -1, np.int64)
+    glob = np.flatnonzero(route == 2)
+    words = (shared[glob] - HEADER) // 4
+    scratch_off[glob] = np.cumsum(words) - words
+    launches = []
+    key = route * (MAX_TILE + 1) + tile
+    for k in np.unique(key).tolist():
+        r, tl = divmod(k, MAX_TILE + 1)
+        sel = np.flatnonzero(key == k)
+        groups = [(np.arange(len(sel)), HEADER)] if r == 2 else \
+            _kernels.launch_groups(smem[sel], limit)
+        for cells, size in groups:
+            c = sel[cells]
+            launches.append(Launch(c, r, tl, int(block_threads(items[c].max(), size, limit)),
+                                   size))
+    launches.sort(key=lambda ln: (-ln.route, -ln.smem))
+    return launches, scratch_off, int(words.sum())
+
+
 # --- the kernel ------------------------------------------------------------------
 
 def em_run(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -467,36 +595,40 @@ def em_run(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
     rounds = torch.empty((n_rep, C), dtype=torch.int32, device=dev)
     if C == 0 or n_rep == 0:
         return (alpha, rounds) if boot else (alpha[0], rounds[0])
-    # per cell: alphas and abundances (U floats each), the class inverses
-    # and the longest class's length
-    sizes = torch.stack([t.dict_off, t.cell_cls]).cpu().numpy()
-    need = 4 * (2 * np.diff(sizes[0]) + np.diff(sizes[1]) + 1)
-    scratch_off = np.full(C, -1, np.int64)
-    routes = _kernels.launch_groups(need, int(lib.aft_smem_limit()))
-    n_scratch = 0  # floats of one replicate's scratch
-    for cells, smem in routes:
-        if smem < 0:
-            scratch_off[cells] = np.cumsum(need[cells] // 4) - need[cells] // 4
-            n_scratch = int((need[cells] // 4).sum())
-            STATS["global_cells"] += len(cells) * n_rep
+    if t.sizes is None or t.sizes.shape != (3, C):
+        raise ValueError("K6 takes EmTensors made by EmPlan.to, which carry the cells' sizes")
+    launches, scratch_off, n_scratch = launch_plan(
+        *t.sizes, n_rep, t.usa, t.lab_w is not None, int(lib.aft_smem_limit()))
     scratch = torch.empty(n_rep * n_scratch, dtype=_F32, device=dev)
-    soff = torch.from_numpy(scratch_off).to(dev)
-    stream = _kernels.stream_of(alpha)
+    # pinned uploads: the host plans the next call while the card runs this one
+    soff = torch.from_numpy(scratch_off).pin_memory().to(dev, non_blocking=True)
+    cells = torch.from_numpy(np.concatenate([ln.cells for ln in launches]).astype(np.int32))
+    cells = cells.pin_memory().to(dev, non_blocking=True)
     counts = t.boot_counts if boot else t.countf
-    for cells, smem in routes:
-        cl = torch.from_numpy(cells.astype(np.int32)).to(dev)
-        _kernels.check(lib.aft_em_cells(
-            t.cell_cls.data_ptr(), t.lab_off.data_ptr(), t.lab_loc.data_ptr(),
-            counts.data_ptr(), t.dict_off.data_ptr(), t.p1.data_ptr(), t.p2.data_ptr(),
-            t.occ_off.data_ptr(), t.occ.data_ptr(),
-            *(0, 0) if t.lab_w is None else (t.lab_w.data_ptr(), t.occ_w.data_ptr()),
-            cl.data_ptr(), len(cells),
-            soff.data_ptr(), scratch.data_ptr(), max(smem, 0), t.init_value,
-            int(t.with_last_round), alpha.data_ptr(), rounds.data_ptr(),
-            *(t.cell_lp.data_ptr(), t.boot_init.data_ptr()) if boot else (0, 0),
-            n_rep, E, U, C, n_scratch, stream,
-        ), "K6 aft_em_cells")
-        LAUNCHES["K6-boot" if boot else "K6"] += 1
+    # the groups run side by side, so one group's slowest cells do not
+    # hold the next group back
+    streams = _kernels.fork(dev, min(len(launches), MAX_STREAMS))
+    try:
+        first = 0
+        for i, ln in enumerate(launches):
+            _kernels.check(lib.aft_em_cells(
+                t.cell_cls.data_ptr(), t.lab_off.data_ptr(), t.lab_loc.data_ptr(),
+                counts.data_ptr(), t.dict_off.data_ptr(), t.p1.data_ptr(), t.p2.data_ptr(),
+                t.occ_off.data_ptr(), t.occ.data_ptr(),
+                *(0, 0) if t.lab_w is None else (t.lab_w.data_ptr(), t.occ_w.data_ptr()),
+                cells.data_ptr() + 4 * first, len(ln.cells), int(ln.route == 0), ln.tile,
+                ln.threads, soff.data_ptr(), scratch.data_ptr(), ln.smem, t.init_value,
+                int(t.with_last_round), int(t.usa), alpha.data_ptr(), rounds.data_ptr(),
+                *(t.cell_lp.data_ptr(), t.boot_init.data_ptr()) if boot else (0, 0),
+                n_rep, E, U, C, n_scratch, streams[i % len(streams)].cuda_stream,
+            ), "K6 aft_em_cells")
+            first += len(ln.cells)
+            LAUNCHES["K6-boot" if boot else "K6"] += 1
+            STATS[f"{ROUTES[ln.route]}_cells"] += len(ln.cells) * n_rep
+            if ln.tile > 1:
+                STATS["tiled_rows"] += len(ln.cells) * n_rep
+    finally:
+        _kernels.join(dev, streams)
     return (alpha, rounds) if boot else (alpha[0], rounds[0])
 
 

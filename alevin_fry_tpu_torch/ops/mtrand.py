@@ -35,7 +35,7 @@ LAUNCHES = {"K8": 0}
 _N, _M = 624, 397
 _MATRIX_A, _UPPER, _LOWER, _MASK32 = 0x9908B0DF, 0x80000000, 0x7FFFFFFF, 0xFFFFFFFF
 DOUBLES_PER_TWIST = _N // 2
-MAX_REPLICATES = 65535  # the launch grid's second dimension
+MAX_REPLICATES = 65535  # K6's bootstrap grid: a row of blocks per replicate on routes (b), (c)
 # the twin's rows per pass (its state is 624 int64 words a row)
 _TWIN_ROWS = 16_384
 

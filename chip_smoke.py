@@ -35,7 +35,10 @@ Phases, one line each:
    ten twists and against its twin on 33 replicates of 200 cells; K6's
    bootstrap mode against its twin bit for bit on tests/em_cases.py's
    bootstrap cells (rungs at width 4 and 16, a cell past the ladder,
-   cells past the shared-memory limit) with 1 and 33 replicates;
+   cells past the shared-memory limit) with 1 and 33 replicates; each
+   K6 check raises unless K6's routes (a) staged, (b) shared and (c)
+   global were each taken, the bootstrap one also unless a block ran a
+   tile of more than one replicate;
 3. generates a 10x-v3-shaped synthetic dataset (tests/synth_hard.py:
    10,000 cells, 20M reads, 20,000 genes, 3-column t2g) and runs the
    port's generate-permit-list -> collate -> quant -r cr-like on the
@@ -274,11 +277,18 @@ def ptxas_summary(text: str) -> list:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            op = re.search(r"(FwdOp|MinOp|LexOp|FirstIndex|MinValue|ILi[012]E)", m.group(1))
+            op = re.search(r"(FwdOp|MinOp|LexOp|FirstIndex|MinValue|ILi[012]ELb[01]ELb[01]E)",
+                           m.group(1))
             kern = re.search(r"(lookback_scan|hamming1_probe|em_cell|pug_cc|mt_init)_kernel",
                              m.group(1))
-            op = op and {"ILi0E": "plain", "ILi1E": "weighted", "ILi2E": "bootstrap"}.get(
-                op.group(1), op.group(1))
+            if op and op.group(1).startswith("ILi"):
+                # K6's mode, route (a) or (b)/(c), USA partners
+                mode, stage, usa = re.findall(r"\d", op.group(1))
+                op = (("plain", "weighted", "bootstrap")[int(mode)]
+                      + (", staged" if stage == "1" else ", unstaged")
+                      + (", USA" if usa == "1" else ""))
+            else:
+                op = op and op.group(1)
             name = (kern.group(1) if kern else m.group(1)) + (f"<{op}>" if op else "")
             spill = "0"
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -461,13 +471,32 @@ def float_err(got, want) -> float:
     return err
 
 
+# K6's route counters (ops/em.py STATS): (cell, replicate) rows on routes
+# (a) staged, (b) shared and (c) global, and rows whose block ran a tile of
+# more than one replicate
+K6_ROUTES = ("staged_cells", "shared_cells", "global_cells", "tiled_rows")
+
+
+def k6_routes(since: dict, need=K6_ROUTES[:3]) -> dict:
+    """K6's route counters since the snapshot ``since``; raises unless
+    each of ``need`` grew."""
+    from alevin_fry_tpu_torch.ops import em
+
+    got = {k: em.STATS[k] - since[k] for k in K6_ROUTES}
+    missing = [k for k in need if not got[k]]
+    if missing:
+        raise AssertionError(f"K6 took no {missing}: {got}")
+    return got
+
+
 def k6_check(dev, card: str) -> None:
     """K6 against its twin (on the CPU) on tests/em_cases.py's batches;
-    raises on any differing bit."""
+    raises on any differing bit, or unless routes (a), (b) and (c) were
+    each taken."""
     from alevin_fry_tpu_torch.ops import em
     from em_cases import EM_CASES, em_case, usa_offsets
 
-    global_cells = em.STATS["global_cells"]
+    since = dict(em.STATS)
     timed = {}
     for kind in EM_CASES:
         batch, n_rows = em_case(kind)
@@ -482,13 +511,11 @@ def k6_check(dev, card: str) -> None:
                 timed[(usa, last, uniform)] = (event_ms(lambda: em.em_run(t), 5),
                                                int(want[1].max()), float(want[1][want[1] > 0]
                                                                          .float().median()))
-    global_cells = em.STATS["global_cells"] - global_cells
-    if not global_cells:
-        raise AssertionError("no cell took K6's global-memory route")
+    routes = k6_routes(since)
     print(f"phase 2: K6 equals its twin bit for bit (values and rounds) on {list(EM_CASES)} "
           f"in {len(K6_COMBOS)} combinations of USA, last round and uniform init "
-          f"({len(K6_LARGE_COMBOS)} on 10k-cells); {global_cells} cell launches on the "
-          "global-memory route; 10k-cells (USA, last round, uniform): " + ", ".join(
+          f"({len(K6_LARGE_COMBOS)} on 10k-cells); cell launches by route {routes}; "
+          "10k-cells (USA, last round, uniform): " + ", ".join(
               f"{k} {ms:.3f} ms, rounds max {mx}, median {med}"
               for k, (ms, mx, med) in timed.items()) + f" [{card}]", flush=True)
 
@@ -496,11 +523,12 @@ def k6_check(dev, card: str) -> None:
 def k6_weighted_check(dev, card: str) -> None:
     """The weighted K6 (the long-read EM) against its twin (on the CPU)
     on tests/em_cases.py's batches with label weights and on cells whose
-    longest class crosses 8 and 128 labels; raises on any differing bit."""
+    longest class crosses 8 and 128 labels; raises on any differing bit,
+    or unless routes (a), (b) and (c) were each taken."""
     from alevin_fry_tpu_torch.ops import em
     from em_cases import EM_CASES, em_case, label_weights, weighted_case
 
-    global_cells = em.STATS["global_cells"]
+    since = dict(em.STATS)
     timed = {}
     for kind in list(EM_CASES) + ["long-classes"]:
         if kind == "long-classes":
@@ -515,12 +543,12 @@ def k6_weighted_check(dev, card: str) -> None:
             float_err(em.em_run(t), want)
             if kind == "10k-cells":
                 timed[uniform] = (event_ms(lambda: em.em_run(t), 5), int(want[1].max()))
-    if em.STATS["global_cells"] == global_cells:
-        raise AssertionError("no weighted cell took K6's global-memory route")
+    routes = k6_routes(since)
     print(f"phase 2: weighted K6 equals its twin bit for bit on {list(EM_CASES)} and "
-          "long-classes (longest class 7-300 labels), informative and uniform init; "
-          "10k-cells: " + ", ".join(f"uniform={u} {ms:.3f} ms, rounds max {mx}"
-                                    for u, (ms, mx) in timed.items()) + f" [{card}]", flush=True)
+          "long-classes (longest class 7-300 labels), informative and uniform init; cell "
+          f"launches by route {routes}; 10k-cells: " + ", ".join(
+              f"uniform={u} {ms:.3f} ms, rounds max {mx}" for u, (ms, mx) in timed.items())
+          + f" [{card}]", flush=True)
 
 
 def k7_check(dev, card: str) -> None:
@@ -587,11 +615,13 @@ def k8_check(dev, card: str) -> None:
 def k6_boot_check(dev, card: str) -> None:
     """K6's bootstrap mode against its twin (on the card) on
     tests/em_cases.py's bootstrap cells with 1 and 33 replicates, its init
-    from K8 against K8's twin (on the CPU); raises on any differing bit."""
+    from K8 against K8's twin (on the CPU); raises on any differing bit,
+    or unless routes (a), (b) and (c) and a tile of more than one
+    replicate were each taken."""
     from alevin_fry_tpu_torch.ops import bootstrap, em
     from em_cases import BOOT_CASES, boot_case
 
-    global_cells = em.STATS["global_cells"]
+    since = dict(em.STATS)
     timed = {}
     for kind in BOOT_CASES:
         batch, n_rows = boot_case(kind)
@@ -607,10 +637,10 @@ def k6_boot_check(dev, card: str) -> None:
             want = em.em_run_twin(t)
             float_err(em.em_run(t), want)
             timed[(kind, n)] = (event_ms(lambda: em.em_run(t), 3), int(want[1].max()))
-    if em.STATS["global_cells"] == global_cells:
-        raise AssertionError("no bootstrap row took K6's global-memory route")
+    routes = k6_routes(since, K6_ROUTES)
     print(f"phase 2: K6's bootstrap mode equals its twin bit for bit (values and rounds) on "
-          f"{list(BOOT_CASES)} with 1 and 33 replicates, K8's init its twin's: " + ", ".join(
+          f"{list(BOOT_CASES)} with 1 and 33 replicates, K8's init its twin's; rows by route "
+          f"{routes}: " + ", ".join(
               f"{k} N={n} {ms:.3f} ms, rounds max {mx}" for (k, n), (ms, mx) in timed.items())
           + f" [{card}]", flush=True)
 
@@ -1399,7 +1429,8 @@ def em_phase(work: Path, data: Path, chain: dict, card: str, profile: bool) -> l
     peaks, secs, launches = {}, {}, {}
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    em.STATS.update(calls=0, cells=0, classes=0, labels=0, max_u=0, max_e=0, global_cells=0)
+    em.STATS.update(calls=0, cells=0, classes=0, labels=0, max_u=0, max_e=0,
+                    **dict.fromkeys(K6_ROUTES, 0))
     usa_stats = None
     with Capture() as cap, K6Capture() as k6cap:
         for name, argv in runs.items():
@@ -1419,8 +1450,9 @@ def em_phase(work: Path, data: Path, chain: dict, card: str, profile: bool) -> l
     print(f"phase 7: USA cr-like-em EM: {len(rounds)} EM cells of "
           f"{usa_stats['cells']} with classes, {usa_stats['classes']} classes, "
           f"{usa_stats['labels']} labels, largest dictionary U {usa_stats['max_u']} and class "
-          f"count E {usa_stats['max_e']}, {usa_stats['global_cells']} cells on the "
-          f"global-memory route, rounds median {float(np.median(rounds))} max "
+          f"count E {usa_stats['max_e']}, cells by K6 route "
+          f"{ {k: usa_stats[k] for k in K6_ROUTES[:3]} }, rounds median "
+          f"{float(np.median(rounds))} max "
           f"{int(rounds.max())}; launches per run {launches}", flush=True)
 
     ref_runs = ref_chain_wait(chain)
@@ -1793,7 +1825,7 @@ def boot_full_width(work: Path, data: Path, card: str, profile: bool) -> tuple:
     argv = ["quant", "-i", str(work / "port" / "gpl"), "-m", str(data / "t2g.tsv"),
             "-o", str(out / "quant"), *BOOT_FULL, "-t", str(THREADS), "--device", "cuda"]
     peaks = {}
-    em.STATS["global_cells"] = 0
+    em.STATS.update(dict.fromkeys(K6_ROUTES, 0))
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     with BootCapture() as cap:
@@ -1816,7 +1848,7 @@ def boot_full_width(work: Path, data: Path, card: str, profile: bool) -> tuple:
           f"past the ladder (largest {int(classes.max())} classes), widths "
           f"{dict(zip(*map(np.ndarray.tolist, np.unique(widths, return_counts=True))))}; rounds "
           f"median {float(np.median(rounds))} max {int(rounds.max())}; "
-          f"{em.STATS['global_cells']} rows on K6's global-memory route; launches {launches} "
+          f"rows by K6 route { {k: em.STATS[k] for k in K6_ROUTES} }; launches {launches} "
           f"[{card}]", flush=True)
 
     # the subset: cells past the ladder and others, spread over the file

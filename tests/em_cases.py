@@ -6,13 +6,18 @@ weighted (long-read) EM.  Imports nothing of either package."""
 
 import numpy as np
 
-# (cells, rows, most classes, longest label + 1, zero-length, wide cell)
+# (cells, rows, most classes, longest label + 1, zero-length, wide cell,
+# dense cell)
 EM_CASES = {
-    "small": (40, 12, 9, 4, False, 0),
-    "zero-length": (40, 12, 9, 4, True, 0),
+    "small": (40, 12, 9, 4, False, 0, None),
+    "zero-length": (40, 12, 9, 4, True, 0, None),
     # a cell whose alphas, abundances and inverses pass 227 KB: global memory
-    "global-route": (20, 90_000, 30, 5, False, 30_000),
-    "10k-cells": (10_000, 60_000, 200, 6, False, 0),
+    "global-route": (20, 90_000, 30, 5, False, 30_000, None),
+    "10k-cells": (10_000, 60_000, 200, 6, False, 0, None),
+    # a cell whose state fits K6's shared memory but not beside its layout
+    # (2,000 classes of 20 of its 2,000 ids: 40,000 labels), with and
+    # without USA partners and weights: K6's route (b)
+    "shared-route": (20, 30_000, 30, 5, False, 0, (2_000, 2_000, 20)),
 }
 
 
@@ -21,14 +26,16 @@ def usa_offsets(n_rows: int):
     return n_rows // 3, 2 * n_rows // 3
 
 
-def em_batch(seed, n_cells=40, n_rows=12, max_classes=9, max_len=4, zero_len=False, wide=0):
+def em_batch(seed, n_cells=40, n_rows=12, max_classes=9, max_len=4, zero_len=False, wide=0,
+             dense=None):
     """(cell_eq_offsets, label_offsets, labels, counts) of ``n_cells``
     random cells (1 to ``max_classes - 1`` classes of 1 to ``max_len - 1``
     ascending distinct ids below ``n_rows``, counts 1-19; with
     ``zero_len`` also cells with no class and classes with no label),
     then an all-singleton cell, a cell with no class, a cell that runs
-    100 rounds and, with ``wide``, a cell of ``wide`` two-id classes over
-    ``2 * wide`` ids."""
+    100 rounds, with ``wide`` a cell of ``wide`` two-id classes over
+    ``2 * wide`` ids and, with ``dense`` = (classes, ids, length), a cell
+    of that many classes of ``length`` distinct ids below ``ids``."""
     rng = np.random.RandomState(seed)
     lo_n = 0 if zero_len else 1
     n_cls = rng.randint(lo_n, max_classes, n_cells)
@@ -45,6 +52,10 @@ def em_batch(seed, n_cells=40, n_rows=12, max_classes=9, max_len=4, zero_len=Fal
     fixed = [[([0], 3), ([2], 5), ([0], 2)], [], [([0, 1], 10_000), ([0], 2), ([1], 1)]]
     if wide:
         fixed.append([([2 * i, 2 * i + 1], int(rng.randint(1, 9))) for i in range(wide)])
+    if dense:
+        n_dense, n_ids, length = dense
+        fixed.append([(np.sort(rng.choice(n_ids, length, replace=False)).tolist(),
+                       int(rng.randint(1, 9))) for _ in range(n_dense)])
     for cell in fixed:
         labels.append(np.asarray([g for lab, _ in cell for g in lab], np.int64))
         counts.append(np.asarray([n for _, n in cell], np.int64))
@@ -58,8 +69,8 @@ def em_batch(seed, n_cells=40, n_rows=12, max_classes=9, max_len=4, zero_len=Fal
 
 def em_case(kind: str, seed: int = 3):
     """(batch, rows) of one of :data:`EM_CASES`."""
-    n_cells, n_rows, max_classes, max_len, zero_len, wide = EM_CASES[kind]
-    return em_batch(seed, n_cells, n_rows, max_classes, max_len, zero_len, wide), n_rows
+    n_cells, n_rows, max_classes, max_len, zero_len, wide, dense = EM_CASES[kind]
+    return em_batch(seed, n_cells, n_rows, max_classes, max_len, zero_len, wide, dense), n_rows
 
 
 def label_weights(n_labels: int, seed: int = 5) -> np.ndarray:
@@ -106,6 +117,9 @@ BOOT_CASES = {
     # classes of 1-2 ids), one on the 1,024 rung at width 128 (1,000
     # classes of 1-70 ids, some 35,000 ids)
     "global-route": (90_000, [(30_000, 2), (1000, 70), (10, 3)]),
+    # a cell whose replicate state fits K6's shared memory but not beside
+    # its layout (600 classes of 1-70 of 6,000 ids): K6's route (b)
+    "shared-route": (6_000, [(600, 70), (5, 3)]),
 }
 
 

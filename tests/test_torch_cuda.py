@@ -499,6 +499,104 @@ def test_k6_bootstrap_matches_twin(cuda, kind, n):
     assert want[0].shape == (n, len(t.occ_off) - 1)
 
 
+# the batch that takes each route of K6, by mode (tests/em_cases.py)
+ROUTE_CASES = {"plain": {"staged": "small", "shared": "shared-route", "global": "global-route"},
+               "boot": {"staged": "rungs", "shared": "shared-route", "global": "global-route"}}
+
+
+def _k6_mode_tensors(mode: str, kind: str, device):
+    """(tensors on ``device``, the twin's bits) of a K6 batch in ``mode``:
+    plain (USA, last round), weighted or bootstrap (2 replicates)."""
+    if mode == "boot":
+        t = _boot_tensors(kind, 2, device)
+        return t, [_bits(x) for x in em.em_run_twin(t)]
+    batch, n_rows = em_case(kind)
+    if mode == "weighted":
+        plan = em.plan_cells(*batch, n_rows, None, False, False, label_weights(len(batch[2])))
+    else:
+        plan = em.plan_cells(*batch, n_rows, usa_offsets(n_rows), False, True)
+    return plan.to(device), [_bits(x) for x in em.em_run_twin(plan.to("cpu"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["staged", "shared", "global"])
+@pytest.mark.parametrize("mode", ["plain", "weighted", "boot"])
+def test_k6_each_route_matches_twin(cuda, mode, route):
+    """K6 equals its twin bit for bit, values and rounds, on a batch with
+    a cell on each of its routes: (a) layout and state staged in shared
+    memory, (b) the state alone there, (c) the state in global scratch;
+    in the plain (USA), weighted and bootstrap modes."""
+    kind = ROUTE_CASES["boot" if mode == "boot" else "plain"][route]
+    t, want = _k6_mode_tensors(mode, kind, cuda)
+    before = dict(em.STATS)
+    for g, w in zip(em.em_run(t), want):
+        assert torch.equal(_bits(g), w)
+    assert em.STATS[f"{route}_cells"] > before[f"{route}_cells"]
+
+
+@pytest.mark.cuda
+def test_k6_bootstrap_tile_replicates_keep_their_own_rounds(cuda):
+    """33 replicates of cells past the ladder run in tiles of 17 over one
+    staged layout; within a tile the replicates converge at different
+    rounds, one runs 101 (100 and its last round), and every row equals
+    the twin's, values and rounds."""
+    t = _boot_tensors("past-ladder", 33, cuda)
+    want = [_bits(x) for x in em.em_run_twin(t)]
+    tiled = em.STATS["tiled_rows"]
+    for g, w in zip(em.em_run(t), want):
+        assert torch.equal(_bits(g), w)
+    assert em.STATS["tiled_rows"] > tiled
+    rounds = want[1].numpy()
+    assert rounds.max() == 101
+    assert any(len(set(rounds[:17, c].tolist())) > 1 for c in range(rounds.shape[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,kind", [("plain", "10k-cells"), ("boot", "rungs")])
+def test_k6_staged_and_tiled_launches_equal_the_twin(cuda, mode, kind):
+    """50 launches of route (a) (10,000 cells, USA) and of bootstrap tiles
+    (20 replicates a block) each equal one twin result: no race in the
+    staging or the round masks."""
+    if mode == "boot":
+        t = _boot_tensors(kind, 20, cuda)
+        want = [_bits(x) for x in em.em_run_twin(t)]
+    else:
+        t, want = _k6_mode_tensors("plain", kind, cuda)
+    staged, tiled = em.STATS["staged_cells"], em.STATS["tiled_rows"]
+    for _ in range(REPEATS):
+        for g, w in zip(em.em_run(t), want):
+            assert torch.equal(_bits(g), w)
+    assert em.STATS["staged_cells"] > staged
+    assert (em.STATS["tiled_rows"] > tiled) == (mode == "boot")
+
+
+@pytest.mark.cuda
+def test_k8_twist_borders_single_entries_and_an_empty_cell(cuda):
+    """K8 equals NumPy's stream and its twin for 33 replicates sharing
+    each cell's ids: ids on the twist borders (0, 311, 312, 623, 624 and
+    19,999), single-entry rows, an empty cell between two others, and a
+    cell of 2,000 ids (more than 32 entries a twist)."""
+    cells = [[0, 311, 312, 623, 624, 19_999], [311], [], [312], [623], [624], [19_999], [0],
+             list(range(0, 6000, 3))]
+    rng = np.random.RandomState(17)
+    seeds = torch.from_numpy(rng.randint(0, 2**32, (33, len(cells)), dtype=np.int64))
+    off = torch.from_numpy(np.cumsum([0] + [len(c) for c in cells]))
+    ids = torch.from_numpy(np.concatenate([np.asarray(c, np.int32) for c in cells]))
+    want = mtrand.random_init_twin(seeds, off, ids)
+    for r in range(33):
+        for c, cid in enumerate(cells):
+            if cid:
+                x = np.random.RandomState(int(seeds[r, c])).random_sample(max(cid) + 1)
+                ref = x.astype(np.float32)[cid] + np.float32(1e-5)
+                got = want[r, int(off[c]):int(off[c + 1])].numpy()
+                np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    args = (seeds.to(cuda), off.to(cuda), ids.to(cuda))
+    launches = mtrand.LAUNCHES["K8"]
+    for _ in range(REPEATS):
+        assert torch.equal(_bits(mtrand.random_init(*args)), _bits(want))
+    assert mtrand.LAUNCHES["K8"] == launches + REPEATS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 20, 33])
 def test_replicate_summary_on_the_card_equals_the_cpu(cuda, n):
