@@ -125,7 +125,7 @@ def load() -> ctypes.CDLL:
     lib.aft_smem_limit.restype = I64
     lib.aft_em_cells.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, P, P, I64,
                                  F32, I32, I32, P, P, P, P, I32, I64, I64, I64, I64, P]
-    lib.aft_pug_cc.argtypes = [P, P, P, P, I32, P, P, I64, P, P, P]
+    lib.aft_pug_cc.argtypes = [P, P, P, P, P, P, I32, I32, I32, I64, P, P, P, P]
     lib.aft_mt_init.argtypes = [P, P, P, I32, I32, I64, P, P]
     for fn in ("aft_segscan_tile", "aft_segscan_fwd", "aft_segscan_min", "aft_segscan_lex",
                "aft_hamming1", "aft_hamming1_min", "aft_hamming1_plan", "aft_em_cells",
@@ -137,7 +137,7 @@ def load() -> ctypes.CDLL:
 
 def launch_groups(need, limit: int) -> list:
     """Cells grouped by launch, for kernels that keep one cell's state in
-    dynamic shared memory (K6, K7): (cell indices, dynamic shared bytes)
+    dynamic shared memory (K6): (cell indices, dynamic shared bytes)
     per power-of-two bucket of ``need`` bytes, then the cells that need
     more than ``limit`` (shared bytes -1: their state goes to global
     memory), so that a few large cells do not limit how many blocks of

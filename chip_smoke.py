@@ -30,7 +30,9 @@ Phases, one line each:
    connected components) against its twin and a union-find on
    tests/pug_cases.py's graphs (random cells, isolated nodes, chains of
    thousands of nodes, a giant component, a cell past the shared-memory
-   limit), 50 launches each; K8 (the bootstraps' MT19937 init) against
+   limit, a sparse cell as large, a cell whose adjacency does not fit),
+   50 launches each, raising unless K7's routes (w) one warp, (a) staged,
+   (b) shared and (c) global were each taken; K8 (the bootstraps' MT19937 init) against
    NumPy's RandomState stream for the seeds 0, 271828 and 2**32 - 1 over
    ten twists and against its twin on 33 replicates of 200 cells; K6's
    bootstrap mode against its twin bit for bit on tests/em_cases.py's
@@ -97,12 +99,14 @@ Phases, one line each:
    -r parsimony-gene and -r parsimony-gene-em (plain t2g); every data
    artifact byte for byte (the dump too) and quant.json field for field;
    K7 launched in every run, K6 in the EM ones and K1-K3 (the small
-   cells' WTA); the graphs' nodes, edges, largest cell and rounds, the
-   cells on the large-component fallback; then a seeded long-read
+   cells' WTA); the graphs' nodes, edges and largest cell, the cells on
+   the large-component fallback; then a seeded long-read
    dataset (tests/reference_host_path.py make-longread) through gpl,
    collate and quant -r parsimony-em (plain t2g: the weighted EM on K6)
-   against the reference's host path; K7, K6 (plain and weighted) and
-   K1-K3 replayed on this phase's largest inputs;
+   against the reference's host path; K7's cells by route; K7, K6
+   (plain and weighted) and K1-K3 replayed on this phase's largest
+   inputs (K7: the whole call by CUDA events and its launches alone by
+   the profiler);
 9. bootstraps on phase 3's collated data (plain t2g): (b) right after
    phase 4, the port alone, quant -r cr-like-em -b 20 at full width,
    asserting that K1-K3, K6, K6's bootstrap mode and K8 launched, with
@@ -279,9 +283,14 @@ def ptxas_summary(text: str) -> list:
         if m:
             op = re.search(r"(FwdOp|MinOp|LexOp|FirstIndex|MinValue|ILi[012]ELb[01]ELb[01]E)",
                            m.group(1))
-            kern = re.search(r"(lookback_scan|hamming1_probe|em_cell|pug_cc|mt_init)_kernel",
-                             m.group(1))
-            if op and op.group(1).startswith("ILi"):
+            kern = re.search(
+                r"(lookback_scan|hamming1_probe|em_cell|pug_cc_warp|pug_cc_block|mt_init)_kernel",
+                m.group(1))
+            if kern and kern.group(1).startswith("pug_cc"):
+                # K7's route: (w) a warp a cell, or a block's (a) staged, (b) shared, (c) global
+                route = re.search(r"ILi([123])E", m.group(1))
+                op = K7_ROUTES[int(route.group(1)) if route else 0].removesuffix("_cells")
+            elif op and op.group(1).startswith("ILi"):
                 # K6's mode, route (a) or (b)/(c), USA partners
                 mode, stage, usa = re.findall(r"\d", op.group(1))
                 op = (("plain", "weighted", "bootstrap")[int(mode)]
@@ -477,6 +486,11 @@ def float_err(got, want) -> float:
 K6_ROUTES = ("staged_cells", "shared_cells", "global_cells", "tiled_rows")
 
 
+# K7's route counters (ops/pug_device.py STATS): cells on routes (w) one
+# warp, (a) staged, (b) shared and (c) global
+K7_ROUTES = ("warp_cells", "staged_cells", "shared_cells", "global_cells")
+
+
 def k6_routes(since: dict, need=K6_ROUTES[:3]) -> dict:
     """K6's route counters since the snapshot ``since``; raises unless
     each of ``need`` grew."""
@@ -554,29 +568,32 @@ def k6_weighted_check(dev, card: str) -> None:
 def k7_check(dev, card: str) -> None:
     """K7 against its twin (on the card) and a union-find on
     tests/pug_cases.py's graphs, each case launched REPEATS times; raises
-    on any difference."""
+    on any difference, or unless routes (w), (a), (b) and (c) were each
+    taken."""
     import torch
 
     from alevin_fry_tpu_torch.ops import pug_device
     from pug_cases import PUG_CASES, pug_case, union_find_labels
 
-    global_cells = pug_device.STATS["global_cells"]
+    since = dict(pug_device.STATS)
     out = {}
     for kind in PUG_CASES:
         graph = pug_case(kind)
         want = torch.from_numpy(union_find_labels(*graph))
         t = pug_device.upload_csr(*graph, dev)
-        max_abs_err(pug_device.connected_components_twin(*t)[0], want)
+        max_abs_err(pug_device.connected_components_twin(t[0], t[2], t[3])[0], want)
         for _ in range(REPEATS):
             labels, rounds = pug_device.connected_components(*t)
             max_abs_err(labels, want)
-        out[kind] = (len(graph[1]), len(graph[2]), int(rounds.max()),
+        out[kind] = (len(graph[1]), len(graph[2]),
                      event_ms(lambda: pug_device.connected_components(*t), 10))
-    if pug_device.STATS["global_cells"] == global_cells:
-        raise AssertionError("no cell took K7's global-memory route")
+    routes = {k: pug_device.STATS[k] - since[k] for k in K7_ROUTES}
+    missing = [k for k, v in routes.items() if not v]
+    if missing:
+        raise AssertionError(f"K7 took no {missing}: {routes}")
     print(f"phase 2: K7 equals its twin and a union-find on {list(PUG_CASES)}, {REPEATS} "
-          "launches each: " + ", ".join(f"{k} ({n} nodes, {e} entries) rounds max {r}, "
-                                         f"{ms:.4f} ms" for k, (n, e, r, ms) in out.items())
+          f"launches each; cell launches by route {routes}: " + ", ".join(
+              f"{k} ({n} nodes, {e} entries) {ms:.4f} ms" for k, (n, e, ms) in out.items())
           + f" [{card}]", flush=True)
 
 
@@ -1496,10 +1513,10 @@ class K7Capture:
 
         self._orig = pug_device.connected_components
 
-        def spy(n_nodes, deg, nbrs):
-            if self.largest is None or nbrs.numel() > self.largest[2].numel():
-                self.largest = (n_nodes.copy(), deg.clone(), nbrs.clone())
-            labels, rounds = self._orig(n_nodes, deg, nbrs)
+        def spy(n_nodes, n_entries, deg, nbrs):
+            if self.largest is None or nbrs.numel() > self.largest[3].numel():
+                self.largest = (n_nodes.copy(), n_entries.copy(), deg.clone(), nbrs.clone())
+            labels, rounds = self._orig(n_nodes, n_entries, deg, nbrs)
             st = self.stats
             st["cells"] += len(n_nodes)
             st["nodes"] += len(deg)
@@ -1517,30 +1534,62 @@ class K7Capture:
         pug_device.connected_components = self._orig
 
 
+def kernel_device_ms(fn, reps: int, pattern: str) -> float:
+    """Mean device milliseconds a call of ``fn`` runs kernels whose names
+    hold ``pattern`` (the union of their intervals: launches on side
+    streams overlap), from a torch.profiler trace of ``reps`` calls after
+    a warm-up one."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and pattern in e.name)
+    if not spans:
+        raise AssertionError(f"the profiler saw no {pattern} kernel on the device")
+    busy, last = 0.0, float("-inf")
+    for start, end in spans:
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    return busy / 1e3 / reps
+
+
 def k7_replay(graph, launches: int, path: str, label: str, card: str) -> dict:
     """K7 and its twin (both on the card) on the captured graphs: equal
-    labels, CUDA-event times, the bound (degrees and neighbours read
-    once, one label written per node, at the device memory rate)."""
+    labels, CUDA-event times of the whole call (``ms``) and the
+    profiler's device time of K7's launches alone (``kernel_ms``), the
+    bound (degrees and neighbours read once, one label written per node,
+    at the device memory rate)."""
     import numpy as np
 
     from alevin_fry_tpu_torch.ops import pug_device
 
-    labels, rounds = pug_device.connected_components(*graph)
-    err = max_abs_err(labels, pug_device.connected_components_twin(*graph)[0])
-    n_nodes, n_entries = graph[1].numel(), graph[2].numel()
+    labels, _ = pug_device.connected_components(*graph)
+    plain = (graph[0], graph[2], graph[3])
+    twin, rounds = pug_device.connected_components_twin(*plain)
+    err = max_abs_err(labels, twin)
+    n_nodes, n_entries = graph[2].numel(), graph[3].numel()
     nbytes = 12 * n_nodes + 4 * n_entries
     row = {
         "name": "K7", "path": path, "route": "cuda", "source": SOURCES["K7"][0],
         "replaces": SOURCES["K7"][1], "launches": launches,
         "shape": [len(graph[0]), n_nodes, n_entries], "max_abs_err": err,
         "ms": event_ms(lambda: pug_device.connected_components(*graph), 10),
-        "plain_ms": event_ms(lambda: pug_device.connected_components_twin(*graph), 3),
+        "kernel_ms": kernel_device_ms(lambda: pug_device.connected_components(*graph), 10,
+                                      "pug_cc"),
+        "plain_ms": event_ms(lambda: pug_device.connected_components_twin(*plain), 3),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
     }
     r = rounds.cpu().numpy()[graph[0] > 0]
     print(f"{label}: replay of K7 at the main path's shape (cells, nodes, adjacency entries) "
-          f"{row['shape']}: {row['ms']:.4f} ms (twin on the card {row['plain_ms']:.2f} ms), "
-          f"bound {row['bound_ms']:.5f} ms by bytes ({nbytes} B); rounds median "
+          f"{row['shape']}: {row['ms']:.4f} ms a call, its launches alone "
+          f"{row['kernel_ms']:.4f} ms (twin on the card {row['plain_ms']:.2f} ms), bound "
+          f"{row['bound_ms']:.5f} ms by bytes ({nbytes} B); the twin's rounds median "
           f"{float(np.median(r)):.0f}, max {int(r.max())} [{card}]", flush=True)
     return row
 
@@ -1610,7 +1659,7 @@ def _parsimony_runs(work: Path, runs: dict, lr_stages: dict, chain: dict, card: 
     peaks, secs, launches = {}, {}, {}
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    pug_device.STATS["global_cells"] = 0
+    pug_device.STATS.update(dict.fromkeys(pug_device.STATS, 0))
     with Capture() as cap, K6Capture() as k6cap, K7Capture() as k7cap:
         for name, argv in runs.items():
             before = launch_counts()
@@ -1624,13 +1673,13 @@ def _parsimony_runs(work: Path, runs: dict, lr_stages: dict, chain: dict, card: 
     stage_lines("phase 8: port on cuda", secs, peaks, card)
     st = k7cap.stats
     rounds = np.concatenate(k7cap.rounds)
+    if not (rounds >= 1).all():
+        raise AssertionError("phase 8: K7 reported a live cell with no round")
     alt = {name: len(json.loads((work / "p8_port" / name / "quant" / "quant.json").read_text())
                      ["alt_resolved_cell_numbers"]) for name in runs}
     print(f"phase 8: PUGs over the 4 runs: {st['cells']} cell graphs, {st['nodes']} nodes, "
-          f"{st['entries'] // 2} edges, largest cell {st['max_nodes']} nodes, "
-          f"{pug_device.STATS['global_cells']} cells on K7's global-memory route, "
-          f"K7 rounds median "
-          f"{float(np.median(rounds)):.0f} max {int(rounds.max())}; cells on the "
+          f"{st['entries'] // 2} edges, largest cell {st['max_nodes']} nodes; K7's cells by "
+          f"route {dict(pug_device.STATS)}; cells on the "
           f"large-component fallback {alt}; launches per run {launches}", flush=True)
 
     reset_launches()

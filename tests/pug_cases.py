@@ -8,11 +8,11 @@ its twin).  Imports nothing of either package."""
 
 import numpy as np
 
-# nodes past which a cell's labels (4 bytes a node) leave the H100's
-# 227 KB of shared memory for the global scratch
+# nodes of a cell whose 4 bytes a node fill the H100's 227 KB of shared
+# memory: the old kernel's labels, or K7's parents of as many edged nodes
 SMEM_NODES = 232_448 // 4
 
-PUG_CASES = ("random", "isolated", "chains", "giant", "past-smem")
+PUG_CASES = ("random", "isolated", "chains", "giant", "past-smem", "sparse-past-smem", "wide")
 
 
 def csr_from_edges(n_nodes: np.ndarray, cell: np.ndarray, u: np.ndarray, v: np.ndarray):
@@ -57,7 +57,12 @@ def pug_case(kind: str, seed: int = 7):
     others in random order; ``giant`` a cell of 20,000 nodes with
     mean degree 3 among 500 random cells; ``past-smem`` a cell of
     ``SMEM_NODES + 10,000`` nodes (two chains and random edges) among 300
-    random cells."""
+    random cells; ``sparse-past-smem`` a cell of as many nodes of which
+    under one in ten has an edge (paths of 3 and a 500-node chain in
+    random order, as in the parsimony quant's graphs) among 300 random
+    cells; ``wide`` a cell of 40,000 nodes with mean degree 2.5, whose
+    4 bytes an edged node fit in shared memory but whose adjacency does
+    not, among 300 random cells."""
     rng = np.random.RandomState(seed)
     if kind == "random":
         return csr_from_edges(*_random_cells(rng, 2000, 300, 1.5))
@@ -72,11 +77,19 @@ def pug_case(kind: str, seed: int = 7):
         cell = np.repeat(np.arange(20), sizes - 1)
         return csr_from_edges(sizes, cell, np.concatenate([p[0] for p in parts]),
                               np.concatenate([p[1] for p in parts]))
-    big = {"giant": (20_000, 3.0, 500), "past-smem": (SMEM_NODES + 10_000, 0.5, 300)}[kind]
-    n_big, degree, n_small = big
+    big = {"giant": (20_000, 3.0, 500), "past-smem": (SMEM_NODES + 10_000, 0.5, 300),
+           "sparse-past-smem": (SMEM_NODES + 10_000, 0.0, 300), "wide": (40_000, 2.5, 300)}
+    n_big, degree, n_small = big[kind]
     n_nodes, cell, u, v = _random_cells(rng, n_small, 300, 1.5)
     m = int(degree * n_big / 2)
     bu, bv = rng.randint(0, n_big, m), rng.randint(0, n_big, m)
+    if kind == "sparse-past-smem":
+        picked = rng.permutation(n_big)
+        paths = picked[:3 * (n_big // 40)].reshape(-1, 3)
+        c1 = _chain(rng, 500)
+        chain = picked[len(paths) * 3:len(paths) * 3 + 500]
+        bu = np.concatenate([paths[:, 0], paths[:, 1], chain[c1[0]]])
+        bv = np.concatenate([paths[:, 1], paths[:, 2], chain[c1[1]]])
     if kind == "past-smem":
         half = n_big // 2
         c1, c2 = _chain(rng, half), _chain(rng, n_big - half)

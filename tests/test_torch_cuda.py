@@ -411,8 +411,9 @@ def test_k6_weighted_matches_twin(cuda, kind, init_uniform):
 def test_k7_matches_twin_and_union_find(cuda, kind):
     """K7's labels equal a union-find's and its twin's on the card:
     random cells, isolated nodes, long chains, one giant component, a
-    cell past the shared-memory limit (global scratch); 50 launches give
-    one result."""
+    cell past the shared-memory limit (global scratch), a sparse cell as
+    large (staged), a cell whose adjacency does not fit (shared); 50
+    launches give one result."""
     graph = pug_case(kind)
     want = union_find_labels(*graph)
     t = pug_device.upload_csr(*graph, cuda)
@@ -423,23 +424,45 @@ def test_k7_matches_twin_and_union_find(cuda, kind):
     assert pug_device.LAUNCHES["K7"] > launches
     assert (pug_device.STATS["global_cells"] > global_cells) == (kind == "past-smem")
     assert bool((rounds.cpu().numpy()[t[0] > 0] >= 1).all())
-    twin, _ = pug_device.connected_components_twin(*t)
+    twin, _ = pug_device.connected_components_twin(t[0], t[2], t[3])
     np.testing.assert_array_equal(twin.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_k7_takes_every_route(cuda):
+    """Across tests/pug_cases.py's graphs K7 runs cells on each of its
+    routes, (w) one warp, (a) staged, (b) shared and (c) global, and each
+    result equals the union-find's."""
+    since = dict(pug_device.STATS)
+    for kind in PUG_CASES:
+        graph = pug_case(kind)
+        labels, _ = pug_device.connected_components(*pug_device.upload_csr(*graph, cuda))
+        np.testing.assert_array_equal(labels.cpu().numpy(), union_find_labels(*graph))
+    taken = {k: pug_device.STATS[k] - since[k] for k in since}
+    assert all(taken[f"{r}_cells"] > 0 for r in pug_device.ROUTES), taken
 
 
 @pytest.mark.cuda
 def test_k7_refuses_bad_inputs(cuda):
     """The wrapper raises on types the kernel does not take, on tensors
-    on two devices, and on node counts that do not match the degrees."""
-    n, deg, nbr = pug_device.upload_csr(*pug_case("isolated"), cuda)
+    on two devices, on node counts that do not match the degrees, and on
+    entry counts per cell of the wrong type or that do not sum to the
+    degrees."""
+    n, e, deg, nbr = pug_device.upload_csr(*pug_case("isolated"), cuda)
     with pytest.raises(ValueError):
-        pug_device.connected_components(n, deg, nbr.long())
+        pug_device.connected_components(n, e, deg, nbr.long())
     with pytest.raises(ValueError):
-        pug_device.connected_components(n, deg.cpu(), nbr)
+        pug_device.connected_components(n, e, deg.cpu(), nbr)
     with pytest.raises(ValueError):
-        pug_device.connected_components(n.astype(np.int32), deg, nbr)
+        pug_device.connected_components(n.astype(np.int32), e, deg, nbr)
     with pytest.raises(ValueError):
-        pug_device.connected_components(n[:-1], deg, nbr)
+        pug_device.connected_components(n[:-1], e, deg, nbr)
+    with pytest.raises(ValueError):
+        pug_device.connected_components(n, e.astype(np.int32), deg, nbr)
+    with pytest.raises(ValueError):
+        pug_device.connected_components(n, e + (np.arange(len(e)) == 3), deg, nbr)
+    with pytest.raises(ValueError):
+        pug_device.connected_components(n, e[:-1], deg, nbr)
 
 
 @pytest.mark.cuda

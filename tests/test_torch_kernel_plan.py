@@ -1,16 +1,18 @@
-"""K6's launch planner (``alevin_fry_tpu_torch/ops/em.py::launch_plan``),
-which runs on the host: every cell lands in exactly one route, each
-launch's shared bytes stay within the limit it was given, a bootstrap
-tile's states fit beside the layout, and a cell one byte over a
-threshold moves to the next route.  The kernel traps if a block's layout overruns
-the shared bytes it was launched with; these tests hold the planner to
-the same byte counts.  Imports no JAX."""
+"""K6's and K7's launch planners (``alevin_fry_tpu_torch/ops/em.py::launch_plan``,
+``ops/pug_device.py::launch_plan``), which run on the host: every cell
+lands in exactly one route, each launch's shared bytes stay within the
+limit it was given, a bootstrap tile's states fit beside the layout, and
+a cell one byte over a threshold moves to the next route.  The kernels
+trap if a block's layout overruns the shared bytes it was launched with;
+these tests hold the planners to the same byte counts.  Imports no JAX."""
 
 import numpy as np
 import pytest
+import torch
 
-from alevin_fry_tpu_torch.ops import em
+from alevin_fry_tpu_torch.ops import em, pug_device
 from em_cases import BOOT_CASES, EM_CASES, boot_case, em_case, usa_offsets
+from pug_cases import PUG_CASES, pug_case
 
 H100_LIMIT = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100
 
@@ -159,3 +161,125 @@ def test_block_threads_fill_the_sm():
     assert ((threads >= np.minimum(items // 4, em.MAX_THREADS)) | (threads >= items)).all()
     assert (em.block_threads(np.array([10, 300]), np.array([500, 500]), H100_LIMIT)
             == [64, 128]).all()
+
+
+# --- K7 ------------------------------------------------------------------------------
+
+def _graph_sizes(seed, n=3000):
+    """Cell node and entry counts from empty cells to past every route's
+    threshold."""
+    rng = np.random.RandomState(seed)
+    nodes = (10 ** rng.uniform(0, 5, n)).astype(np.int64)
+    entries = (nodes * rng.uniform(0, 4, n)).astype(np.int64)
+    nodes[:5], entries[:5] = 0, 0  # empty cells
+    entries[5:10] = 0  # cells without an edge
+    return nodes, entries
+
+
+def _k7_route_of(n, m, limit):
+    _slot, staged, shared = pug_device.cell_bytes(n, m)
+    warp = ((m <= pug_device.WARP_ENTRIES) & (n <= pug_device.WARP_NODES)
+            & (pug_device.WARPS * pug_device.WARP_SLOT <= limit))
+    return np.where(n == 0, -1, np.where(warp, 0, np.where(
+        staged <= limit, 1, np.where(shared <= limit, 2, 3))))
+
+
+def _check_k7_plan(n, m, limit):
+    launches, node_off, entry_off, scratch_off, n_scratch = pug_device.launch_plan(n, m, limit)
+    cells = np.concatenate([ln.cells for ln in launches] + [np.zeros(0, np.int64)])
+    assert np.array_equal(np.sort(cells), np.flatnonzero(n > 0))  # each live cell once
+    np.testing.assert_array_equal(node_off, np.concatenate(([0], np.cumsum(n))))
+    np.testing.assert_array_equal(entry_off, np.concatenate(([0], np.cumsum(m))))
+    want = _k7_route_of(n, m, limit)
+    slot, staged, shared = pug_device.cell_bytes(n, m)
+    slices = []
+    for ln in launches:
+        c = ln.cells
+        assert (want[c] == ln.route).all() and 0 < ln.smem <= limit
+        assert ln.route == 0 or (np.diff(n[c]) <= 0).all()  # most nodes first
+        if ln.route == 0:
+            assert ln.threads == 32 * pug_device.WARPS and ln.smem % pug_device.WARPS == 0
+            assert (slot[c] <= ln.smem // pug_device.WARPS).all()
+        else:
+            assert ln.threads in (64, 128, 256, 512)
+            assert (ln.threads * pug_device.NODES_PER_THREAD >= n[c]).all() \
+                or ln.threads == pug_device.MAX_THREADS
+            need = {1: staged, 2: shared, 3: np.full(len(n), pug_device.HEADER)}[ln.route]
+            assert (need[c] <= ln.smem).all()
+        if ln.route >= 2:
+            words = pug_device.scratch_words(n[c], m[c], ln.route)
+            slices += list(zip(scratch_off[c].tolist(), words.tolist()))
+        else:
+            assert (scratch_off[c] == -1).all()
+    # the scratch slices of routes (b) and (c) tile the scratch
+    slices.sort()
+    ends = np.cumsum([0] + [w for _, w in slices])
+    assert [off for off, _ in slices] == ends[:-1].tolist() and ends[-1] == n_scratch
+    return launches
+
+
+@pytest.mark.parametrize("limit", [48 * 1024, 100_000, H100_LIMIT])
+def test_k7_every_live_cell_takes_one_route_within_the_limit(limit):
+    n, m = _graph_sizes(limit % 97)
+    launches = _check_k7_plan(n, m, limit)
+    assert {ln.route for ln in launches} == {0, 1, 2, 3}
+
+
+def test_k7_empty_cells_launch_nothing():
+    assert pug_device.launch_plan(np.zeros(4, np.int64), np.zeros(4, np.int64),
+                                  H100_LIMIT)[0] == []
+    assert pug_device.launch_plan(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                                  H100_LIMIT)[0] == []
+    (ln,) = _check_k7_plan(np.array([0, 7, 0]), np.array([0, 2, 0]), H100_LIMIT)
+    assert ln.cells.tolist() == [1] and ln.route == 0
+
+
+@pytest.mark.parametrize("what", ["entries", "nodes", "bytes"])
+def test_k7_one_over_the_warp_route_moves_a_cell(what):
+    """A cell at route (w)'s most entries, nodes or shared bytes runs on
+    one warp; one more sends it to route (a)."""
+    n, m = np.array([pug_device.WARP_NODES]), np.array([pug_device.WARP_ENTRIES])
+    assert int(pug_device.cell_bytes(n, m)[0][0]) == pug_device.WARP_SLOT
+    limit = pug_device.WARPS * pug_device.WARP_SLOT if what == "bytes" else H100_LIMIT
+    (ln,) = _check_k7_plan(n, m, limit)[:1]
+    assert ln.route == 0
+    over = {"entries": (n, m + 1, limit), "nodes": (n + 1, m, limit),
+            "bytes": (n, m, limit - 1)}[what]
+    launches = _check_k7_plan(*over)
+    assert [ln.route for ln in launches] == [1]
+
+
+def test_k7_one_byte_over_a_threshold_moves_a_cell_on():
+    """A cell of 20,000 nodes and 60,000 entries: at its route (a) bytes
+    it is staged, one byte less sends it to route (b); at its route (b)
+    bytes it is shared, one byte less sends it to route (c); route (b)
+    asks for the node-to-rank map's bytes where they fit."""
+    n, m = np.array([20_000]), np.array([60_000])
+    _slot, staged, shared = (int(x[0]) for x in pug_device.cell_bytes(n, m))
+    mapped = shared + 4 * 20_000
+    assert staged > mapped
+    for limit, route, smem in ((staged, 1, staged), (staged - 1, 2, mapped),
+                               (mapped, 2, mapped), (mapped - 1, 2, shared),
+                               (shared, 2, shared), (shared - 1, 3, pug_device.HEADER)):
+        (ln,) = _check_k7_plan(n, m, limit)
+        assert (ln.route, ln.smem, ln.threads) == (route, smem, pug_device.MAX_THREADS)
+
+
+@pytest.mark.parametrize("kind", PUG_CASES)
+def test_k7_pug_cases_routes_and_entry_bases(kind):
+    """The card tests' graphs: the entry counts that upload_csr derives
+    from the degrees give entry bases equal to a cumsum of the degrees
+    at the cells' first nodes; the largest cell of past-smem goes to
+    global scratch, of sparse-past-smem (as many nodes, under one in ten
+    edged) to route (a), of wide and giant to route (b)."""
+    n, deg, nbr = pug_case(kind)
+    n2, m, d, _nb = pug_device.upload_csr(n, deg, nbr, torch.device("cpu"))
+    assert np.array_equal(n2, n) and int(m.sum()) == len(nbr)
+    launches = _check_k7_plan(n2, m, H100_LIMIT)
+    node_off, entry_off = pug_device.launch_plan(n2, m, H100_LIMIT)[1:3]
+    np.testing.assert_array_equal(entry_off, np.concatenate(([0], np.cumsum(deg)))[node_off])
+    route = {int(c): ln.route for ln in launches for c in ln.cells}
+    big = {"past-smem": 3, "sparse-past-smem": 1, "wide": 2, "giant": 2}
+    if kind in big:
+        assert route[int(np.argmax(n))] == big[kind]
+    assert (3 in route.values()) == (kind == "past-smem")

@@ -84,9 +84,9 @@ def cc_calls(monkeypatch):
     calls = []
     orig = pug_device.connected_components
 
-    def spy(n_nodes, deg, nbrs):
+    def spy(n_nodes, n_entries, deg, nbrs):
         calls.append(len(n_nodes))
-        return orig(n_nodes, deg, nbrs)
+        return orig(n_nodes, n_entries, deg, nbrs)
 
     monkeypatch.setattr(pug_device, "connected_components", spy)
     return calls
@@ -276,8 +276,8 @@ def _per_cell(n_nodes, deg, nbr):
 
 
 def _twin(graph) -> np.ndarray:
-    labels, _rounds = pug_device.connected_components_twin(
-        *pug_device.upload_csr(*graph, torch.device("cpu")))
+    n_nodes, _entries, deg, nbrs = pug_device.upload_csr(*graph, torch.device("cpu"))
+    labels, _rounds = pug_device.connected_components_twin(n_nodes, deg, nbrs)
     return labels.numpy()
 
 
