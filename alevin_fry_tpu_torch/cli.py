@@ -252,7 +252,7 @@ def main(argv=None) -> int:
 
         collate(
             args.input_dir, args.rad_dir, device, args.max_records, args.compress,
-            cmdline,
+            cmdline, collation_mode=args.collation_mode,
         )
         return 0
     if args.command == "infer":

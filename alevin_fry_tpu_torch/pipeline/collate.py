@@ -21,7 +21,9 @@ cell), ``unmapped_bc_count_collated.bin`` and ``collate.json``.  With
 ``-c`` the collated file is ``map.collated.rad.sz`` instead, the same
 bytes as one snappy framing stream (``radz/snappyz.py``).  A compressed
 stream cannot be seeked back into, so every path knows its chunk count
-before it writes the header: the cells that kept a read.
+before it writes the header: the cells that kept a read.  A
+multi-barcode (Flex) input goes through ``pipeline/collate_multi.py``,
+which shares the ordering, the spill buckets and their gather.
 """
 
 from __future__ import annotations
@@ -279,35 +281,49 @@ def _collate_columnar(
         raise ValueError("corrected barcode missing from permit list")
     rank = sort_perm[pos]
 
-    # one gather over the original columns: keep-filter and rank order
     sort_idx, per_cell = collation_order(rank, len(cell_bcs), device)
-    final_reads = np.flatnonzero(keep_read)[sort_idx]
-    read_cols = {k: v[final_reads] for k, v in batch.read_cols.items()}
-    read_cols[schema.barcode_fields[-1]] = corrected[final_reads]
-    out_nal = np.diff(new_offsets)[sort_idx]
-    out_offsets = np.zeros(len(sort_idx) + 1, np.int64)
-    np.cumsum(out_nal, out=out_offsets[1:])
-    # positions of surviving alignments in the original flat arrays
-    surv_pos = np.flatnonzero(keep_aln)
-    aln_gather = surv_pos[
-        np.repeat(new_offsets[:-1][sort_idx], out_nal)
-        + np.arange(int(out_offsets[-1])) - np.repeat(out_offsets[:-1], out_nal)
-    ]
     if not np.array_equal(per_cell, cell_cts.astype(np.int64)):
         log.warning(
             "per-cell collated record counts differ from permit_freq counts "
             "(total %d vs %d)", int(per_cell.sum()), int(cell_cts.sum()),
         )
-    # cells that lost every read to the orientation filter write no chunk
+    n_written = write_collated(
+        input_dir, compress_out, prelude, ftm, batch, np.flatnonzero(keep_read),
+        {schema.barcode_fields[-1]: corrected[keep_read]}, np.diff(new_offsets), keep_aln,
+        sort_idx, per_cell,
+    )
+    log.info("finished collating input rad file; wrote %d cell chunks", n_written)
+
+
+def write_collated(input_dir, compress_out: bool, prelude, ftm, batch: ReadBatch, kept,
+                   rewrite: dict, nal, keep_aln, order, per_cell) -> int:
+    """Write the collated file: ``batch``'s kept reads (indices
+    ``kept``, with the read fields of ``rewrite`` replaced, ``nal``
+    alignments each: the alignments under ``keep_aln``) in the order
+    ``order`` of them, one chunk per cell of ``per_cell`` records; a
+    cell with none writes no chunk.  Returns the chunks written."""
+    final_reads = kept[order]
+    read_cols = {k: v[final_reads] for k, v in batch.read_cols.items()}
+    read_cols.update({k: v[order] for k, v in rewrite.items()})
+    offsets = np.zeros(len(kept) + 1, np.int64)
+    np.cumsum(nal, out=offsets[1:])
+    out_nal = nal[order]
+    out_offsets = np.zeros(len(kept) + 1, np.int64)
+    np.cumsum(out_nal, out=out_offsets[1:])
+    # positions of the kept alignments in the original flat arrays
+    aln_gather = np.flatnonzero(keep_aln)[
+        np.repeat(offsets[:-1][order], out_nal)
+        + np.arange(int(out_offsets[-1])) - np.repeat(out_offsets[:-1], out_nal)
+    ]
     n_written = int((per_cell > 0).sum())
     with _collated_writer(input_dir, compress_out) as sink:
         sink.write(_prelude_bytes(prelude, ftm, n_written))
         write_cell_chunks(
-            sink, schema, read_cols, out_offsets, batch.refs[aln_gather],
-            batch.dirs[aln_gather],
-            {k: v[aln_gather] for k, v in batch.aln_cols.items()}, per_cell,
+            sink, batch.schema, read_cols, out_offsets, batch.refs[aln_gather],
+            batch.dirs[aln_gather], {k: v[aln_gather] for k, v in batch.aln_cols.items()},
+            per_cell,
         )
-    log.info("finished collating input rad file; wrote %d cell chunks", n_written)
+    return n_written
 
 
 def _gather_bucket_payload(rec_bytes, ranks, schema, n_cells, device):
@@ -356,11 +372,13 @@ def _gather_rank_buckets(input_dir, spill_dir, n_buckets, schema, prelude, ftm,
     """Gather phase of the spill-bucket collation: order each bucket by
     cell rank and append one chunk per cell to the collated file.  The
     header's chunk count, the cells with a record, comes first from the
-    buckets' rank files.  Returns the number of chunks written."""
-    seen = np.zeros(n_cells, bool)
+    buckets' rank files.  Returns the number of chunks written and the
+    records per cell rank."""
+    per_cell = np.zeros(n_cells, np.int64)
     for b in range(n_buckets):
-        seen[np.fromfile(spill_dir / f"bucket_{b}.rank", np.uint32)] = True
-    n_expected = int(seen.sum())
+        ranks = np.fromfile(spill_dir / f"bucket_{b}.rank", np.uint32)
+        per_cell += np.bincount(ranks, minlength=n_cells)
+    n_expected = int((per_cell > 0).sum())
     n_written = 0
     with _collated_writer(input_dir, compress_out) as sink:
         sink.write(_prelude_bytes(prelude, ftm, n_expected))
@@ -377,7 +395,7 @@ def _gather_rank_buckets(input_dir, spill_dir, n_buckets, schema, prelude, ftm,
             (spill_dir / f"bucket_{b}.rank").unlink()
     if n_written != n_expected:
         raise RuntimeError(f"wrote {n_written} cell chunks, the header says {n_expected}")
-    return n_written
+    return n_written, per_cell
 
 
 def _collate_out_of_core(
@@ -425,7 +443,7 @@ def _collate_out_of_core(
             for rf, kf in files:
                 rf.close()
                 kf.close()
-            n_written = _gather_rank_buckets(
+            n_written, _per_cell = _gather_rank_buckets(
                 input_dir, spill_dir, n_buckets, schema, prelude, ftm, len(cell_bcs),
                 device, compress_out,
             )
@@ -446,16 +464,27 @@ def _scatter_block(batch, schema, map_keys, map_vals, expected_ori, sort_perm,
     corrected, keep_read, keep_aln, new_offsets = correct_and_filter(
         batch, map_keys, map_vals, expected_ori
     )
-    kept = np.flatnonzero(keep_read)
-    if len(kept) == 0:
-        return
-    rank = sort_perm[np.searchsorted(cell_sorted, corrected[keep_read])]
+    if keep_read.any():
+        spill_records(files, bucket_of_rank, sort_perm[np.searchsorted(cell_sorted,
+                                                                       corrected[keep_read])],
+                      batch, np.flatnonzero(keep_read),
+                      {schema.barcode_fields[-1]: corrected[keep_read]}, np.diff(new_offsets),
+                      keep_aln)
+
+
+def spill_records(files, bucket_of_rank, rank, batch: ReadBatch, kept, rewrite: dict, nal,
+                  keep_aln) -> None:
+    """Append ``batch``'s kept reads (as :func:`write_collated` takes
+    them) re-encoded, and their cell ranks ``rank``, to the spill
+    buckets of those ranks."""
+    schema = batch.schema
     read_cols = {k: v[kept] for k, v in batch.read_cols.items()}
-    read_cols[schema.barcode_fields[-1]] = corrected[keep_read]
+    read_cols.update(rewrite)
     refs, dirs = batch.refs[keep_aln], batch.dirs[keep_aln]
     aln_cols = {k: v[keep_aln] for k, v in batch.aln_cols.items()}
+    new_offsets = np.zeros(len(nal) + 1, np.int64)
+    np.cumsum(nal, out=new_offsets[1:])
     bmask = bucket_of_rank[rank]
-    nal = np.diff(new_offsets)
     for b in np.unique(bmask):
         sel = np.flatnonzero(bmask == b)
         offs = np.zeros(len(sel) + 1, np.int64)
@@ -512,13 +541,21 @@ def collate(
     compress_out: bool = False,
     cmdline: str = "",
     version: str = __version__,
+    collation_mode: str = "fast",
 ) -> None:
+    """Collate ``rad_dir/map.rad`` into ``input_dir``; a multi-barcode
+    (Flex) input goes through ``pipeline/collate_multi.py``, in
+    ``collation_mode`` (``fast`` or ``two-round``), which only it reads."""
     input_dir = Path(input_dir)
     rad_dir = Path(rad_dir)
     mdata = check_version_compat(version, input_dir / "generate_permit_list.json")
     refuse_multi_process()
     if mdata.get("multi_barcode"):
-        raise NotImplementedError("multi-barcode (Flex) collation is not ported yet")
+        from .collate_multi import collate_multi_bc
+
+        collate_multi_bc(input_dir, rad_dir, device, max_records, compress_out, cmdline,
+                         version, collation_mode)
+        return
     if mdata.get("velo_mode"):
         raise NotImplementedError("velocity mode is not ported yet")
 

@@ -17,6 +17,8 @@ barcodes.  Then one of the cell filters chooses the cells:
 
 Outputs the reference's artifacts: permit_freq.bin, permit_map.bin
 (all_freq.bin too for a filtered method) and generate_permit_list.json.
+A multi-barcode (Flex) input goes through ``pipeline/gpl_multi.py``,
+which filters each sample's cells.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..radz.chunkio import _gather_uint, iter_decoded_blocks, iter_raw_blocks
 from ..radz.records import RecordSchema
 
 from .. import __version__
+from ..device import refuse_multi_process
 from ..ops import barcodes as bcops
 from ..ops.knee import get_knee
 from ..utils import (
@@ -80,8 +83,8 @@ class GenPermitListOpts:
     threads: int = 8
     cmdline: str = ""
     version: str = __version__
-    # the multi-barcode (Flex) options: recorded, and used by no input
-    # the port takes
+    # the multi-barcode (Flex) options (pipeline/gpl_multi.py); a plain
+    # RNA input records them and uses none
     sample_bc_list: Optional[Path] = None
     sample_names: Optional[Path] = None
     sample_correction_mode: str = "exact"  # "exact" | "1-edit"
@@ -173,14 +176,20 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
     (src/cellfilter.rs:487)."""
     with open(Path(opts.input_dir) / "map.rad", "rb") as fh:
         prelude, ftm, _ = read_prelude(fh)
-        rec_type, _info = record_type_from_prelude(prelude, ftm)
+        rec_type, info = record_type_from_prelude(prelude, ftm)
         if rec_type == KnownRecordType.ATAC:
             raise ValueError(
                 'To process atac-seq data, you should use the "atac" sub-command'
             )
-        if rec_type == KnownRecordType.RNA_MULTI_BC:
-            raise NotImplementedError("multi-barcode (Flex) inputs are not ported yet")
         schema = RecordSchema.from_prelude(prelude)
+        if rec_type == KnownRecordType.RNA_MULTI_BC:
+            from .gpl_multi import do_generate_permit_list_multi_bc
+
+            refuse_multi_process()
+            blocks = iter_decoded_blocks(
+                fh, schema, prelude.hdr.num_chunks, GPL_BLOCK_RECORDS, prefetch=True,
+            )
+            return do_generate_permit_list_multi_bc(opts, blocks, info)
         if prelude.hdr.num_chunks == 0:
             raise ValueError(
                 "The RAD file appears to have no chunks; this most commonly "

@@ -33,7 +33,11 @@ Outputs the reference's artifacts: alevin/quants_mat.mtx with its rows
 and cols files, featureDump.txt, quant.json (with the cells that took the
 parsimony's large-component fallback), with ``-d``
 alevin/geqc_counts.mtx and alevin/gene_eqclass.txt.gz, and with ``-b``
-alevin/bootstraps_mean.mtx and alevin/bootstraps_var.mtx.
+alevin/bootstraps_mean.mtx and alevin/bootstraps_var.mtx.  A
+hierarchically collated (Flex) directory's ``collation_manifest.bin``
+names the samples: each cell's manifest ordinal, in its first record's
+barcodes[0], prefixes its row (``<sample>_<barcode>``) and fills
+featureDump.txt's ``sample_name`` column, whatever the resolution.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 
 from ..radz import KnownRecordType, _native, record_type_from_prelude
 from ..radz.chunkio import ReadBatch, iter_decoded_blocks
+from ..radz.collation import CollationManifest
 from ..radz.constants import SMALL_CELL_FAST_THRESHOLD
 from ..radz.mtx import format_f32_list, write_matrix_market
 from ..radz.records import RecordSchema
@@ -116,6 +121,8 @@ class CellResult:
     # triplets of the mean and of the variance
     boot_mean: Optional[tuple] = None
     boot_var: Optional[tuple] = None
+    # multi-barcode (Flex) input: each processed cell's manifest ordinal
+    sample_idx: Optional[np.ndarray] = None
 
 
 def _check_supported(opts: QuantOpts) -> None:
@@ -125,10 +132,18 @@ def _check_supported(opts: QuantOpts) -> None:
 
 def quantify(opts: QuantOpts) -> None:
     parent = Path(opts.input_dir)
-    if (parent / "collation_manifest.bin").exists():
-        raise NotImplementedError("multi-barcode (Flex) quantification is not ported yet")
     with open_collated(parent) as (br, prelude, ftm):
         _do_quantify(br, prelude, ftm, opts, parent)
+
+
+def _read_sample_names(parent: Path) -> Optional[List[str]]:
+    """The sample names of a hierarchically collated (Flex) directory,
+    in manifest order, or None (src/quant.rs:1314-1330)."""
+    path = parent / "collation_manifest.bin"
+    if not path.exists():
+        return None
+    return [g.name if g.name is not None else f"{g.key:x}"
+            for g in CollationManifest.read_from_file(path).sample_groups]
 
 
 def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
@@ -143,6 +158,7 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
         "quantifying %d cells over %d references (record type %s)",
         hdr.num_chunks, hdr.ref_count, rec_type.value,
     )
+    sample_names = _read_sample_names(parent)
     tid_to_gid, gene_names, gene_name_to_id, usa_mode = parse_tg_map(
         Path(opts.tg_map), hdr.ref_names
     )
@@ -186,10 +202,10 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
             if listed is not None:
                 keep = np.isin(batch.barcode_at(batch.chunk_offsets[:-1]), listed)
             parts.append(_resolve_cells(batch, keep, tid_to_gid, opts, sa_model, usa_mode,
-                                        num_genes, num_rows))
+                                        num_genes, num_rows, sample_names))
     _write_outputs(
         opts, _merge_results(parts), gene_names, usa_mode, num_rows,
-        barcode_len, unmapped,
+        barcode_len, unmapped, sample_names,
     )
 
 
@@ -287,9 +303,11 @@ def _longread_aln_probs(sub: dict) -> np.ndarray:
 def _resolve_cells(
     batch: ReadBatch, keep_cells: np.ndarray, tid_to_gid: np.ndarray, opts: QuantOpts,
     sa_model: str, usa_mode: bool, num_genes: int, num_rows: int,
+    sample_names: Optional[List[str]],
 ) -> CellResult:
     """One block of whole cells (module docstring).  Rows are the
-    block's kept non-empty cells in file order."""
+    block's kept non-empty cells in file order; with ``sample_names`` (a
+    Flex input) each row also carries its sample's manifest ordinal."""
     first = batch.first_chunk
     cell_of_read = batch.chunk_id - first
     nrec_all = np.diff(batch.chunk_offsets)
@@ -297,6 +315,11 @@ def _resolve_cells(
     cell_row = np.full(len(nrec_all), -1, np.int64)
     cell_row[processed] = np.arange(len(processed))
     cell_bcs = batch.barcode_at(batch.chunk_offsets[:-1][processed])
+    sample_idx = None
+    if sample_names is not None and len(batch.schema.barcode_fields) > 1:
+        # collate wrote the manifest ordinal into barcodes[0]
+        # (src/quant.rs:1955-1956)
+        sample_idx = batch.barcode_at(batch.chunk_offsets[:-1][processed], 0).astype(np.int64)
     read_keep = keep_cells[cell_of_read]
     large = read_keep & (nrec_all >= SMALL_CELL_FAST_THRESHOLD)[cell_of_read]
     prefer_ambig = usa_mode and sa_model == "prefer-ambig"
@@ -371,7 +394,7 @@ def _resolve_cells(
         cells=processed + first, cell_bcs=cell_bcs, nrec=nrec_all[processed],
         rows=rows, cols=cols, vals=vals,
         cell_stats=_coo_cell_stats(rows, vals, len(processed)), eqc=eqc, alt_cells=alt_cells,
-        boot_mean=boot_mean, boot_var=boot_var,
+        boot_mean=boot_mean, boot_var=boot_var, sample_idx=sample_idx,
     )
 
 
@@ -456,6 +479,7 @@ def _merge_results(parts: List[CellResult]) -> CellResult:
         return (np.concatenate([t[0] + o for t, o in got]),
                 *(np.concatenate([t[i] for t, _ in got]) for i in (1, 2)))
 
+    sample_idx = [p.sample_idx for p in parts if p.sample_idx is not None]
     return CellResult(
         cells=cat("cells"), cell_bcs=cat("cell_bcs"), nrec=cat("nrec"),
         rows=np.concatenate([p.rows + o for p, o in zip(parts, offs)]),
@@ -465,6 +489,7 @@ def _merge_results(parts: List[CellResult]) -> CellResult:
         ),
         eqc=eqc, alt_cells=[c for p in parts for c in p.alt_cells],
         boot_mean=boot("boot_mean"), boot_var=boot("boot_var"),
+        sample_idx=np.concatenate(sample_idx) if sample_idx else None,
     )
 
 
@@ -476,6 +501,7 @@ def _write_outputs(
     num_rows: int,
     barcode_len: int,
     unmapped: UnmappedLookup,
+    sample_names: Optional[List[str]],
 ) -> None:
     out_path = Path(opts.output_dir)
     mat_path = out_path / "alevin"
@@ -504,7 +530,15 @@ def _write_outputs(
         dedup_rate = sum_umi / nm_v.astype(np.float32)
 
     tab = np.full(n_rows_out, "\t", dtype="U1")
-    line = np.char.add(bc_u, tab)
+    row_names, line = bc_u, np.char.add(bc_u, tab)
+    if sample_names is not None and result.sample_idx is not None:
+        # rows "<sample>_<bc>"; an ordinal past the names (which collate
+        # never writes) leaves its row bare and names its sample "NA"
+        valid = result.sample_idx < len(sample_names)
+        names = np.asarray(list(sample_names) + ["NA"], dtype="U")[
+            np.where(valid, result.sample_idx, len(sample_names))]
+        row_names = np.where(valid, np.char.add(np.char.add(names, "_"), bc_u), bc_u)
+        line = np.char.add(np.char.add(line, names), tab)
     for piece in (
         (nm_v + nu_v).astype("U20"), tab, nm_v.astype("U20"), tab,
         np.asarray(format_f32_list(sum_umi), dtype="U"), tab,
@@ -516,10 +550,11 @@ def _write_outputs(
     ):
         line = np.char.add(line, piece)
     with open(mat_path / "quants_mat_rows.txt", "w") as fbc:
-        fbc.write("\n".join(bc_u.tolist()) + ("\n" if n_rows_out else ""))
+        fbc.write("\n".join(row_names.tolist()) + ("\n" if n_rows_out else ""))
     with open(out_path / "featureDump.txt", "w") as ffd:
         ffd.write(
-            "CB\tCorrectedReads\tMappedReads\tDeduplicatedReads\tMappingRate\t"
+            "CB\t" + ("sample_name\t" if sample_names is not None else "")
+            + "CorrectedReads\tMappedReads\tDeduplicatedReads\tMappingRate\t"
             "DedupRate\tMeanByMax\tNumGenesExpressed\tNumGenesOverMean\n"
         )
         ffd.write("".join(line.tolist()))

@@ -78,6 +78,24 @@ def write_collated_single(path: Path, bcs: np.ndarray, counts: np.ndarray) -> No
         fh.write(rec.tobytes())
 
 
+def write_collated_multi(
+    path: Path, sample_bcs: np.ndarray, cell_bcs: np.ndarray, counts: np.ndarray
+) -> None:
+    """bincode HashMap<(u64,u64),u32> keyed (sample, cell), entries
+    sorted by (sample, cell)."""
+    sample_bcs = np.asarray(sample_bcs, np.uint64)
+    cell_bcs = np.asarray(cell_bcs, np.uint64)
+    counts = np.asarray(counts, np.uint32)
+    order = np.lexsort((cell_bcs, sample_bcs))
+    rec = np.zeros((len(counts), 20), np.uint8)
+    rec[:, :8] = sample_bcs[order].view(np.uint8).reshape(-1, 8)
+    rec[:, 8:16] = cell_bcs[order].view(np.uint8).reshape(-1, 8)
+    rec[:, 16:] = counts[order].view(np.uint8).reshape(-1, 4)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(counts)))
+        fh.write(rec.tobytes())
+
+
 def read_collated(path: Path):
     """Read a collated unmapped-counts file; returns (key_bcs, counts,
     num_fields) where key_bcs is the *last* (cell) key field."""

@@ -117,9 +117,26 @@ Phases, one line each:
    thread beside phases 5-8; (c) after phase 8, quant -r cr-like-em -b
    20 --summary-stat and quant -r parsimony-em -b 20 with that subset,
    every data artifact (the two bootstrap matrices too) byte for byte
-   and quant.json field for field.
+   and quant.json field for field;
+10. a 10x Flex 16-plex run (tests/reference_host_path.py make-flex:
+   tests/synth_hard.py::make_hard_flex_dataset with 16 samples of 3
+   rotations, one pool of 625 cell barcodes shared by all, 20M reads,
+   18,000 genes, and a 737,280-entry unfiltered list), made in a thread
+   beside phases 5-9 where the reference's host path then runs (a) and
+   (c) with the port's command lines: (a) generate-permit-list -u -m 10
+   --sample-correction-mode 1-edit (K4's rescue once per sample with
+   reads), collate (fast, in memory: K4's 1-edit tier) and quant -r
+   cr-like (K1-K3); (b) collate -m 6000000 (out of core) in a copy of
+   (a)'s gpl directory, its collated file and manifest equal to (a)'s;
+   (c) collate --collation-mode two-round in another copy and quant;
+   every data artifact of (a) and (c) byte for byte (each sample's
+   permit files, the collated file, the manifest, the unmapped sidecar,
+   quant's four files) and the four stage JSONs field for field; the
+   stages' seconds and peak device memory, the samples, composite cells,
+   matched and unmatched reads and K4's launches; K4 and K1-K3 replayed
+   on this path's largest inputs.
 
-With --profile, phases 3, 5, 6 and 7 also run each stage under torch.profiler
+With --profile, phases 3, 5, 6, 7 and 10 also run each stage under torch.profiler
 and cProfile and print the device's busy time (the union of its kernel
 and copy intervals), its idle share and the host's largest self times.
 
@@ -237,6 +254,13 @@ BOOT_QUANTS = (
 # which the reference's host bootstraps take minutes to run (PERF.md)
 BOOT_SUBSET_PAST, BOOT_SUBSET_RUNG = 300, 300
 K8_CASE = (33, 200, 20_000)  # replicates, cells, ids below
+# phase 10: a 10x Flex 16-plex run (16 probe barcodes of 8 bases with 3
+# rotations each, 16-base cells, 12-base UMIs, about the genes of 10x's
+# human Flex probe set; 10x's 737,280-entry Flex barcode list); only the
+# depth is cut
+FLEX_SEED, FLEX_SAMPLES, FLEX_CELLS, FLEX_READS, FLEX_GENES = 13, 16, 625, 20_000_000, 18_000
+FLEX_PERMIT, FLEX_MAX_RECORDS = 737_280, 6_000_000
+FLEX_KERNELS = ("K1", "K2", "K3", "K4")  # quant's WTA, gpl's rescue and collate's tier
 
 
 def card_line() -> str:
@@ -1979,6 +2003,119 @@ def boot_parity(work: Path, data: Path, subset: Path, chain: dict, card: str,
           flush=True)
 
 
+# --- phase 10 ---------------------------------------------------------------
+
+def flex_argv(work: Path) -> dict:
+    """Phase 10's runs of the port: (a) the unfiltered gpl with the
+    1-edit sample correction, the fast in-memory collate and quant -r
+    cr-like; (b) the out-of-core collate in a copy of (a)'s gpl
+    directory; (c) the two-round collate in another copy and quant."""
+    data, common = work / "flex", ["-t", str(THREADS), "--device", "cuda"]
+    a, b, c = (work / name / "gpl" for name in ("flex_port", "flex_port_ooc", "flex_port_tr"))
+    return {
+        "gpl": ["generate-permit-list", "-i", str(data / "rad"), "-d", "fw", "-o", str(a),
+                "-u", str(data / "permit.txt"), "-m", "10", "--sample-bc-list",
+                str(data / "samples.tsv"), "--sample-correction-mode", "1-edit", *common],
+        "collate": ["collate", "-i", str(a), "-r", str(data / "rad"), *common],
+        "quant": ["quant", "-i", str(a), "-m", str(data / "t2g.tsv"),
+                  "-o", str(a.parent / "quant"), "-r", "cr-like", *common],
+        "collate (b)": ["collate", "-i", str(b), "-r", str(data / "rad"),
+                        "-m", str(FLEX_MAX_RECORDS), *common],
+        "collate (c)": ["collate", "-i", str(c), "-r", str(data / "rad"),
+                        "--collation-mode", "two-round", *common],
+        "quant (c)": ["quant", "-i", str(c), "-m", str(data / "t2g.tsv"),
+                      "-o", str(c.parent / "quant"), "-r", "cr-like", *common],
+    }
+
+
+def flex_ref_chain(work: Path) -> dict:
+    """Start the Flex data's generation, then the reference's runs of
+    phase 10's (a) and (c) with the port's command lines, in a thread."""
+    data, argv = work / "flex", flex_argv(work)
+    cmd = {k: "alevin-fry-tpu " + " ".join(v) for k, v in argv.items()}
+    (work / "flex_cmds_a.json").write_text(json.dumps(
+        {k: cmd[k] for k in ("gpl", "collate", "quant")}))
+    (work / "flex_cmds_c.json").write_text(json.dumps(
+        {"collate": cmd["collate (c)"], "quant": cmd["quant (c)"]}))
+    common = ["--threads", str(THREADS)]
+    return ref_chain_start([
+        ["make-flex", str(data), "--n-samples", str(FLEX_SAMPLES), "--n-cells-per-sample",
+         str(FLEX_CELLS), "--n-reads", str(FLEX_READS), "--n-genes", str(FLEX_GENES),
+         "--seed", str(FLEX_SEED), "--permit-size", str(FLEX_PERMIT)],
+        ["run-flex", str(data), str(work / "flex_ref"), str(work / "flex_cmds_a.json"),
+         "--sample-correction-mode", "1-edit", *common],
+        ["run-flex", str(data), str(work / "flex_ref_tr"), str(work / "flex_cmds_c.json"),
+         "--gpl-from", str(work / "flex_ref" / "gpl"), "--collation-mode", "two-round",
+         *common],
+    ], work / "flex_ref_log")
+
+
+def flex_phase(work: Path, chain: dict, card: str, profile: bool) -> list:
+    """Phase 10: the port's Flex path on the card against the reference's
+    runs in ``chain``.  Returns the replay rows of K4 and K1-K3."""
+    import torch
+
+    from reference_host_path import FLEX_STAGE_JSONS, artifact_mismatches, flex_artifacts
+
+    while not chain["results"]:  # the data
+        if not chain["thread"].is_alive():
+            ref_chain_wait(chain)
+            raise RuntimeError("the Flex data was not made")
+        time.sleep(1)
+    made = chain["results"][0]
+    argv = flex_argv(work)
+    peaks, secs, launches = {}, {}, {}
+
+    def after(stage):
+        launches[stage] = launch_counts()
+        if stage == "gpl":
+            # fresh copies of the gpl directory for (b) and (c)
+            for name in ("flex_port_ooc", "flex_port_tr"):
+                shutil.copytree(work / "flex_port" / "gpl", work / name / "gpl")
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with Capture() as cap:
+        secs = run_stages(argv, "phase 10", profile, peaks_after(peaks, after))
+    total = launch_counts()
+    gpl_k4 = launches["gpl"]["K4"]
+    info = json.loads((work / "flex_port" / "gpl" / "sample_info.json").read_text())
+    with_reads = sum(1 for e in info["samples"] if e["num_reads"] > 0)
+    collate_k4 = launches["collate"]["K4"] - gpl_k4
+    if gpl_k4 < with_reads or collate_k4 < 1 or not all(total[k] > 0 for k in FLEX_KERNELS):
+        raise AssertionError(f"phase 10: K4 launched {gpl_k4} times in gpl for {with_reads} "
+                             f"samples with reads, {collate_k4} in collate; launches {total}")
+    stage_lines("phase 10: port flex on cuda", secs, peaks, card)
+    q, k = cap.inputs["K4"][1][:2]
+    print(f"phase 10: data {FLEX_READS} reads, {info['num_samples']} samples x {FLEX_CELLS} "
+          f"pool cells made in {made['seconds']:.1f} s (sample-barcode 1-sub reads "
+          f"{made['sample_bc_1sub']}, 2-sub {made['sample_bc_2sub']}, cell-barcode errors "
+          f"{made['cell_bc_1sub']}; permit list {made['permit_entries']} entries, the least-read "
+          f"listed cell {made['least_listed_reads']} reads, the most-read other code "
+          f"{made['most_other_reads']}); {info['total_cells']} composite cells, matched reads "
+          f"{info['matched_reads']}, unmatched {info['unmatched_reads']}; K4 launches: gpl "
+          f"{gpl_k4}, collate {collate_k4}, largest Q = {len(q)} x K = {len(k)}; "
+          f"launches {total}", flush=True)
+
+    a, b, c = (work / name for name in ("flex_port", "flex_port_ooc", "flex_port_tr"))
+    for name in ("map.collated.rad", "collation_manifest.bin"):
+        if (b / "gpl" / name).read_bytes() != (a / "gpl" / name).read_bytes():
+            raise AssertionError(f"phase 10 (b): the out-of-core {name} differs from (a)'s")
+    _made, ref_a, ref_c = ref_chain_wait(chain)
+    names = flex_artifacts(a)
+    bad = [f"(a) {n}" for n in artifact_mismatches(a, work / "flex_ref", names, FLEX_STAGE_JSONS)]
+    bad += [f"(c) {n}" for n in artifact_mismatches(c, work / "flex_ref_tr", names,
+                                                    FLEX_STAGE_JSONS)]
+    if names != flex_artifacts(work / "flex_ref") or bad:
+        raise AssertionError(f"phase 10: port and reference differ in {bad}")
+    print(f"phase 10: (a) and (c) {len(names)} data artifacts each byte-identical and 4 stage "
+          f"JSONs equal to the reference host path, (b)'s collated file and manifest equal "
+          f"(a)'s (host CPU, beside phases 5-9: (a) " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in ref_a.items()) + "; (c) " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in ref_c.items()) + ")", flush=True)
+    return replay(cap.inputs, FLEX_KERNELS, total, "flex", "phase 10", card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -2051,7 +2188,10 @@ def main() -> int:
     # go on beside phases 5-8, as phase 7's go on beside phases 5-7
     boot, boot_launches, subset = boot_full_width(work, data, card, args.profile)
     boot_chain = boot_ref_chain(work, data, subset)
+    flex_chain = None
     try:
+        # phase 10's data and the reference's runs go on beside phases 5-9
+        flex_chain = flex_ref_chain(work)
         rows += [
             k6_replay(boot[0], boot_launches["K6-boot"], "rna-boot", "phase 9 (b)", card),
             k8_replay(boot[1], boot_launches["K8"], "rna-boot", "phase 9 (b)", card),
@@ -2068,7 +2208,10 @@ def main() -> int:
             ref_chain_stop(chain)
         rows += parsimony_phase(work, data, card, args.profile)
         boot_parity(work, data, subset, boot_chain, card, args.profile)
+        rows += flex_phase(work, flex_chain, card, args.profile)
     finally:
+        if flex_chain is not None:
+            ref_chain_stop(flex_chain)
         ref_chain_stop(boot_chain)
     shutil.rmtree(work, ignore_errors=True)
     # the reference package ran only in helper subprocesses

@@ -51,6 +51,24 @@ As a script (this imports nothing of the port):
         generate-permit-list output) and prints their seconds and the
         deduplicate counters as one JSON line
 
+    python tests/reference_host_path.py make-flex DIR --n-samples S --n-cells-per-sample C
+            --n-reads R --n-genes G [--seed S] [--permit-size N]
+        writes tests/synth_hard.make_hard_flex_dataset(DIR, RandomState(S), ...)
+        (DIR/rad, the 3-column DIR/samples.tsv, DIR/t2g.tsv) and the
+        unfiltered list DIR/permit.txt: the generator's shared pool of C
+        cell barcodes (each code with no Hamming-1 neighbour of more
+        reads), most reads first, then random codes from the seed, N
+        entries in all
+    python tests/reference_host_path.py run-flex DIR OUT CMDLINES.json [--expected-ori O]
+            [--filter SPEC] [--min-reads M] [--sample-correction-mode exact|1-edit]
+            [--sample-bc-ori forward|reverse] [--sample-names FILE]
+            [--collation-mode fast|two-round] [--max-records R] [--compress]
+            [--gpl-from GPL] [--threads T] [QUANT OPTIONS]
+        runs the three Flex stages on DIR/rad with the sample list
+        DIR/samples.tsv into OUT (gpl as in run; with --gpl-from, a copy
+        of the directory GPL stands in for it) and prints their seconds
+        as one JSON line
+
 A ``.gz`` artifact (the compressed ATAC sort's ``map.bed.gz``) is held
 to its decompressed bytes and its header without the MTIME field, which
 gzip sets to the time of the write.
@@ -98,6 +116,15 @@ STAGE_JSONS = (
 # infer/ directory)
 DUMP_ARTIFACTS = ("quant/alevin/geqc_counts.mtx", "quant/alevin/gene_eqclass.txt.gz")
 BOOT_ARTIFACTS = ("quant/alevin/bootstraps_mean.mtx", "quant/alevin/bootstraps_var.mtx")
+# the Flex run's data artifacts (each sample's permit files are listed
+# by flex_artifacts) and stage JSONs
+FLEX_DATA_ARTIFACTS = (
+    "gpl/sample_permit_map.bin", "gpl/map.collated.rad", "gpl/collation_manifest.bin",
+    "gpl/unmapped_bc_count_collated.bin", "quant/alevin/quants_mat.mtx",
+    "quant/alevin/quants_mat_rows.txt", "quant/alevin/quants_mat_cols.txt",
+    "quant/featureDump.txt",
+)
+FLEX_STAGE_JSONS = STAGE_JSONS + ("gpl/sample_info.json",)
 INFER_ARTIFACTS = ("infer/quants_mat.mtx", "infer/quants_mat_rows.txt",
                    "infer/quants_mat_cols.txt")
 QUANT_ARTIFACTS = tuple(n for n in DATA_ARTIFACTS if n.startswith("quant/"))
@@ -126,6 +153,15 @@ def rna_artifacts(filtered: bool = False, compressed: bool = False) -> tuple:
     """The RNA run's data artifacts; a filtered gpl adds all_freq.bin."""
     extra = ("gpl/all_freq.bin",) if filtered else ()
     return _compressed(DATA_ARTIFACTS + extra, compressed)
+
+
+def flex_artifacts(run: Path, compressed: bool = False) -> tuple:
+    """The Flex run's data artifacts, with the permit files of each
+    sample directory ``run/gpl`` holds."""
+    samples = sorted(p.name for p in (Path(run) / "gpl").glob("sample_*") if p.is_dir())
+    per_sample = tuple(f"gpl/{s}/{f}" for s in samples
+                       for f in ("permit_map.bin", "permit_freq.bin"))
+    return _compressed(FLEX_DATA_ARTIFACTS + per_sample, compressed)
 
 
 def atac_artifacts(compressed: bool = False) -> tuple:
@@ -330,6 +366,94 @@ def run_reference_atac(d: Path, out: Path, cmdlines: dict, min_reads: int = 10,
     return secs, stats
 
 
+def run_reference_flex(d: Path, out: Path, cmdlines: dict, expected_ori: str = "fw",
+                       cell_filter_spec=None, min_reads: int = 10, gpl_opts=None,
+                       collation_mode: str = "fast", max_records: int = 30_000_000,
+                       compress: bool = False, gpl_from=None, threads: int = 4,
+                       quant_opts=None, t2g=None) -> dict:
+    """Run the reference's Flex stages on ``d/rad`` with the sample list
+    ``d/samples.tsv`` into ``out/gpl`` and ``out/quant``; returns each
+    stage's seconds.  ``gpl_opts`` adds or replaces fields of the gpl
+    options (sample list, names, correction mode, orientation); with ``gpl_from`` a
+    copy of that directory stands in for generate-permit-list;
+    ``collation_mode``, ``max_records`` and ``compress`` are collate's;
+    the rest as :func:`run_reference`."""
+    secs = {}
+    with host_policies():
+        from alevin_fry_tpu.pipeline.collate import collate
+        from alevin_fry_tpu.pipeline.gpl import GenPermitListOpts, generate_permit_list
+        from alevin_fry_tpu.radz import _native
+
+        _native.set_threads(threads)
+        if gpl_from is not None:
+            shutil.copytree(gpl_from, out / "gpl",
+                            ignore=shutil.ignore_patterns("map.collated.rad*"))
+        else:
+            t0 = time.perf_counter()
+            generate_permit_list(GenPermitListOpts(
+                input_dir=d / "rad", output_dir=out / "gpl",
+                fmeth=cell_filter(cell_filter_spec, d, min_reads), expected_ori=expected_ori,
+                threads=threads, cmdline=cmdlines["gpl"],
+                **{"sample_bc_list": d / "samples.tsv", **(gpl_opts or {})},
+            ))
+            secs["gpl"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        collate(out / "gpl", d / "rad", threads, max_records, compress,
+                cmdline=cmdlines["collate"], collation_mode=collation_mode)
+        secs["collate"] = time.perf_counter() - t0
+    secs["quant"] = run_reference_quant(out / "gpl", out / "quant", t2g or d / "t2g.tsv",
+                                        cmdlines["quant"], threads, **(quant_opts or {}))
+    return secs
+
+
+def make_flex_permit_list(d: Path, n_listed: int, size: int, seed: int,
+                          bc_len: int = 16) -> dict:
+    """``d/permit.txt`` for the Flex dataset in ``d/rad``: the generator's
+    shared pool of ``n_listed`` cell barcodes (which it does not return),
+    most reads over all samples first, then random codes from ``seed`` up
+    to ``size`` entries.  The generator gives a read at most one
+    substitution in its cell barcode, so every observed code is a pool
+    code or one substitution from one, which holds far more reads: the
+    pool is the codes with no Hamming-1 neighbour of more reads, and
+    there must be ``n_listed`` of them.  (The largest cells' commonest
+    error codes hold about as many reads as the smallest cells, so the
+    reads alone do not set the pool apart.)"""
+    import numpy as np
+
+    from alevin_fry_tpu.ops.barcodes import snp_neighbors, unpack_seqs_to_strings
+    from alevin_fry_tpu.radz import read_prelude
+    from alevin_fry_tpu.radz.chunkio import iter_decoded_blocks
+    from alevin_fry_tpu.radz.records import RecordSchema
+
+    with open(d / "rad" / "map.rad", "rb") as fh:
+        prelude, _ftm, _ = read_prelude(fh)
+        schema = RecordSchema.from_prelude(prelude)
+        cells = [batch.barcode(-1).astype(np.uint64) for batch in
+                 iter_decoded_blocks(fh, schema, prelude.hdr.num_chunks, 5_000_000)]
+    bcs, counts = np.unique(np.concatenate(cells), return_counts=True)
+    neigh = snp_neighbors(bcs, bc_len)
+    pos = np.minimum(np.searchsorted(bcs, neigh), len(bcs) - 1)
+    most_neighbour = np.where((bcs[pos] == neigh) & (neigh != bcs[:, None]),
+                              counts[pos], 0).max(axis=1)
+    pool = np.flatnonzero(counts > most_neighbour)
+    if len(pool) != n_listed:
+        raise AssertionError(f"{len(pool)} codes have no Hamming-1 neighbour of more reads, "
+                             f"not the pool's {n_listed}")
+    pool = pool[np.argsort(-counts[pool], kind="stable")]
+    others = np.setdiff1d(np.arange(len(bcs)), pool)
+    codes = bcs[pool]
+    rng = np.random.RandomState(seed)
+    mask = np.uint64((1 << (2 * bc_len)) - 1)
+    while len(codes) < size:
+        draw = rng.randint(0, 1 << 62, size, dtype=np.int64).astype(np.uint64) & mask
+        draw = np.setdiff1d(draw, codes)
+        codes = np.concatenate([codes, draw[rng.permutation(len(draw))][:size - len(codes)]])
+    (d / "permit.txt").write_text(
+        "".join(f"{b}\n" for b in unpack_seqs_to_strings(codes, bc_len)))
+    return {"permit_entries": len(codes), "least_listed_reads": int(counts[pool].min()),
+            "most_other_reads": int(counts[others].max()) if len(others) else 0}
+
+
 def _quant_flags(p) -> None:
     p.add_argument("--resolution", default="cr-like")
     p.add_argument("--sa-model", default="winner-take-all")
@@ -475,6 +599,30 @@ def main(argv=None) -> int:
     ma.add_argument("--chr-len", type=int, required=True)
     ma.add_argument("--ambient-factor", type=int, required=True)
     ma.add_argument("--seed", type=int, default=11)
+    mf = sub.add_parser("make-flex")
+    mf.add_argument("dir", type=Path)
+    mf.add_argument("--n-samples", type=int, required=True)
+    mf.add_argument("--n-cells-per-sample", type=int, required=True)
+    mf.add_argument("--n-reads", type=int, required=True)
+    mf.add_argument("--n-genes", type=int, required=True)
+    mf.add_argument("--seed", type=int, default=13)
+    mf.add_argument("--permit-size", type=int, default=737_280)
+    rf = sub.add_parser("run-flex")
+    rf.add_argument("dir", type=Path)
+    rf.add_argument("out", type=Path)
+    rf.add_argument("cmdlines", type=Path)
+    rf.add_argument("--expected-ori", default="fw")
+    rf.add_argument("--filter", default=None)
+    rf.add_argument("--min-reads", type=int, default=10)
+    rf.add_argument("--sample-correction-mode", default="exact")
+    rf.add_argument("--sample-bc-ori", default="forward")
+    rf.add_argument("--sample-names", type=Path, default=None)
+    rf.add_argument("--collation-mode", default="fast")
+    rf.add_argument("--max-records", type=int, default=30_000_000)
+    rf.add_argument("--compress", action="store_true")
+    rf.add_argument("--gpl-from", type=Path, default=None)
+    rf.add_argument("--threads", type=int, default=4)
+    _quant_flags(rf)
     ra = sub.add_parser("run-atac")
     ra.add_argument("dir", type=Path)
     ra.add_argument("out", type=Path)
@@ -522,6 +670,21 @@ def main(argv=None) -> int:
         )
         print(json.dumps({"seconds": time.perf_counter() - t0, **stats}))
         return 0
+    if args.cmd == "make-flex":
+        import numpy as np
+        from synth_hard import make_hard_flex_dataset
+
+        args.dir.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        stats = make_hard_flex_dataset(
+            args.dir, np.random.RandomState(args.seed), n_samples=args.n_samples,
+            n_cells_per_sample=args.n_cells_per_sample, n_reads=args.n_reads,
+            n_genes=args.n_genes,
+        )
+        stats.update(make_flex_permit_list(args.dir, args.n_cells_per_sample,
+                                           args.permit_size, args.seed))
+        print(json.dumps({"seconds": time.perf_counter() - t0, **stats}))
+        return 0
     # the host path must not need JAX: make any import of it fail
     sys.modules["jax"] = None
     # quant's and infer's EM ask parallel/mesh.py for a device mesh, which
@@ -536,6 +699,17 @@ def main(argv=None) -> int:
             args.min_reads, args.max_records, args.threads, args.compress, args.skip_gpl,
         )
         print(json.dumps({"seconds": secs, "dedup": stats}))
+        return 0
+    if args.cmd == "run-flex":
+        secs = run_reference_flex(
+            args.dir, args.out, json.loads(args.cmdlines.read_text()), args.expected_ori,
+            args.filter, args.min_reads,
+            {"sample_correction_mode": args.sample_correction_mode,
+             "sample_bc_ori": args.sample_bc_ori, "sample_names": args.sample_names},
+            args.collation_mode, args.max_records, args.compress, args.gpl_from,
+            args.threads, _quant_opts(args), args.t2g,
+        )
+        print(json.dumps(secs))
         return 0
     if args.cmd == "quant":
         secs = run_reference_quant(args.gpl, args.out, args.t2g, args.cmdline, args.threads,

@@ -631,3 +631,49 @@ def test_replicate_summary_on_the_card_equals_the_cpu(cuda, n):
     want = bootstrap._summarize(torch.from_numpy(alpha))
     for g, w in zip(got, want):
         assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.cuda
+def test_flex_chain_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """The Flex stages (gpl -u with its per-sample K4 rescue, the fast
+    collate with its K4 1-edit tier, in memory and out of core, quant
+    -r cr-like on K1-K3) on the card write the CPU run's bytes."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from alevin_fry_tpu_torch.cli import main
+    from reference_host_path import flex_artifacts
+
+    d = tmp_path / "d"
+    subprocess.run([sys.executable, str(Path(__file__).parent / "reference_host_path.py"),
+                    "make-flex", str(d), "--n-samples", "4", "--n-cells-per-sample", "100",
+                    "--n-reads", "60000", "--n-genes", "200", "--permit-size", "5000"],
+                   check=True, capture_output=True)
+    before = {**hamming.LAUNCHES, **segscan.LAUNCHES}
+    for device in ("cpu", "cuda"):
+        out = tmp_path / device
+        common = ["-t", "2", "--device", device]
+        for argv in (
+            ["generate-permit-list", "-i", str(d / "rad"), "-d", "fw", "-o", str(out / "gpl"),
+             "-u", str(d / "permit.txt"), "--sample-bc-list", str(d / "samples.tsv"),
+             "--sample-correction-mode", "1-edit"],
+            ["collate", "-i", str(out / "gpl"), "-r", str(d / "rad")],
+            ["quant", "-i", str(out / "gpl"), "-m", str(d / "t2g.tsv"), "-o", str(out / "quant"),
+             "-r", "cr-like"],
+        ):
+            assert main(argv + common) == 0
+    launched = {k: v - before[k] for k, v in {**hamming.LAUNCHES, **segscan.LAUNCHES}.items()}
+    # the rescue once per sample, the 1-edit tier once per sample
+    assert launched["K4"] >= 8 and all(launched[k] > 0 for k in ("K1", "K2", "K3"))
+    arts = flex_artifacts(tmp_path / "cpu")
+    assert arts == flex_artifacts(tmp_path / "cuda") and len(arts) == 16
+    for name in arts + ("gpl/sample_info.json",):
+        assert (tmp_path / "cpu" / name).read_bytes() == (tmp_path / "cuda" / name).read_bytes()
+    gpl = tmp_path / "cuda" / "gpl"
+    in_mem = (gpl / "map.collated.rad").read_bytes()
+    assert main(["collate", "-i", str(gpl), "-r", str(d / "rad"), "-m", "20000",
+                 "--device", "cuda"]) == 0
+    assert (gpl / "map.collated.rad").read_bytes() == in_mem
+    assert json.loads((gpl / "collate.json").read_text())["multi_barcode"] is True

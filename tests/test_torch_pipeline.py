@@ -26,11 +26,11 @@ from alevin_fry_tpu.pipeline.collate import collate as ref_collate
 from alevin_fry_tpu.radz import _native as ref_native
 from alevin_fry_tpu_torch.cli import main as port_main
 from alevin_fry_tpu_torch.device import resolve_device
-from alevin_fry_tpu_torch.ops.barcodes import pack_seq
+from alevin_fry_tpu_torch.ops.barcodes import pack_seq, unpack_seq
 from alevin_fry_tpu_torch.pipeline import collate, gpl, quant
 from alevin_fry_tpu_torch.radz import _native, bincodeio
 from reference_host_path import artifact_mismatches, host_policies, run_reference
-from synth import write_rna_rad
+from synth import make_packed_bc, write_multi_bc_rad, write_rna_rad
 from synth_hard import make_hard_dataset
 from test_torch_atac import _atac_synth_data
 
@@ -137,12 +137,13 @@ def test_slice_matches_reference_without_native_codec(tmp_path, monkeypatch):
 def test_port_never_imports_jax_or_reference_logic(tmp_path):
     d = _synth_data(tmp_path / "d")
     a = _atac_synth_data(tmp_path / "a")
+    f = _flex_synth_data(tmp_path / "f")
     out = tmp_path / "out"
     code = f"""
 import json, sys
 sys.modules["jax"] = None
 from alevin_fry_tpu_torch.cli import main
-d, a, o = {str(d)!r}, {str(a)!r}, {str(out)!r}
+d, a, f, o = {str(d)!r}, {str(a)!r}, {str(f)!r}, {str(out)!r}
 dev = ["-t", "2", "--device", "cpu"]
 assert main(["generate-permit-list", "-i", d + "/rad", "-d", "fw", "-o", o + "/gpl",
              "-u", d + "/permit.txt", "-m", "1", *dev]) == 0
@@ -166,6 +167,11 @@ assert main(["atac", "generate-permit-list", "-i", a + "/rad", "-o", g,
 assert main(["atac", "sort", "-i", g, "-r", a + "/rad", "-m", "20", *dev]) == 0
 assert main(["atac", "collate", "-i", g, "-r", a + "/rad", "-m", "20", *dev]) == 0
 assert main(["atac", "deduplicate", "-i", g, *dev]) == 0
+assert main(["generate-permit-list", "-i", f + "/rad", "-d", "both", "-o", o + "/fgpl",
+             "--sample-bc-list", f + "/samples.tsv", "-f", "3", *dev]) == 0
+assert main(["collate", "-i", o + "/fgpl", "-r", f + "/rad", *dev]) == 0
+assert main(["quant", "-i", o + "/fgpl", "-m", f + "/t2g.tsv", "-o", o + "/fquant",
+             "-r", "cr-like", *dev]) == 0
 print(json.dumps(sorted(m for m in sys.modules if m.startswith("alevin_fry_tpu"))))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -186,7 +192,23 @@ print(json.dumps(sorted(m for m in sys.modules if m.startswith("alevin_fry_tpu")
     assert (out / "pquant" / "alevin" / "quants_mat.mtx").exists()
     assert (out / "infer" / "quants_mat.mtx").exists()
     assert (out / "kquant" / "alevin" / "quants_mat.mtx").exists()
+    assert (out / "fquant" / "featureDump.txt").read_text().startswith("CB\tsample_name\t")
+    assert {"alevin_fry_tpu_torch.pipeline.gpl_multi", "alevin_fry_tpu_torch.pipeline.collate_multi",
+            "alevin_fry_tpu_torch.radz.collation"} <= set(loaded)
     assert [m for m in loaded if m.split(".")[0] == "alevin_fry_tpu"] == []
+
+
+def _flex_synth_data(d: Path) -> Path:
+    """Two Flex samples of three cells sharing their cell barcodes, a
+    two-column sample list and a plain t2g."""
+    samples = [make_packed_bc(100, 8), make_packed_bc(200, 8)]
+    (d / "rad").mkdir(parents=True)
+    write_multi_bc_rad(d / "rad" / "map.rad", [f"gene_{i}" for i in range(6)], 2, 3, 6,
+                       samples, share_cell_barcodes=True)
+    (d / "samples.tsv").write_text("".join(f"{unpack_seq(bc, 8)}\ts{i}\n"
+                                           for i, bc in enumerate(samples)))
+    (d / "t2g.tsv").write_text("".join(f"gene_{i}\tgene_{i}\n" for i in range(6)))
+    return d
 
 
 def test_resolve_device():
@@ -214,10 +236,23 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     assert port_main(["collate", "-i", str(out / "gpl"), "-r", str(d / "rad"), "-c",
                       "--device", "cpu"]) == 0
     assert (out / "gpl" / "map.collated.rad.sz").exists()
+    # Flex is ported: its three stages run
+    f = _flex_synth_data(tmp_path / "f")
+    assert port_main(["generate-permit-list", "-i", str(f / "rad"), "-d", "both",
+                      "-o", str(tmp_path / "fgpl"), "--sample-bc-list", str(f / "samples.tsv"),
+                      "-f", "3", "--device", "cpu"]) == 0
+    assert port_main(["collate", "-i", str(tmp_path / "fgpl"), "-r", str(f / "rad"),
+                      "--collation-mode", "two-round", "--device", "cpu"]) == 0
+    assert port_main(["quant", "-i", str(tmp_path / "fgpl"), "-m", str(f / "t2g.tsv"),
+                      "-o", str(tmp_path / "fquant"), "-r", "cr-like", "--device", "cpu"]) == 0
     monkeypatch.setenv("AFT_COORDINATOR", "localhost:1234")
     with pytest.raises(NotImplementedError, match="multi-host"):
         port_main(["collate", "-i", str(out / "gpl"), "-r", str(d / "rad"),
                    "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="multi-host"):
+        port_main(["generate-permit-list", "-i", str(f / "rad"), "-d", "both",
+                   "-o", str(tmp_path / "fgpl2"), "--sample-bc-list", str(f / "samples.tsv"),
+                   "-f", "3", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("max_records", [40, 700, 20_000])
