@@ -1,7 +1,8 @@
 """Command line of the port: ``generate-permit-list``, ``collate``,
-``quant``, ``infer`` and the ``atac`` subcommands, with the reference's
-flags (alevin_fry_tpu/cli.py, reference src/main.rs) plus ``--device
-{cuda,cpu}``.
+``quant``, ``infer``, ``view``, ``convert`` and the ``atac`` subcommands,
+with the reference's flags (alevin_fry_tpu/cli.py, reference
+src/main.rs) plus ``--device {cuda,cpu}`` on the stages that use a
+device (view and convert are host and native code).
 
     python -m alevin_fry_tpu_torch generate-permit-list -i RAD -d fw -o OUT -u PERMIT.txt
     python -m alevin_fry_tpu_torch collate -i OUT -r RAD
@@ -12,6 +13,8 @@ flags (alevin_fry_tpu/cli.py, reference src/main.rs) plus ``--device
     python -m alevin_fry_tpu_torch atac sort -i OUT -r RAD
     python -m alevin_fry_tpu_torch atac collate -i OUT -r RAD
     python -m alevin_fry_tpu_torch atac deduplicate -i OUT
+    python -m alevin_fry_tpu_torch convert -b ALN.bam -o RAD/map.rad [-f]
+    python -m alevin_fry_tpu_torch view -r RAD/map.rad [-H]
 
 The stage JSONs record the command line as ``alevin-fry-tpu <args>``,
 the reference's own form, so either package's artifacts are accepted by
@@ -120,6 +123,16 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--use-mtx", action="store_true")
     i.add_argument("--use-eds", action="store_true", help=argparse.SUPPRESS)
     device_flag(i)
+
+    v = sub.add_parser("view", help="View a RAD file")
+    v.add_argument("-r", "--rad", required=True, type=_existing_file)
+    v.add_argument("-H", "--header", action="store_true")
+
+    cv = sub.add_parser("convert", help="Convert a BAM file to a RAD file")
+    cv.add_argument("-b", "--bam", required=True, type=_existing_file)
+    cv.add_argument("-t", "--threads", type=int, default=ncpu)
+    cv.add_argument("-f", "--filter_best", action="store_true")
+    cv.add_argument("-o", "--output", required=True, type=Path)
 
     at = sub.add_parser("atac", help="subcommand for processing scATAC-seq RAD files")
     atsub = at.add_subparsers(dest="atac_command", required=True)
@@ -241,9 +254,20 @@ def main(argv=None) -> int:
     cmdline = "alevin-fry-tpu " + " ".join(argv)
     ap = build_parser()
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
     # -t/--threads also governs the native codec's thread pool
-    _native.set_threads(args.threads)
+    if getattr(args, "threads", None) is not None:
+        _native.set_threads(args.threads)
+    if args.command == "view":
+        from .pipeline.view import view
+
+        view(args.rad, args.header)
+        return 0
+    if args.command == "convert":
+        from .pipeline.convert import bam2rad
+
+        bam2rad(args.bam, args.output, args.threads, args.filter_best)
+        return 0
+    device = resolve_device(args.device)
 
     if args.command == "generate-permit-list":
         return _gpl(ap, args, cmdline, device)

@@ -4,7 +4,8 @@ Parses the RAD container format consumed by alevin-fry (header + three
 tag sections + file-tag values + chunked, tag-schema-driven records)
 and reads and writes the binary sidecar formats passed between the
 pipeline stages (permit_freq.bin / permit_map.bin / bincode maps /
-unmapped counts) and the MatrixMarket output, byte for byte as the
+unmapped counts) and the MatrixMarket output, and writes convert's RAD
+files (:class:`RadWriter`), byte for byte as the
 reference package's codec does.  It is host code (NumPy plus the
 ctypes-bound ``csrc/libradc.so``, with a pure-NumPy fallback) and
 imports neither torch nor JAX.
@@ -14,5 +15,6 @@ CSR alignment offset array) rather than per-record objects, so the
 pipeline moves whole columns onto the device.
 """
 
-from .header import RadPrelude, read_prelude  # noqa: F401
+from .header import RadHeader, RadPrelude, read_prelude  # noqa: F401
 from .records import KnownRecordType, record_type_from_prelude  # noqa: F401
+from .writers import RadWriter  # noqa: F401

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import time
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +33,25 @@ def _find_lib():
     return None
 
 
+# The reference package's loader (alevin_fry_tpu/radz/_native.py)
+# rebuilds csrc/libradc.so in place whenever radc.cpp is newer, and
+# several processes may do so at once.  The linker unlinks the file and
+# writes a new one, so a process that opens the library meanwhile finds
+# a short file.  A failed open is retried for up to ten seconds.
+_OPEN_ATTEMPTS, _OPEN_WAIT_S = 40, 0.25
+
+
+def _open(path: str) -> ctypes.CDLL:
+    """dlopen ``path``, waiting out a rewrite of the file in progress;
+    raises OSError if it still does not load."""
+    for _ in range(_OPEN_ATTEMPTS - 1):
+        try:
+            return ctypes.CDLL(path)
+        except OSError:
+            time.sleep(_OPEN_WAIT_S)
+    return ctypes.CDLL(path)
+
+
 def _load():
     global _LIB, _TRIED
     if _TRIED:
@@ -41,7 +61,7 @@ def _load():
     if path is None:
         return None
     try:
-        lib = ctypes.CDLL(path)
+        lib = _open(path)
         lib.radc_walk_records.restype = ctypes.c_int64
         lib.radc_walk_records.argtypes = [
             ctypes.c_void_p,  # buf
@@ -200,6 +220,21 @@ def _load():
         lib.radc_format_eqc_rows.restype = ctypes.c_int64
         lib.radc_format_eqc_rows.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ]
+        lib.radc_bam_scan.restype = ctypes.c_int64
+        lib.radc_bam_scan.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,  # buf, len, qname_state
+            ctypes.c_void_p, ctypes.c_void_p,  # flags, tid
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # bc, bclen, bc_valid
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # umi, umilen, umi_valid
+            ctypes.c_void_p, ctypes.c_void_p,  # as, same_qname
+            ctypes.c_void_p, ctypes.c_int64,   # bytes_consumed, max_recs
+        ]
+        lib.radc_bgzf_inflate.restype = ctypes.c_int64
+        lib.radc_bgzf_inflate.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # buf, offs, lens
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out_offs, isizes, crcs
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,    # n_blocks, out, n_threads
         ]
         lib.radc_crc32c.restype = ctypes.c_uint32
         lib.radc_crc32c.argtypes = [
@@ -752,3 +787,53 @@ def snappy_uncompress(data, max_out: int) -> bytes:
     if n < 0:
         raise ValueError("malformed snappy block")
     return out[:n].tobytes()
+
+
+def bgzf_inflate(buf: np.ndarray, offs: np.ndarray, lens: np.ndarray, out_offs: np.ndarray,
+                 isizes: np.ndarray, out: np.ndarray, crcs: np.ndarray) -> None:
+    """Inflate BGZF member payloads (raw deflate, ``buf[offs[i]:][:lens[i]]``
+    into ``out[out_offs[i]:][:isizes[i]]``) on the thread pool, checking
+    each member's size and CRC32 trailer; raises ValueError on a corrupt
+    member."""
+    lib = _load()
+    crcs = np.ascontiguousarray(crcs, np.uint32)
+    rc = lib.radc_bgzf_inflate(
+        np.ascontiguousarray(buf, np.uint8).ctypes.data,
+        np.ascontiguousarray(offs, np.int64).ctypes.data,
+        np.ascontiguousarray(lens, np.int64).ctypes.data,
+        np.ascontiguousarray(out_offs, np.int64).ctypes.data,
+        np.ascontiguousarray(isizes, np.int64).ctypes.data,
+        crcs.ctypes.data, len(offs), out.ctypes.data, _NTHREADS,
+    )
+    if rc != 0:
+        raise ValueError(f"corrupt BGZF block at index {-rc - 1}")
+
+
+def bam_scan(buf, qname_state: np.ndarray):
+    """Scan the complete BAM records in ``buf``; returns (columns,
+    bytes consumed).  ``qname_state`` (258 bytes, zero before the first
+    call) carries the last kept record's qname from call to call.
+    Raises ValueError on a structurally invalid record."""
+    lib = _load()
+    arr = np.ascontiguousarray(np.frombuffer(buf, np.uint8))
+    n_max = arr.nbytes // 36 + 1  # a record takes at least 36 bytes
+    cols = {
+        "flags": np.empty(n_max, np.uint16), "tid": np.empty(n_max, np.int32),
+        "bc": np.empty(n_max, np.uint64), "bclen": np.empty(n_max, np.int32),
+        "bc_valid": np.empty(n_max, np.uint8), "umi": np.empty(n_max, np.uint64),
+        "umilen": np.empty(n_max, np.int32), "umi_valid": np.empty(n_max, np.uint8),
+        "as": np.empty(n_max, np.int32), "same_qname": np.empty(n_max, np.uint8),
+    }
+    consumed = np.zeros(1, np.int64)
+    n = lib.radc_bam_scan(
+        arr.ctypes.data, arr.nbytes, qname_state.ctypes.data,
+        *(cols[k].ctypes.data for k in ("flags", "tid", "bc", "bclen", "bc_valid", "umi",
+                                         "umilen", "umi_valid", "as", "same_qname")),
+        consumed.ctypes.data, n_max,
+    )
+    if n < 0:
+        raise ValueError("structurally invalid BAM record")
+    cols = {k: v[:n] for k, v in cols.items()}
+    for k in ("bc_valid", "umi_valid", "same_qname"):
+        cols[k] = cols[k] != 0
+    return cols, int(consumed[0])

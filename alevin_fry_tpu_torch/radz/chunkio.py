@@ -519,3 +519,17 @@ def write_cell_chunks(
         n_written += 1
     sink.write(b"".join(parts))
     return n_written
+
+
+class ChunkWriter:
+    """Writes chunks (with their nbytes/nrec headers) to a binary stream
+    and counts them."""
+
+    def __init__(self, fh: BinaryIO):
+        self.fh = fh
+        self.num_chunks = 0
+
+    def write_chunk_bytes(self, body: np.ndarray, nrec: int) -> None:
+        self.fh.write(struct.pack("<II", int(body.nbytes) + 8, nrec))
+        self.fh.write(body.tobytes())
+        self.num_chunks += 1

@@ -47,6 +47,20 @@ SECTION_READ = "ReadTags"
 SECTION_ALN = "AlignmentTags"
 
 
+def int_type_for_seq_len(length: int) -> int:
+    """Smallest unsigned int type that can hold a 2-bit packed sequence of
+    ``length`` bases (reference: src/convert.rs:323-343)."""
+    if 1 <= length <= 4:
+        return U8
+    if length <= 8:
+        return U16
+    if length <= 16:
+        return U32
+    if length <= 32:
+        return U64
+    raise ValueError(f"cannot encode sequence of length {length} > 32")
+
+
 def int_size(type_id: int) -> int:
     return _INT_SIZES[type_id]
 

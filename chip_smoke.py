@@ -134,9 +134,23 @@ Phases, one line each:
    quant's four files) and the four stage JSONs field for field; the
    stages' seconds and peak device memory, the samples, composite cells,
    matched and unmatched reads and K4's launches; K4 and K1-K3 replayed
-   on this path's largest inputs.
+   on this path's largest inputs;
+11. convert and view (tests/bam_cases.py through tests/reference_host_path.py
+   make-bam, in a thread beside phases 5-9): (a) a seeded BGZF BAM of 20M
+   alignments in transcriptomic coordinates at 10x v3 widths (10,000
+   cells and ambient barcodes, barcode substitutions, 1-4 alignments a
+   read, about 3% unmapped or supplementary records, reverse strands, AS
+   ties and missing AS tags, reads with one or two Ns); (b) the port's
+   convert -t 8 and the reference's beside it, the RAD byte for byte;
+   (c) generate-permit-list -u (K4's rescue), collate and quant -r
+   cr-like (K1-K3) on that RAD on the card, the reference's host path on
+   its own RAD beside them, the eight data artifacts byte for byte and the three
+   stage JSONs field for field, the stages' seconds, peak device memory
+   and launches; (d) convert -f and view -H of a second BAM of 1M
+   alignments in both packages, the RAD byte for byte and the text by
+   sha256; K4 and K1-K3 replayed on this path's largest inputs.
 
-With --profile, phases 3, 5, 6, 7 and 10 also run each stage under torch.profiler
+With --profile, phases 3, 5, 6, 7, 10 and 11 also run each stage under torch.profiler
 and cProfile and print the device's busy time (the union of its kernel
 and copy intervals), its idle share and the host's largest self times.
 
@@ -261,6 +275,11 @@ K8_CASE = (33, 200, 20_000)  # replicates, cells, ids below
 FLEX_SEED, FLEX_SAMPLES, FLEX_CELLS, FLEX_READS, FLEX_GENES = 13, 16, 625, 20_000_000, 18_000
 FLEX_PERMIT, FLEX_MAX_RECORDS = 737_280, 6_000_000
 FLEX_KERNELS = ("K1", "K2", "K3", "K4")  # quant's WTA, gpl's rescue and collate's tier
+# phase 11: a 10x v3 BAM in transcriptomic coordinates (16-base CR, 12-base
+# UR, 20,000 genes of 4 transcripts, 10,000 cells; tests/bam_cases.py), and
+# a second one for convert -f and view; only the depth is cut
+BAM_SEED, BAM_ALIGNMENTS = 17, 20_000_000
+BAM_F_SEED, BAM_F_ALIGNMENTS = 19, 1_000_000
 
 
 def card_line() -> str:
@@ -2116,6 +2135,125 @@ def flex_phase(work: Path, chain: dict, card: str, profile: bool) -> list:
     return replay(cap.inputs, FLEX_KERNELS, total, "flex", "phase 10", card)
 
 
+# --- phase 11 ---------------------------------------------------------------
+
+def bam_data_chain(work: Path, threads: int = THREADS) -> dict:
+    """Start the two BAMs' generation, on ``threads`` threads, in a thread."""
+    return ref_chain_start([
+        ["make-bam", str(work / "bam"), "--n-alignments", str(BAM_ALIGNMENTS), "--seed",
+         str(BAM_SEED), "--threads", str(threads)],
+        ["make-bam", str(work / "bam_f"), "--n-alignments", str(BAM_F_ALIGNMENTS), "--seed",
+         str(BAM_F_SEED), "--threads", str(threads)],
+    ], work / "bam_data_log")
+
+
+def sha256(path: Path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for block in iter(lambda: fh.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def bam_phase(work: Path, chain: dict, card: str, profile: bool) -> list:
+    """Phase 11: (b) the port's convert of phase 11's BAM, the reference's
+    beside it; (c) generate-permit-list -u, collate and quant -r cr-like
+    on the converted RAD on the card, the reference's host path on its
+    own RAD beside them; (d) convert -f and view -H of the second BAM in
+    both packages.  Returns the replay rows of K4 and K1-K3."""
+    import contextlib
+
+    import torch
+
+    from alevin_fry_tpu_torch.cli import main as port_main
+    from reference_host_path import artifact_mismatches
+
+    made, made_f = ref_chain_wait(chain)
+    data, data_f = work / "bam", work / "bam_f"
+    print(f"phase 11 (a): BAM of {made['records']} records ({made['reads']} reads, "
+          f"{made['skipped_records']} unmapped or supplementary, barcode substitutions: "
+          f"{made['bc_1sub_reads']} reads one, {made['bc_2sub_reads']} two; Ns: "
+          f"{made['one_n_reads']} reads one, {made['two_n_reads']} two) made in "
+          f"{made['seconds']:.1f} s, {made['bytes']} B BGZF holding "
+          f"{made['uncompressed_bytes']} B; -u list {made['permit_entries']} entries; the -f "
+          f"BAM {made_f['records']} records in {made_f['seconds']:.1f} s, {made_f['bytes']} B",
+          flush=True)
+    common = ["-t", str(THREADS)]
+    dev = [*common, "--device", "cuda"]
+    rad, ref_rad = data / "rad", work / "bam_ref" / "rad"
+    out = work / "bam_port"
+    stages = {
+        "gpl": ["generate-permit-list", "-i", str(rad), "-d", "fw", "-o", str(out / "gpl"),
+                "-u", str(data / "permit.txt"), "-m", "10", *dev],
+        "collate": ["collate", "-i", str(out / "gpl"), "-r", str(rad), *dev],
+        "quant": ["quant", "-i", str(out / "gpl"), "-m", str(data / "t2g_3col.tsv"),
+                  "-o", str(out / "quant"), "-r", "cr-like", *dev],
+    }
+    (work / "bam_cmds.json").write_text(json.dumps(
+        {k: "alevin-fry-tpu " + " ".join(v) for k, v in stages.items()}))
+    rad_f = work / "bam_f_port.rad"
+    ref_chain = ref_chain_start([
+        ["convert", str(data / "aln.bam"), str(ref_rad / "map.rad"), "--threads", str(THREADS)],
+        ["run", str(data), str(work / "bam_ref_run"), str(work / "bam_cmds.json"), "--usa",
+         "--threads", str(THREADS), "--rad", str(ref_rad)],
+        ["convert", str(data_f / "aln.bam"), str(work / "bam_f_ref.rad"), "--filter-best",
+         "--threads", str(THREADS)],
+        ["view", str(work / "bam_f_ref.rad"), str(work / "bam_f_ref.txt"), "--header"],
+    ], work / "bam_ref_log")
+    try:
+        secs = run_stages({"convert": ["convert", "-b", str(data / "aln.bam"), "-o",
+                                       str(rad / "map.rad"), *common]}, "phase 11", profile)
+        peaks, per_stage = {}, {}
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with Capture() as cap:
+            secs_c = run_stages(stages, "phase 11", profile, peaks_after(
+                peaks, lambda stage: per_stage.update({stage: launch_counts()})))
+        total = launch_counts()
+        if per_stage["gpl"]["K4"] < 1 or not all(total[k] > 0 for k in RNA_KERNELS):
+            raise AssertionError(f"phase 11 (c): a kernel never launched: {per_stage}")
+        nnz = check_outputs(out, 3 * N_GENES)
+        secs_d = run_stages({"convert -f": ["convert", "-b", str(data_f / "aln.bam"), "-o",
+                                            str(rad_f), "-f", *common]}, "phase 11", profile)
+        with open(work / "bam_f_port.txt", "w") as fh, contextlib.redirect_stdout(fh):
+            t0 = time.perf_counter()
+            if port_main(["view", "-r", str(rad_f), "-H"]) != 0:
+                raise RuntimeError("port view failed")
+            secs_d["view -H"] = time.perf_counter() - t0
+        ref_b, ref_run, ref_f, ref_view = ref_chain_wait(ref_chain)
+    finally:
+        ref_chain_stop(ref_chain)
+    if (rad / "map.rad").read_bytes() != (ref_rad / "map.rad").read_bytes():
+        raise AssertionError("phase 11 (b): the port's RAD differs from the reference's")
+    print(f"phase 11 (b): convert -t {THREADS}: RAD of {(rad / 'map.rad').stat().st_size} B "
+          f"byte-identical to the reference's; port {secs['convert']:.2f} s, reference "
+          f"{ref_b['convert']:.2f} s (beside it) [{card}]", flush=True)
+    bad = artifact_mismatches(out, work / "bam_ref_run")
+    if bad:
+        raise AssertionError(f"phase 11 (c): port and reference differ in {bad}")
+    stage_lines("phase 11 (c): port on cuda", secs_c, peaks, card)
+    print(f"phase 11 (c): launches K4 {total['K4']} (gpl), K1 {total['K1']}, K2 "
+          f"{total['K2']}, K3 {total['K3']} (quant); nnz {nnz}; 8 data artifacts "
+          f"byte-identical and 3 stage JSONs equal to the reference host path on its own RAD "
+          f"(host CPU, beside the port: " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in ref_run.items()) + ")", flush=True)
+    if rad_f.read_bytes() != (work / "bam_f_ref.rad").read_bytes():
+        raise AssertionError("phase 11 (d): the port's convert -f RAD differs")
+    port_sha, ref_sha = sha256(work / "bam_f_port.txt"), sha256(work / "bam_f_ref.txt")
+    if port_sha != ref_sha:
+        raise AssertionError("phase 11 (d): view -H texts differ")
+    with open(work / "bam_f_port.txt", "rb") as fh:
+        n_lines = sum(block.count(b"\n") for block in iter(lambda: fh.read(1 << 24), b""))
+    print(f"phase 11 (d): convert -f RAD ({rad_f.stat().st_size} B) byte-identical; view -H "
+          f"{n_lines} lines ({ref_view['lines']} alignments) of sha256 {port_sha[:16]}... in "
+          f"both; port convert -f {secs_d['convert -f']:.2f} s, view -H "
+          f"{secs_d['view -H']:.2f} s; reference (beside the port) {ref_f['convert']:.2f} s, "
+          f"{ref_view['view']:.2f} s", flush=True)
+    return replay(cap.inputs, RNA_KERNELS, total, "bam", "phase 11", card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -2188,10 +2326,13 @@ def main() -> int:
     # go on beside phases 5-8, as phase 7's go on beside phases 5-7
     boot, boot_launches, subset = boot_full_width(work, data, card, args.profile)
     boot_chain = boot_ref_chain(work, data, subset)
-    flex_chain = None
+    flex_chain = bam_chain = None
     try:
-        # phase 10's data and the reference's runs go on beside phases 5-9
+        # phase 10's data and the reference's runs, and phase 11's data, go
+        # on beside phases 5-9
         flex_chain = flex_ref_chain(work)
+        # two threads: phases 5-9 last minutes, and leave it most cores
+        bam_chain = bam_data_chain(work, threads=2)
         rows += [
             k6_replay(boot[0], boot_launches["K6-boot"], "rna-boot", "phase 9 (b)", card),
             k8_replay(boot[1], boot_launches["K8"], "rna-boot", "phase 9 (b)", card),
@@ -2209,9 +2350,11 @@ def main() -> int:
         rows += parsimony_phase(work, data, card, args.profile)
         boot_parity(work, data, subset, boot_chain, card, args.profile)
         rows += flex_phase(work, flex_chain, card, args.profile)
+        rows += bam_phase(work, bam_chain, card, args.profile)
     finally:
-        if flex_chain is not None:
-            ref_chain_stop(flex_chain)
+        for ch in (flex_chain, bam_chain):
+            if ch is not None:
+                ref_chain_stop(ch)
         ref_chain_stop(boot_chain)
     shutil.rmtree(work, ignore_errors=True)
     # the reference package ran only in helper subprocesses

@@ -3,8 +3,8 @@
 Runs ``alevin_fry_tpu``'s generate-permit-list (unfiltered, or a
 filtered method) -> collate (plain or compressed) -> quant (any ported
 resolution and quant option), quant alone on a collated directory, infer,
-or its ATAC stages (generate-permit-list -> sort, collate -> deduplicate,
-plain or compressed), through its Python API with every device
+its ATAC stages (generate-permit-list -> sort, collate -> deduplicate,
+plain or compressed), or convert and view, through its Python API with every device
 policy set to the host, so no JAX is needed: ``run`` and ``run-atac``
 block the ``jax`` import outright (so do ``quant`` and ``infer``; their
 EM asks ``parallel/mesh.py``, which imports JAX, for a mesh, and gets
@@ -24,8 +24,8 @@ As a script (this imports nothing of the port):
         DIR/t2g.tsv
     python tests/reference_host_path.py run DIR OUT CMDLINES.json [--usa] [--min-reads M]
             [--threads T] [--filter knee|force:N|expect:N|explicit:PATH] [--compress]
-            [--max-records R] [QUANT OPTIONS]
-        runs the three stages on DIR/rad into OUT (gpl with DIR/permit.txt
+            [--max-records R] [--rad RAD_DIR] [QUANT OPTIONS]
+        runs the three stages on DIR/rad (or RAD_DIR) into OUT (gpl with DIR/permit.txt
         unless --filter names a filtered method; collate -c with
         --compress) and prints their seconds as one JSON line.  QUANT
         OPTIONS: --resolution R, --sa-model M, --dump-eq, --quant-subset
@@ -68,6 +68,17 @@ As a script (this imports nothing of the port):
         DIR/samples.tsv into OUT (gpl as in run; with --gpl-from, a copy
         of the directory GPL stands in for it) and prints their seconds
         as one JSON line
+
+    python tests/reference_host_path.py make-bam DIR --n-alignments N [--seed S] [--threads T]
+        writes tests/bam_cases.make_bam_dataset(DIR, S, N): DIR/aln.bam (BGZF;
+        10,000 cells, 20,000 genes), the unfiltered list DIR/permit.txt,
+        DIR/t2g.tsv and DIR/t2g_3col.tsv
+    python tests/reference_host_path.py convert BAM RAD [--filter-best] [--threads T]
+        runs the reference's convert (bam2rad) and prints its seconds as
+        one JSON line
+    python tests/reference_host_path.py view RAD OUT [--header]
+        runs the reference's view into the file OUT and prints its seconds
+        and line count as one JSON line
 
 A ``.gz`` artifact (the compressed ATAC sort's ``map.bed.gz``) is held
 to its decompressed bytes and its header without the MTIME field, which
@@ -243,8 +254,8 @@ def cell_filter(spec, d: Path, min_reads: int):
 def run_reference(d: Path, out: Path, cmdlines: dict, usa: bool,
                   min_reads: int = 10, threads: int = 4, cell_filter_spec=None,
                   compress: bool = False, max_records: int = 30_000_000,
-                  gpl_opts=None, quant_opts=None, t2g=None) -> dict:
-    """Run the reference's three stages on ``d/rad`` into ``out/gpl`` and
+                  gpl_opts=None, quant_opts=None, t2g=None, rad=None) -> dict:
+    """Run the reference's three stages on ``d/rad`` (or ``rad``) into ``out/gpl`` and
     ``out/quant``; returns each stage's seconds.  ``cmdlines`` maps
     gpl / collate / quant to the command line each JSON records;
     ``cell_filter_spec`` is :func:`cell_filter`'s; ``compress`` and
@@ -254,7 +265,8 @@ def run_reference(d: Path, out: Path, cmdlines: dict, usa: bool,
     replaces ``d/t2g_3col.tsv`` (``usa``) or ``d/t2g.tsv``."""
     with host_policies():
         secs = _run_reference(d, out, cmdlines, usa, min_reads, threads,
-                              cell_filter_spec, compress, max_records, gpl_opts or {})
+                              cell_filter_spec, compress, max_records, gpl_opts or {},
+                              rad or d / "rad")
     t2g = t2g or d / ("t2g_3col.tsv" if usa else "t2g.tsv")
     secs["quant"] = run_reference_quant(out / "gpl", out / "quant", t2g, cmdlines["quant"],
                                         threads, **(quant_opts or {}))
@@ -305,7 +317,7 @@ def run_reference_infer(count_mat: Path, eq_labels: Path, out: Path, usa: bool,
 
 
 def _run_reference(d, out, cmdlines, usa, min_reads, threads, cell_filter_spec,
-                   compress, max_records, gpl_opts) -> dict:
+                   compress, max_records, gpl_opts, rad) -> dict:
     from alevin_fry_tpu.pipeline.collate import collate
     from alevin_fry_tpu.pipeline.gpl import GenPermitListOpts, generate_permit_list
     from alevin_fry_tpu.radz import _native
@@ -314,13 +326,13 @@ def _run_reference(d, out, cmdlines, usa, min_reads, threads, cell_filter_spec,
     secs = {}
     t0 = time.perf_counter()
     generate_permit_list(GenPermitListOpts(
-        input_dir=d / "rad", output_dir=out / "gpl",
+        input_dir=rad, output_dir=out / "gpl",
         fmeth=cell_filter(cell_filter_spec, d, min_reads),
         expected_ori="fw", threads=threads, cmdline=cmdlines["gpl"], **gpl_opts,
     ))
     secs["gpl"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    collate(out / "gpl", d / "rad", threads, max_records, compress,
+    collate(out / "gpl", rad, threads, max_records, compress,
             cmdline=cmdlines["collate"])
     secs["collate"] = time.perf_counter() - t0
     return secs
@@ -572,6 +584,7 @@ def main(argv=None) -> int:
     rn.add_argument("--filter", default=None)
     rn.add_argument("--compress", action="store_true")
     rn.add_argument("--max-records", type=int, default=30_000_000)
+    rn.add_argument("--rad", type=Path, default=None)
     _quant_flags(rn)
     qu = sub.add_parser("quant")
     qu.add_argument("gpl", type=Path)
@@ -632,6 +645,20 @@ def main(argv=None) -> int:
     ra.add_argument("--threads", type=int, default=4)
     ra.add_argument("--compress", action="store_true")
     ra.add_argument("--skip-gpl", action="store_true")
+    mb = sub.add_parser("make-bam")
+    mb.add_argument("dir", type=Path)
+    mb.add_argument("--n-alignments", type=int, required=True)
+    mb.add_argument("--seed", type=int, default=17)
+    mb.add_argument("--threads", type=int, default=8)
+    cv = sub.add_parser("convert")
+    cv.add_argument("bam", type=Path)
+    cv.add_argument("rad", type=Path)
+    cv.add_argument("--filter-best", action="store_true")
+    cv.add_argument("--threads", type=int, default=4)
+    vw = sub.add_parser("view")
+    vw.add_argument("rad", type=Path)
+    vw.add_argument("out", type=Path)
+    vw.add_argument("--header", action="store_true")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -685,8 +712,31 @@ def main(argv=None) -> int:
                                            args.permit_size, args.seed))
         print(json.dumps({"seconds": time.perf_counter() - t0, **stats}))
         return 0
+    if args.cmd == "make-bam":
+        from bam_cases import make_bam_dataset
+
+        stats = make_bam_dataset(args.dir, args.seed, args.n_alignments, threads=args.threads)
+        print(json.dumps(stats))
+        return 0
     # the host path must not need JAX: make any import of it fail
     sys.modules["jax"] = None
+    if args.cmd == "convert":
+        from alevin_fry_tpu.pipeline.convert import bam2rad
+        from alevin_fry_tpu.radz import _native
+
+        _native.set_threads(args.threads)
+        t0 = time.perf_counter()
+        bam2rad(args.bam, args.rad, args.threads, args.filter_best)
+        print(json.dumps({"convert": time.perf_counter() - t0}))
+        return 0
+    if args.cmd == "view":
+        from alevin_fry_tpu.pipeline.view import view
+
+        t0 = time.perf_counter()
+        with open(args.out, "w") as fh:
+            n = view(args.rad, args.header, fh)
+        print(json.dumps({"view": time.perf_counter() - t0, "lines": n}))
+        return 0
     # quant's and infer's EM ask parallel/mesh.py for a device mesh, which
     # is None under HOST_ENV's AFT_EM_MESH=0; that module imports JAX at
     # its top, so it is stood in for by its answer
@@ -724,7 +774,7 @@ def main(argv=None) -> int:
     secs = run_reference(
         args.dir, args.out, json.loads(args.cmdlines.read_text()), args.usa,
         args.min_reads, args.threads, args.filter, args.compress, args.max_records,
-        quant_opts=_quant_opts(args), t2g=args.t2g,
+        quant_opts=_quant_opts(args), t2g=args.t2g, rad=args.rad,
     )
     print(json.dumps(secs))
     return 0

@@ -2,8 +2,8 @@
 1-edit rescue) -> collate -> quant (cr-like) through its CLI with
 ``--device cpu`` — against the reference package's host path on the
 same data, the out-of-core collate against the in-memory one, plus the
-boundary of the port: neither its RNA nor its ATAC stages import JAX or
-any part of the reference package.
+boundary of the port: none of its stages (RNA, ATAC, Flex, convert and
+view) imports JAX or any part of the reference package.
 
 Eight data artifacts must match byte for byte and the three stage JSONs
 field for field once the fields naming each run's directories are
@@ -30,6 +30,7 @@ from alevin_fry_tpu_torch.ops.barcodes import pack_seq, unpack_seq
 from alevin_fry_tpu_torch.pipeline import collate, gpl, quant
 from alevin_fry_tpu_torch.radz import _native, bincodeio
 from reference_host_path import artifact_mismatches, host_policies, run_reference
+from bam_cases import make_bam_dataset
 from synth import make_packed_bc, write_multi_bc_rad, write_rna_rad
 from synth_hard import make_hard_dataset
 from test_torch_atac import _atac_synth_data
@@ -138,12 +139,13 @@ def test_port_never_imports_jax_or_reference_logic(tmp_path):
     d = _synth_data(tmp_path / "d")
     a = _atac_synth_data(tmp_path / "a")
     f = _flex_synth_data(tmp_path / "f")
+    b = make_bam_dataset(tmp_path / "b", 1, 2000, n_cells=5, n_genes=10, threads=2)["path"]
     out = tmp_path / "out"
     code = f"""
 import json, sys
 sys.modules["jax"] = None
 from alevin_fry_tpu_torch.cli import main
-d, a, f, o = {str(d)!r}, {str(a)!r}, {str(f)!r}, {str(out)!r}
+d, a, f, o, b = {str(d)!r}, {str(a)!r}, {str(f)!r}, {str(out)!r}, {b!r}
 dev = ["-t", "2", "--device", "cpu"]
 assert main(["generate-permit-list", "-i", d + "/rad", "-d", "fw", "-o", o + "/gpl",
              "-u", d + "/permit.txt", "-m", "1", *dev]) == 0
@@ -172,6 +174,8 @@ assert main(["generate-permit-list", "-i", f + "/rad", "-d", "both", "-o", o + "
 assert main(["collate", "-i", o + "/fgpl", "-r", f + "/rad", *dev]) == 0
 assert main(["quant", "-i", o + "/fgpl", "-m", f + "/t2g.tsv", "-o", o + "/fquant",
              "-r", "cr-like", *dev]) == 0
+assert main(["convert", "-b", b, "-o", o + "/crad/map.rad", "-t", "2", "-f"]) == 0
+assert main(["view", "-r", o + "/crad/map.rad", "-H"]) == 0
 print(json.dumps(sorted(m for m in sys.modules if m.startswith("alevin_fry_tpu"))))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -195,6 +199,9 @@ print(json.dumps(sorted(m for m in sys.modules if m.startswith("alevin_fry_tpu")
     assert (out / "fquant" / "featureDump.txt").read_text().startswith("CB\tsample_name\t")
     assert {"alevin_fry_tpu_torch.pipeline.gpl_multi", "alevin_fry_tpu_torch.pipeline.collate_multi",
             "alevin_fry_tpu_torch.radz.collation"} <= set(loaded)
+    assert {"alevin_fry_tpu_torch.pipeline.convert", "alevin_fry_tpu_torch.pipeline.view",
+            "alevin_fry_tpu_torch.radz.writers"} <= set(loaded)
+    assert proc.stdout.count("\tDIR:") > 100  # view's lines
     assert [m for m in loaded if m.split(".")[0] == "alevin_fry_tpu"] == []
 
 
