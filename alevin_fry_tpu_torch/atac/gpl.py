@@ -1,5 +1,5 @@
 """atac generate-permit-list (port of ``alevin_fry_tpu/atac/gpl.py``,
-reference src/atac/cellfilter.rs), single process.
+reference src/atac/cellfilter.rs).
 
 Only the unfiltered external list is supported (the reference's only
 ATAC cell filter, atac/cellfilter.rs:56-65).  One streamed pass over
@@ -11,7 +11,12 @@ step is the RNA gpl's (``pipeline/gpl.rescue_and_write``), with kernel K4
 or K5 on the chosen device (``ops/barcodes.find_neighbors``).
 
 Writes permit_freq.bin, permit_map.bin, bin_recs.bin, bin_lens.bin and
-generate_permit_list.json, as the reference does.
+generate_permit_list.json, as the reference does.  In a multi-process
+run (``parallel/dist.py``) each rank counts its contiguous range of the
+chunks, which the header must count; the bins, the barcode histogram
+and the counters merge over collectives, every rank runs the rescue on
+the merged histogram and rank 0 writes.  A device mesh
+(``AFT_GPL_MESH``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -23,10 +28,11 @@ import numpy as np
 import torch
 
 from .. import __version__
-from ..device import refuse_multi_process
+from ..device import refuse_device_mesh
 from ..ops import barcodes as bcops
+from ..parallel import dist
 from ..pipeline.gpl import (
-    GPL_BLOCK_RECORDS, _histogram, _merge_histograms, rescue_and_write,
+    GPL_BLOCK_RECORDS, _histogram, _merge_histograms, merge_rank_histograms, rescue_and_write,
 )
 from ..pipeline.logging_ import get_logger
 from ..pipeline.progress import stage_timer
@@ -65,7 +71,8 @@ def initialize_rec_list(ref_lens: np.ndarray, size_range: int):
 
 def generate_permit_list(opts: AtacGplOpts) -> int:
     """Run the stage; returns the number of distinct corrected barcodes."""
-    refuse_multi_process(mesh_var="AFT_GPL_MESH")
+    refuse_device_mesh("AFT_GPL_MESH")
+    rank, world = dist.rank_world()
     with open(Path(opts.input_dir) / "map.rad", "rb") as fh:
         prelude, ftm, _ = read_prelude(fh)
         rec_type, _info = record_type_from_prelude(prelude, ftm)
@@ -74,6 +81,13 @@ def generate_permit_list(opts: AtacGplOpts) -> int:
                 f"atac generate-permit-list requires an ATAC RAD file, got {rec_type}"
             )
         schema = RecordSchema.from_prelude(prelude)
+        chunk_range = None
+        if world > 1:
+            if prelude.hdr.num_chunks <= 0:
+                raise ValueError("a multi-process atac gpl needs a chunk count in the RAD header")
+            chunk_range = dist.host_chunk_plan(prelude.hdr.num_chunks, world, rank)
+            log.info("multi-host atac gpl: process %d/%d owns chunks [%d, %d)",
+                     rank, world, *chunk_range)
         bclen = int(ftm["cblen"])
         blens, tot_bins = initialize_rec_list(
             np.asarray(ftm["ref_lengths"], np.uint64), ATAC_BIN_SIZE
@@ -86,7 +100,7 @@ def generate_permit_list(opts: AtacGplOpts) -> int:
             # ATAC headers may hold num_chunks = 0: None streams to EOF
             for batch in iter_decoded_blocks(
                 fh, schema, prelude.hdr.num_chunks or None, GPL_BLOCK_RECORDS,
-                prefetch=True,
+                prefetch=True, chunk_range=chunk_range,
             ):
                 pb.update(batch.n_reads)
                 num_reads += batch.n_reads
@@ -103,11 +117,19 @@ def generate_permit_list(opts: AtacGplOpts) -> int:
                 np.add.at(bins, bin_idx, 1)
                 b_bc, b_ct = _histogram(batch.barcode())
                 h_bc, h_ct = _merge_histograms(h_bc, h_ct, b_bc, b_ct)
+    if world > 1:
+        bins = np.sum(np.stack(dist.allgather_ragged(bins)), axis=0, dtype=np.uint64)
+        h_bc, h_ct = merge_rank_histograms(h_bc, h_ct)
+        num_reads, num_chunks, max_ambig = dist.merge_counts([num_reads, num_chunks],
+                                                             [max_ambig])
+        log.info("multi-host atac gpl: merged %d per-host histograms", world)
 
     out_dir = Path(opts.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    bincodeio.write_u64_vec_file(out_dir / "bin_recs.bin", bins)
-    bincodeio.write_u64_vec_file(out_dir / "bin_lens.bin", blens)
+    write = rank == 0
+    if write:
+        bincodeio.write_u64_vec_file(out_dir / "bin_recs.bin", bins)
+        bincodeio.write_u64_vec_file(out_dir / "bin_lens.bin", blens)
 
     # the whitelist, reverse-complemented in rc mode (atac/cellfilter.rs:104-139)
     wl, wl_len = read_barcode_file(opts.unfiltered_pl)
@@ -115,23 +137,26 @@ def generate_permit_list(opts: AtacGplOpts) -> int:
         wl = bcops.revcomp_packed(wl, wl_len)
     num_corrected = rescue_and_write(
         np.unique(wl), h_bc, h_ct, bclen, opts.min_reads, num_reads, opts.device, out_dir,
+        write,
     )
-    write_json(out_dir / "generate_permit_list.json", {
-        "version_str": opts.version,
-        "max-ambig-record": max_ambig,
-        "num-chunks": num_chunks,
-        "cmd": opts.cmdline,
-        "permit-list-type": "unfiltered",
-        "gpl_options": {
-            "input_dir": str(opts.input_dir),
-            "output_dir": str(opts.output_dir),
-            "fmeth": f"UnfilteredExternalList({opts.unfiltered_pl}, {opts.min_reads})",
-            "threads": opts.threads,
-            "rc": opts.rc,
-            "cmdline": opts.cmdline,
-            "version": opts.version,
-        },
-        "max-rec-in-bin": int(bins.max()) if tot_bins else 0,
-    })
+    if write:
+        write_json(out_dir / "generate_permit_list.json", {
+            "version_str": opts.version,
+            "max-ambig-record": max_ambig,
+            "num-chunks": num_chunks,
+            "cmd": opts.cmdline,
+            "permit-list-type": "unfiltered",
+            "gpl_options": {
+                "input_dir": str(opts.input_dir),
+                "output_dir": str(opts.output_dir),
+                "fmeth": f"UnfilteredExternalList({opts.unfiltered_pl}, {opts.min_reads})",
+                "threads": opts.threads,
+                "rc": opts.rc,
+                "cmdline": opts.cmdline,
+                "version": opts.version,
+            },
+            "max-rec-in-bin": int(bins.max()) if tot_bins else 0,
+        })
+    dist.barrier()
     log.info("total number of distinct corrected barcodes: %d", num_corrected)
     return num_corrected

@@ -1,6 +1,5 @@
 """atac sort: coordinate-sorted, deduplicated BED (port of
-``alevin_fry_tpu/atac/sort.py``, reference src/atac/sort.rs), single
-process.
+``alevin_fry_tpu/atac/sort.py``, reference src/atac/sort.rs).
 
 Rows are the uniquely mapped reads with a correctable barcode
 (atac/sort.rs:119-121): (chr, start, frag_len, corrected barcode).
@@ -17,10 +16,17 @@ spill to buckets of consecutive bins, planned from the gpl stage's
 ``bin_recs.bin`` (atac/sort.rs:484-512), each then sorted on its own,
 with the same output bytes.  With ``-c`` the BED goes through gzip into
 ``map.bed.gz``.
+
+A multi-process run (``parallel/dist.py``) always spills: each rank
+scatters its contiguous range of the chunks (counted by the header, else
+by the gpl stage) into buckets of its own (``_sort_tmp_r<rank>``); each
+bucket's rows are gathered in rank order and rank 0 sorts and writes it
+(a bucket's sort does not depend on the order of its rows).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gzip
 from pathlib import Path
@@ -29,9 +35,9 @@ import numpy as np
 import torch
 
 from .. import __version__
-from ..device import refuse_multi_process
 from ..ops.atac_device import sort_rle
 from ..ops.barcodes import revcomp_packed, unpack_seqs
+from ..parallel import dist
 from ..pipeline.collate import _lookup_map
 from ..pipeline.logging_ import get_logger
 from ..pipeline.progress import stage_timer
@@ -134,7 +140,7 @@ def sort(
     input_dir = Path(input_dir)
     rad_dir = Path(rad_dir)
     mdata = check_version_compat(version, input_dir / "generate_permit_list.json")
-    refuse_multi_process()
+    rank, world = dist.rank_world()
     rc = bool(mdata["gpl_options"]["rc"])
     for f in ("bin_recs.bin", "bin_lens.bin"):
         if not (input_dir / f).exists():
@@ -143,48 +149,64 @@ def sort(
     bins = bincodeio.read_u64_vec_file(input_dir / "bin_recs.bin")
     blens = bincodeio.read_u64_vec_file(input_dir / "bin_lens.bin").astype(np.int64)
     total_unique = int(bins.sum())
-    write_json(input_dir / "sort.json", {
-        "cmd": cmdline, "version_str": version, "compressed_output": compress_out,
-    })
+    if rank == 0:
+        write_json(input_dir / "sort.json", {
+            "cmd": cmdline, "version_str": version, "compressed_output": compress_out,
+        })
 
     bed = input_dir / ("map.bed.gz" if compress_out else "map.bed")
     with open(rad_dir / "map.rad", "rb") as fh, \
-            (gzip.open(bed, "wb") if compress_out else open(bed, "wb")) as out:
+            (contextlib.nullcontext() if rank != 0 else
+             gzip.open(bed, "wb") if compress_out else open(bed, "wb")) as out:
         prelude, ftm, _ = read_prelude(fh)
         schema = RecordSchema.from_prelude(prelude)
         # ATAC headers may hold num_chunks = 0: None streams to EOF
         nc = prelude.hdr.num_chunks or None
+        chunk_range = None
+        if world > 1:
+            n = nc or int(mdata.get("num-chunks") or 0)
+            if n <= 0:
+                raise ValueError("a multi-process atac sort needs a chunk count (the header's "
+                                 "or the gpl stage's)")
+            chunk_range = dist.host_chunk_plan(n, world, rank)
+            log.info("multi-host atac sort: host %d/%d scatters chunks [%d, %d)",
+                     rank, world, *chunk_range)
         bc_len = int(ftm["cblen"])
         ref_names = prelude.hdr.ref_names
         emit = functools.partial(
             _sort_dedup_emit, ref_names=ref_names, bc_len=bc_len, rc=rc, out=out,
             n_threads=num_threads, device=device,
         )
-        if total_unique <= max_records:
+        if world == 1 and total_unique <= max_records:
             parts = [_extract_cols(batch, map_keys, map_vals)
                      for batch in iter_decoded_blocks(fh, schema, nc, max_records)]
             n_frag = emit(np.concatenate(parts) if parts else np.empty(0, SPILL_DTYPE))
         else:
             n_frag = _sort_out_of_core(fh, schema, nc, bins, blens, max_records,
-                                       map_keys, map_vals, input_dir, emit)
+                                       map_keys, map_vals, input_dir, emit, chunk_range)
+    dist.barrier()
     log.info("wrote %d deduplicated fragments to %s", n_frag, bed)
 
 
 def _sort_out_of_core(fh, schema, nc, bins, blens, max_records, map_keys, map_vals,
-                      input_dir, emit) -> int:
-    """Scatter the rows to buckets of consecutive genomic bins, then
-    sort and emit each bucket in bin order."""
+                      input_dir, emit, chunk_range=None) -> int:
+    """Scatter the rows (of the chunks ``chunk_range``, all when None)
+    to buckets of consecutive genomic bins, then sort and emit each
+    bucket in bin order; in a multi-process run rank 0 emits each bucket
+    gathered from every rank."""
+    rank, world = dist.rank_world()
     bucket_of_bin = _plan_buckets(bins, max_records)
     n_buckets = int(bucket_of_bin[-1]) + 1 if len(bins) else 1
     log.info("out-of-core sort: %d unique records into %d genomic-bin buckets",
              int(bins.sum()), n_buckets)
-    spill_dir = input_dir / "_sort_tmp"
+    spill_dir = input_dir / ("_sort_tmp" if world == 1 else f"_sort_tmp_r{rank}")
     spill_dir.mkdir(exist_ok=True)
     paths = [spill_dir / f"bin_{b}.rows" for b in range(n_buckets)]
     files = [open(p, "wb") for p in paths]
     try:
         with stage_timer(log, "atac sort scatter", "reads") as pb:
-            for batch in iter_decoded_blocks(fh, schema, nc, max_records, prefetch=True):
+            for batch in iter_decoded_blocks(fh, schema, nc, max_records, prefetch=True,
+                                             chunk_range=chunk_range):
                 pb.update(batch.n_reads)
                 rows = _extract_cols(batch, map_keys, map_vals)
                 if len(rows) == 0:
@@ -199,7 +221,10 @@ def _sort_out_of_core(fh, schema, nc, bins, blens, max_records, map_keys, map_va
             f.close()
         n_frag = 0
         for p in paths:
-            n_frag += emit(np.fromfile(p, SPILL_DTYPE))
+            rows = np.fromfile(p, SPILL_DTYPE)
+            if world > 1:
+                rows = np.concatenate(dist.gather_to_root(rows))
+            n_frag += emit(rows)
             p.unlink()
     finally:
         for f in files:

@@ -19,6 +19,18 @@ device (view and convert are host and native code).
 The stage JSONs record the command line as ``alevin-fry-tpu <args>``,
 the reference's own form, so either package's artifacts are accepted by
 the other.
+
+With ``AFT_COORDINATOR=host:port``, ``AFT_NUM_PROCESSES=N`` and
+``AFT_PROCESS_ID=r`` set, N processes run one stage together
+(``parallel/dist.py``): each takes its share of the chunks, rank 0
+writes the artifacts, and the stage ends with a barrier and the process
+group's end, on its error path too.  ``infer``, ``view`` and
+``convert`` always run as one process.
+
+    AFT_COORDINATOR=127.0.0.1:29500 AFT_NUM_PROCESSES=2 AFT_PROCESS_ID=0 \
+        python -m alevin_fry_tpu_torch quant -i OUT -m T2G.tsv -o QUANT -r cr-like &
+    AFT_COORDINATOR=127.0.0.1:29500 AFT_NUM_PROCESSES=2 AFT_PROCESS_ID=1 \
+        python -m alevin_fry_tpu_torch quant -i OUT -m T2G.tsv -o QUANT -r cr-like
 """
 
 from __future__ import annotations
@@ -246,9 +258,9 @@ def _quant(args, cmdline, device) -> int:
 
 
 def main(argv=None) -> int:
-    from .radz import _native
-
     from .device import resolve_device
+    from .parallel import dist
+    from .radz import _native
 
     argv = argv if argv is not None else sys.argv[1:]
     cmdline = "alevin-fry-tpu " + " ".join(argv)
@@ -267,8 +279,31 @@ def main(argv=None) -> int:
 
         bam2rad(args.bam, args.output, args.threads, args.filter_best)
         return 0
-    device = resolve_device(args.device)
+    if args.command == "infer":
+        return _infer(args, resolve_device(args.device))
+    dist.initialize()
+    ok = False
+    try:
+        rc = _stage(ap, args, cmdline, resolve_device(args.device))
+        ok = True
+    finally:
+        dist.finalize(ok)
+    return rc
 
+
+def _infer(args, device) -> int:
+    if args.use_eds:
+        print("--use-eds is no longer supported.", file=sys.stderr)
+        return 1
+    from .pipeline.infer import infer
+
+    infer(args.count_mat, args.eq_labels, args.usa, args.threads, args.quant_subset,
+          args.output_dir, device)
+    return 0
+
+
+def _stage(ap, args, cmdline, device) -> int:
+    """One stage of a (possibly multi-process) run."""
     if args.command == "generate-permit-list":
         return _gpl(ap, args, cmdline, device)
     if args.command == "collate":
@@ -278,15 +313,6 @@ def main(argv=None) -> int:
             args.input_dir, args.rad_dir, device, args.max_records, args.compress,
             cmdline, collation_mode=args.collation_mode,
         )
-        return 0
-    if args.command == "infer":
-        if args.use_eds:
-            print("--use-eds is no longer supported.", file=sys.stderr)
-            return 1
-        from .pipeline.infer import infer
-
-        infer(args.count_mat, args.eq_labels, args.usa, args.threads, args.quant_subset,
-              args.output_dir, device)
         return 0
     if args.command == "atac":
         from .atac import run as atac_run

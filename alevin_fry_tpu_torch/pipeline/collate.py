@@ -24,6 +24,13 @@ stream cannot be seeked back into, so every path knows its chunk count
 before it writes the header: the cells that kept a read.  A
 multi-barcode (Flex) input goes through ``pipeline/collate_multi.py``,
 which shares the ordering, the spill buckets and their gather.
+
+A multi-process run (``parallel/dist.py``) always takes the out-of-core
+path: each rank scatters its contiguous range of the RAD chunks into
+spill buckets of its own (``_collate_tmp_r<rank>``), and each bucket's
+records and ranks are gathered over collectives in rank order, which is
+the file's chunk order, so rank 0's stable ordering of the bucket writes
+the one-process bytes.  Rank 0 writes every artifact.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from ..radz.records import RecordSchema
 from ..radz.snappyz import SnappyFrameReader, SnappyFrameWriter
 
 from .. import __version__
-from ..device import refuse_multi_process
+from ..parallel import dist
 from ..utils import aln_strand_mask, check_version_compat, record_layout, write_json
 from .logging_ import get_logger
 from .progress import stage_timer
@@ -372,20 +379,37 @@ def _gather_rank_buckets(input_dir, spill_dir, n_buckets, schema, prelude, ftm,
     """Gather phase of the spill-bucket collation: order each bucket by
     cell rank and append one chunk per cell to the collated file.  The
     header's chunk count, the cells with a record, comes first from the
-    buckets' rank files.  Returns the number of chunks written and the
-    records per cell rank."""
+    buckets' rank files.  In a multi-process run each rank holds the
+    buckets of its chunk range: each rank's records per cell, then every
+    bucket's ranks and records go to rank 0 in rank order, the file's
+    chunk order, so rank 0's stable ordering writes the one-process
+    bytes, and rank 0 alone writes.  Returns the number of chunks
+    written and the records per cell rank (at rank 0)."""
+    rank, world = dist.rank_world()
+
+    def gathered(b: int, kind: str, dtype) -> np.ndarray:
+        return np.concatenate(dist.gather_to_root(
+            np.fromfile(spill_dir / f"bucket_{b}.{kind}", dtype)))
+
     per_cell = np.zeros(n_cells, np.int64)
     for b in range(n_buckets):
-        ranks = np.fromfile(spill_dir / f"bucket_{b}.rank", np.uint32)
-        per_cell += np.bincount(ranks, minlength=n_cells)
+        per_cell += np.bincount(np.fromfile(spill_dir / f"bucket_{b}.rank", np.uint32),
+                                minlength=n_cells)
+    if world > 1:
+        cells = np.flatnonzero(per_cell)
+        held = zip(dist.gather_to_root(cells), dist.gather_to_root(per_cell[cells]))
+        per_cell = np.zeros(n_cells, np.int64)
+        for c, n in held:
+            per_cell[c] += n
     n_expected = int((per_cell > 0).sum())
     n_written = 0
-    with _collated_writer(input_dir, compress_out) as sink:
-        sink.write(_prelude_bytes(prelude, ftm, n_expected))
+    with (_collated_writer(input_dir, compress_out) if rank == 0
+          else contextlib.nullcontext()) as sink:
+        if sink is not None:
+            sink.write(_prelude_bytes(prelude, ftm, n_expected))
         for b in range(n_buckets):
-            rec_bytes = np.fromfile(spill_dir / f"bucket_{b}.rec", np.uint8)
-            ranks = np.fromfile(spill_dir / f"bucket_{b}.rank", np.uint32)
-            if len(ranks):
+            ranks, rec_bytes = gathered(b, "rank", np.uint32), gathered(b, "rec", np.uint8)
+            if sink is not None and len(ranks):
                 out_buf, n_chunks = _gather_bucket_payload(
                     rec_bytes, ranks, schema, n_cells, device
                 )
@@ -393,7 +417,7 @@ def _gather_rank_buckets(input_dir, spill_dir, n_buckets, schema, prelude, ftm,
                 n_written += n_chunks
             (spill_dir / f"bucket_{b}.rec").unlink()
             (spill_dir / f"bucket_{b}.rank").unlink()
-    if n_written != n_expected:
+    if rank == 0 and n_written != n_expected:
         raise RuntimeError(f"wrote {n_written} cell chunks, the header says {n_expected}")
     return n_written, per_cell
 
@@ -401,16 +425,30 @@ def _gather_rank_buckets(input_dir, spill_dir, n_buckets, schema, prelude, ftm,
 def _collate_out_of_core(
     input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori,
     max_records, device, compress_out: bool, expect_atac: bool = False,
+    num_chunks: int = 0,
 ) -> None:
     """Bounded-memory collation (src/collate.rs:584-905): scatter the
     corrected records, re-encoded once, into spill buckets of
     consecutive cell ranks holding at most ``max_records`` records
     each, then gather every bucket with one in-memory ordering.  Shared
-    with the ATAC collation (``expect_atac``, ``expected_ori='.'``)."""
+    with the ATAC collation (``expect_atac``, ``expected_ori='.'``).  In
+    a multi-process run each rank scatters its chunk range, planned
+    from the header's chunk count or else ``num_chunks`` (an ATAC
+    header may hold 0), and the gather runs over collectives."""
+    rank, world = dist.rank_world()
     with open(rad_dir / "map.rad", "rb") as fh:
         prelude, ftm, _ = read_prelude(fh)
         _check_record_type(prelude, ftm, expect_atac)
         schema = RecordSchema.from_prelude(prelude)
+        chunk_range = None
+        if world > 1:
+            n = prelude.hdr.num_chunks or num_chunks
+            if n <= 0:
+                raise ValueError("a multi-process collate needs the chunk count: the RAD "
+                                 "header holds none")
+            chunk_range = dist.host_chunk_plan(n, world, rank)
+            log.info("multi-host collate: host %d/%d scatters chunks [%d, %d)",
+                     rank, world, *chunk_range)
         # bucket b holds the ranks whose cumulative count starts in
         # [b * max_records, (b + 1) * max_records)
         csum = np.zeros(len(cell_cts) + 1, np.int64)
@@ -423,7 +461,7 @@ def _collate_out_of_core(
         )
         sort_perm = np.argsort(cell_bcs, kind="stable")
         cell_sorted = cell_bcs[sort_perm]
-        spill_dir = input_dir / "_collate_tmp"
+        spill_dir = input_dir / ("_collate_tmp" if world == 1 else f"_collate_tmp_r{rank}")
         spill_dir.mkdir(exist_ok=True)
         files = [
             (open(spill_dir / f"bucket_{b}.rec", "wb"),
@@ -436,6 +474,7 @@ def _collate_out_of_core(
                 for batch in iter_decoded_blocks(
                     fh, schema, prelude.hdr.num_chunks or None,
                     min(max_records, COLLATE_BLOCK_RECORDS), prefetch=True,
+                    chunk_range=chunk_range,
                 ):
                     pb.update(batch.n_reads)
                     _scatter_block(batch, schema, map_keys, map_vals, expected_ori,
@@ -549,7 +588,6 @@ def collate(
     input_dir = Path(input_dir)
     rad_dir = Path(rad_dir)
     mdata = check_version_compat(version, input_dir / "generate_permit_list.json")
-    refuse_multi_process()
     if mdata.get("multi_barcode"):
         from .collate_multi import collate_multi_bc
 
@@ -564,15 +602,21 @@ def collate(
 
 
 def collate_cells(input_dir, rad_dir, expected_ori, device, max_records, compress_out,
-                  cmdline, version, expect_atac: bool = False) -> None:
-    """The collation proper, shared with ``atac collate``: the sidecars,
-    then the out-of-core path beyond ``max_records`` records, else the
-    byte-level path, else the columnar one."""
+                  cmdline, version, expect_atac: bool = False, num_chunks: int = 0) -> None:
+    """The collation proper, shared with ``atac collate``: the sidecars
+    (rank 0's), then the out-of-core path beyond ``max_records`` records
+    or in a multi-process run (``num_chunks``: the chunk count where the
+    header holds none), else the byte-level path, else the columnar
+    one."""
+    rank, world = dist.rank_world()
     cell_bcs, cell_cts, map_keys, map_vals = _read_cells_and_map(input_dir)
-    _write_collate_sidecars(input_dir, rad_dir, map_keys, map_vals, compress_out,
-                            cmdline, version)
+    if rank == 0:
+        _write_collate_sidecars(input_dir, rad_dir, map_keys, map_vals, compress_out,
+                                cmdline, version)
     args = (input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori)
-    if int(cell_cts.sum()) > max_records:
-        _collate_out_of_core(*args, max_records, device, compress_out, expect_atac)
+    if world > 1 or int(cell_cts.sum()) > max_records:
+        _collate_out_of_core(*args, max_records, device, compress_out, expect_atac,
+                             num_chunks)
     elif not _collate_in_memory_native(*args, device, compress_out, expect_atac):
         _collate_columnar(*args, device, compress_out, expect_atac)
+    dist.barrier()

@@ -26,6 +26,11 @@ Writes ``map.collated.rad`` (``.sz`` with ``-c``), ``collation_manifest.bin``,
 an empty multi-key ``unmapped_bc_count_collated.bin`` and ``collate.json``
 with ``multi_barcode`` and ``num_samples`` (and ``collation_mode`` in the
 two-round mode, docs/parity.md divergence 8).
+
+A multi-process run (``parallel/dist.py``) always takes the out-of-core
+path: each rank scatters its chunk range, the buckets are gathered over
+collectives in rank order (``collate.py``'s gather), and rank 0 writes
+every artifact.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from ..ops import barcodes as bcops
+from ..parallel import dist
 from ..radz import bincodeio, read_prelude
 from ..radz import unmapped as unmappedio
 from ..radz.chunkio import decode_all_chunks, iter_decoded_blocks
@@ -197,10 +203,11 @@ def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_r
                 log.info("Round 2: skipping sample '%s' (no permit maps)", name)
             ctx["round2_maps"].append(bincodeio.read_u64_map_file(mp) if mp.exists() else None)
 
+    rank, world = dist.rank_world()
     with open(rad_dir / "map.rad", "rb") as fh:
         prelude, ftm, _ = read_prelude(fh)
         schema = RecordSchema.from_prelude(prelude)
-        if int(comp_counts.sum()) > max_records:
+        if world > 1 or int(comp_counts.sum()) > max_records:
             n_written, per_cell = _collate_multi_out_of_core(
                 fh, input_dir, schema, prelude, ftm, ctx, comp_counts, max_records,
                 compress_out,
@@ -211,6 +218,10 @@ def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_r
             n_written, per_cell = _collate_multi_in_memory(
                 batch, input_dir, prelude, ftm, ctx, len(comp_cells), compress_out,
             )
+    if rank != 0:
+        # rank 0 writes the sidecars and the manifest
+        dist.barrier()
+        return
 
     cmeta = {"cmd": cmdline, "version_str": version, "compressed_output": compress_out,
              "multi_barcode": True, "num_samples": num_samples}
@@ -236,6 +247,7 @@ def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_r
         ))
         chunk_offset += nch
     manifest.write_to_file(input_dir / "collation_manifest.bin")
+    dist.barrier()
     log.info(
         "Multi-barcode collation complete: %d output chunks across %d samples",
         n_written, len(present),
@@ -254,7 +266,17 @@ def _collate_multi_out_of_core(fh, input_dir, schema, prelude, ftm, ctx, comp_co
     """Bounded-memory collation: correct block by block, spill the
     re-encoded records to buckets of consecutive cell ranks planned from
     the permit counts (each at most ``max_records``), then gather each
-    bucket in rank order."""
+    bucket in rank order.  In a multi-process run each rank scatters its
+    chunk range and the gather runs over collectives."""
+    rank, world = dist.rank_world()
+    chunk_range = None
+    if world > 1:
+        if prelude.hdr.num_chunks <= 0:
+            raise ValueError("a multi-process multi-BC collate needs a chunk count in the "
+                             "RAD header")
+        chunk_range = dist.host_chunk_plan(prelude.hdr.num_chunks, world, rank)
+        log.info("multi-host multi-BC collate: host %d/%d scatters chunks [%d, %d)",
+                 rank, world, *chunk_range)
     n_cells = len(comp_counts)
     csum = np.zeros(n_cells + 1, np.int64)
     np.cumsum(comp_counts, out=csum[1:])
@@ -262,7 +284,7 @@ def _collate_multi_out_of_core(fh, input_dir, schema, prelude, ftm, ctx, comp_co
     n_buckets = int(bucket_of_rank[-1]) + 1 if n_cells else 1
     log.info("out-of-core multi-BC collation: ~%d records into %d spill buckets",
              int(csum[-1]), n_buckets)
-    spill_dir = input_dir / "_collate_tmp"
+    spill_dir = input_dir / ("_collate_tmp" if world == 1 else f"_collate_tmp_r{rank}")
     spill_dir.mkdir(exist_ok=True)
     files = [(open(spill_dir / f"bucket_{b}.rec", "wb"),
               open(spill_dir / f"bucket_{b}.rank", "wb")) for b in range(n_buckets)]
@@ -271,6 +293,7 @@ def _collate_multi_out_of_core(fh, input_dir, schema, prelude, ftm, ctx, comp_co
             for batch in iter_decoded_blocks(
                 fh, schema, prelude.hdr.num_chunks or None,
                 min(max_records, COLLATE_BLOCK_RECORDS), prefetch=True,
+                chunk_range=chunk_range,
             ):
                 pb.update(batch.n_reads)
                 _scatter_block(batch, ctx, bucket_of_rank, files)

@@ -19,6 +19,12 @@ Outputs the reference's artifacts: permit_freq.bin, permit_map.bin
 (all_freq.bin too for a filtered method) and generate_permit_list.json.
 A multi-barcode (Flex) input goes through ``pipeline/gpl_multi.py``,
 which filters each sample's cells.
+
+In a multi-process run (``parallel/dist.py``) each rank histograms its
+contiguous range of the RAD chunks; the histograms and the read counts
+merge over collectives, every rank filters the merged histogram (so
+every rank runs the rescue) and rank 0 writes the artifacts.  A device
+mesh (``AFT_GPL_MESH``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -38,9 +44,10 @@ from ..radz.chunkio import _gather_uint, iter_decoded_blocks, iter_raw_blocks
 from ..radz.records import RecordSchema
 
 from .. import __version__
-from ..device import refuse_multi_process
+from ..device import refuse_device_mesh
 from ..ops import barcodes as bcops
 from ..ops.knee import get_knee
+from ..parallel import dist
 from ..utils import (
     STRAND_BOTH, STRAND_FW, read_barcode_file, read_strand_mask,
     record_layout, strand_from_ori_arg, write_json,
@@ -137,10 +144,11 @@ def _merge_histograms(a_bc, a_ct, b_bc, b_ct):
     return bc[starts], np.add.reduceat(ct, starts).astype(np.uint64)
 
 
-def _iter_block_barcodes(fh, schema, num_chunks, strand):
+def _iter_block_barcodes(fh, schema, num_chunks, strand, chunk_range=None):
     """Yield (barcodes u64, strand-compatible mask, alignments per read)
-    per streamed block: byte-level through the native codec, else
-    through the columnar decoder."""
+    per streamed block of the chunks ``chunk_range`` (all when None):
+    byte-level through the native codec, else through the columnar
+    decoder."""
     ori_mode = {STRAND_BOTH: 0, STRAND_FW: 1}.get(strand, 2)
     ref_width = (
         dict(schema.aln_fields).get(schema.ref_field)
@@ -149,7 +157,7 @@ def _iter_block_barcodes(fh, schema, num_chunks, strand):
     if _native.available() and (ori_mode == 0 or ref_width == 4):
         bc_off, bc_width, ref_off = record_layout(schema)
         for buf, region_starts, chunk_recs in iter_raw_blocks(
-            fh, num_chunks, GPL_BLOCK_RECORDS, prefetch=True,
+            fh, num_chunks, GPL_BLOCK_RECORDS, prefetch=True, chunk_range=chunk_range,
         ):
             rec_starts, num_aln = _native.walk_records(
                 buf, region_starts, chunk_recs, schema.read_bytes, schema.aln_bytes,
@@ -165,7 +173,7 @@ def _iter_block_barcodes(fh, schema, num_chunks, strand):
             yield bcs, compat, num_aln
         return
     for block in iter_decoded_blocks(
-        fh, schema, num_chunks, GPL_BLOCK_RECORDS, prefetch=True,
+        fh, schema, num_chunks, GPL_BLOCK_RECORDS, prefetch=True, chunk_range=chunk_range,
     ):
         compat = read_strand_mask(block.dirs, block.aln_offsets, strand)
         yield block.barcode(), compat, block.num_aln_per_read
@@ -174,6 +182,8 @@ def _iter_block_barcodes(fh, schema, num_chunks, strand):
 def generate_permit_list(opts: GenPermitListOpts) -> int:
     """Run the stage; returns the number of distinct corrected barcodes
     (src/cellfilter.rs:487)."""
+    refuse_device_mesh("AFT_GPL_MESH")
+    rank, world = dist.rank_world()
     with open(Path(opts.input_dir) / "map.rad", "rb") as fh:
         prelude, ftm, _ = read_prelude(fh)
         rec_type, info = record_type_from_prelude(prelude, ftm)
@@ -182,12 +192,18 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
                 'To process atac-seq data, you should use the "atac" sub-command'
             )
         schema = RecordSchema.from_prelude(prelude)
+        chunk_range = None
+        if world > 1:
+            chunk_range = dist.host_chunk_plan(prelude.hdr.num_chunks, world, rank)
         if rec_type == KnownRecordType.RNA_MULTI_BC:
             from .gpl_multi import do_generate_permit_list_multi_bc
 
-            refuse_multi_process()
+            if chunk_range is not None:
+                log.info("multi-host multi-BC gpl: process %d/%d owns chunks [%d, %d)",
+                         rank, world, *chunk_range)
             blocks = iter_decoded_blocks(
                 fh, schema, prelude.hdr.num_chunks, GPL_BLOCK_RECORDS, prefetch=True,
+                chunk_range=chunk_range,
             )
             return do_generate_permit_list_multi_bc(opts, blocks, info)
         if prelude.hdr.num_chunks == 0:
@@ -199,13 +215,16 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
             "record type %s; ref_count %d; num_chunks %d",
             rec_type.value, prelude.hdr.ref_count, prelude.hdr.num_chunks,
         )
+        if chunk_range is not None:
+            log.info("multi-host gpl: process %d/%d owns chunks [%d, %d)",
+                     rank, world, *chunk_range)
         strand = strand_from_ori_arg(opts.expected_ori)
         num_reads = num_compat = max_ambig = 0
         h_bc = np.zeros(0, np.uint64)
         h_ct = np.zeros(0, np.uint64)
         with stage_timer(log, "generate-permit-list histogram", "reads") as pb:
             for bcs, compat, nal in _iter_block_barcodes(
-                fh, schema, prelude.hdr.num_chunks, strand,
+                fh, schema, prelude.hdr.num_chunks, strand, chunk_range,
             ):
                 pb.update(len(bcs))
                 num_reads += len(bcs)
@@ -215,17 +234,36 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
                     max_ambig = max(max_ambig, int(nal[compat].max()))
                 b_bc, b_ct = _histogram(bcs[compat] if nc < len(bcs) else bcs)
                 h_bc, h_ct = _merge_histograms(h_bc, h_ct, b_bc, b_ct)
+    if world > 1:
+        h_bc, h_ct = merge_rank_histograms(h_bc, h_ct)
+        num_reads, num_compat, max_ambig = dist.merge_counts([num_reads, num_compat],
+                                                             [max_ambig])
     log.info(
         "observed %d reads (%d orientation consistent); max ambiguity %d refs",
         num_reads, num_compat, max_ambig,
     )
     out_dir = Path(opts.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
+    # every rank filters the merged histogram; only rank 0 writes
+    write = rank == 0
     if opts.fmeth.kind == "unfiltered":
-        return _process_unfiltered(
-            opts, h_bc, h_ct, int(ftm["cblen"]), num_reads, max_ambig, out_dir
+        n = _process_unfiltered(
+            opts, h_bc, h_ct, int(ftm["cblen"]), num_reads, max_ambig, out_dir, write
         )
-    return _process_filtered(opts, h_bc, h_ct, int(ftm["cblen"]), max_ambig, out_dir)
+    else:
+        n = _process_filtered(opts, h_bc, h_ct, int(ftm["cblen"]), max_ambig, out_dir, write)
+    dist.barrier()
+    return n
+
+
+def merge_rank_histograms(h_bc: np.ndarray, h_ct: np.ndarray):
+    """Every rank's sorted (barcode, count) histogram merged, in rank
+    order, on every rank."""
+    m_bc, m_ct = np.zeros(0, np.uint64), np.zeros(0, np.uint64)
+    for p_bc, p_ct in zip(dist.allgather_ragged(np.asarray(h_bc, np.uint64)),
+                          dist.allgather_ragged(np.asarray(h_ct, np.uint64))):
+        m_bc, m_ct = _merge_histograms(m_bc, m_ct, p_bc, p_ct)
+    return m_bc, m_ct
 
 
 def rescue_and_write(
@@ -237,13 +275,15 @@ def rescue_and_write(
     num_reads: int,
     device: torch.device,
     out_dir: Path,
+    write: bool = True,
 ) -> int:
     """Keep the whitelisted barcodes (``wl_sorted``, unique) of the
     histogram ``uniq``/``counts`` with >= min_reads reads; rescue every
     other observed barcode that has a unique Hamming-1 kept neighbour
     (src/cellfilter.rs:105-333, shared by the ATAC gpl); write
-    permit_freq.bin and permit_map.bin.  Returns the number of distinct
-    corrected barcodes."""
+    permit_freq.bin and permit_map.bin (unless ``write`` is false: a
+    rank other than 0).  Returns the number of distinct corrected
+    barcodes."""
     log.info("number of unfiltered bcs read = %d", len(wl_sorted))
     idx = np.minimum(np.searchsorted(wl_sorted, uniq), max(len(wl_sorted) - 1, 0))
     in_wl = wl_sorted[idx] == uniq if len(wl_sorted) else np.zeros(len(uniq), bool)
@@ -288,6 +328,8 @@ def rescue_and_write(
     if num_corrected:
         np.add.at(kept_ct, np.searchsorted(kept_bc, reps[rescued]), rescue_ct[rescued])
 
+    if not write:
+        return num_corrected
     bincodeio.write_permit_freq(out_dir / "permit_freq.bin", bclen, kept_bc, kept_ct)
     # correction map: kept -> itself, rescued -> its unique neighbour
     bincodeio.write_u64_map_file(
@@ -306,6 +348,7 @@ def _process_unfiltered(
     num_reads: int,
     max_ambig: int,
     out_dir: Path,
+    write: bool = True,
 ) -> int:
     """Keep permit-list barcodes with >= min_reads reads; rescue every
     other observed barcode that has a unique Hamming-1 kept neighbour
@@ -318,9 +361,10 @@ def _process_unfiltered(
         )
     num_corrected = rescue_and_write(
         np.unique(wl), uniq, counts, bclen, opts.fmeth.min_reads, num_reads,
-        opts.device, out_dir,
+        opts.device, out_dir, write,
     )
-    _write_gpl_json(opts, max_ambig, out_dir, "unfiltered")
+    if write:
+        _write_gpl_json(opts, max_ambig, out_dir, "unfiltered")
     log.info("total number of distinct corrected barcodes: %d", num_corrected)
     return num_corrected
 
@@ -373,6 +417,7 @@ def _process_filtered(
     bclen: int,
     max_ambig: int,
     out_dir: Path,
+    write: bool = True,
 ) -> int:
     """Keep the filtered method's barcodes, map every 1-edit neighbour
     of a kept barcode to it, and correct the histogram through that map
@@ -387,9 +432,10 @@ def _process_filtered(
     perm_bc, inv = np.unique(map_vals[idx[hit]], return_inverse=True)
     perm_ct = np.zeros(len(perm_bc), np.uint64)
     np.add.at(perm_ct, inv, counts[hit])
-    bincodeio.write_permit_freq(out_dir / "permit_freq.bin", bclen, perm_bc, perm_ct)
-    bincodeio.write_permit_freq(out_dir / "all_freq.bin", bclen, uniq, counts)
-    bincodeio.write_u64_map_file(out_dir / "permit_map.bin", map_keys, map_vals)
-    _write_gpl_json(opts, max_ambig, out_dir, "filtered")
+    if write:
+        bincodeio.write_permit_freq(out_dir / "permit_freq.bin", bclen, perm_bc, perm_ct)
+        bincodeio.write_permit_freq(out_dir / "all_freq.bin", bclen, uniq, counts)
+        bincodeio.write_u64_map_file(out_dir / "permit_map.bin", map_keys, map_vals)
+        _write_gpl_json(opts, max_ambig, out_dir, "filtered")
     log.info("total number of distinct corrected barcodes: %d", num_corrected)
     return num_corrected

@@ -16,7 +16,11 @@ do_generate_permit_list_multi_bc, src/cellfilter.rs:563-1063).
 * writes ``sample_permit_map.bin``, ``sample_info.json`` and the
   ``generate_permit_list.json`` gate with ``multi_barcode: true``.
 
-Host NumPy apart from the rescue, as in the reference.
+Host NumPy apart from the rescue, as in the reference.  In a
+multi-process run (``parallel/dist.py``) the caller gives each rank the
+blocks of its chunk range; the composite histograms and the read
+counters merge over collectives, every rank filters every sample, and
+rank 0 writes the artifacts.
 """
 
 from __future__ import annotations
@@ -28,9 +32,10 @@ import numpy as np
 
 from ..ops import barcodes as bcops
 from ..ops.knee import get_knee
+from ..parallel import dist
 from ..radz import bincodeio
 from ..utils import read_barcode_file, read_strand_mask, strand_from_ori_arg, write_json
-from .gpl import _histogram, _merge_histograms
+from .gpl import _histogram, _merge_histograms, merge_rank_histograms
 from .logging_ import get_logger
 
 log = get_logger("gpl.multi")
@@ -144,6 +149,14 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
         unmatched_reads += int((~known).sum())
         comp = (canon_perm[ci[known]].astype(np.uint64) << cbits) | cbc[known]
         h_key, h_ct = _merge_histograms(h_key, h_ct, *_histogram(comp))
+    rank, world = dist.rank_world()
+    if world > 1:
+        h_key, h_ct = merge_rank_histograms(h_key, h_ct)
+        total_reads, matched_reads, unmatched_reads = dist.merge_counts(
+            [total_reads, matched_reads, unmatched_reads])
+        log.info("multi-host multi-BC gpl: merged %d per-host histograms (%d composite keys)",
+                 world, len(h_key))
+    write = rank == 0
     log.info(
         "First pass complete: %d total reads, %d matched to samples, %d unmatched",
         total_reads, matched_reads, unmatched_reads,
@@ -156,11 +169,12 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
         min_reads = int(opts.fmeth.min_reads)
         log.info("Loaded %d cell barcodes from whitelist", len(wl_sorted))
 
-    bincodeio.write_u64_map_file(
-        out_dir / "sample_permit_map.bin",
-        np.asarray(list(permit.keys()), np.uint64),
-        np.asarray(list(permit.values()), np.uint64),
-    )
+    if write:
+        bincodeio.write_u64_map_file(
+            out_dir / "sample_permit_map.bin",
+            np.asarray(list(permit.keys()), np.uint64),
+            np.asarray(list(permit.values()), np.uint64),
+        )
 
     total_cells = 0
     sample_entries = []
@@ -179,36 +193,40 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
         kept_bc, kept_ct, map_keys, map_vals = _filter_sample_cells(
             opts, uniq, h_ct[sel].astype(np.uint64), wl_sorted, min_reads, cell_bc_len, name
         )
-        sample_dir = out_dir / f"sample_{name}"
-        sample_dir.mkdir(parents=True, exist_ok=True)
-        bincodeio.write_u64_map_file(sample_dir / "permit_map.bin", map_keys, map_vals)
-        bincodeio.write_permit_freq(sample_dir / "permit_freq.bin", cell_bc_len, kept_bc, kept_ct)
+        if write:
+            sample_dir = out_dir / f"sample_{name}"
+            sample_dir.mkdir(parents=True, exist_ok=True)
+            bincodeio.write_u64_map_file(sample_dir / "permit_map.bin", map_keys, map_vals)
+            bincodeio.write_permit_freq(sample_dir / "permit_freq.bin", cell_bc_len, kept_bc,
+                                        kept_ct)
         total_cells += len(kept_bc)
         entry.update(num_reads=int(kept_ct.sum()), num_cells=int(len(kept_bc)))
 
-    write_json(out_dir / "sample_info.json", {
-        "num_samples": num_samples,
-        "num_barcodes": num_barcodes,
-        "total_cells": total_cells,
-        "total_reads": total_reads,
-        "matched_reads": matched_reads,
-        "unmatched_reads": unmatched_reads,
-        "sample_correction_mode": (
-            "OneEdit" if opts.sample_correction_mode == "1-edit" else "Exact"
-        ),
-        "sample_bc_ori": "Reverse" if reverse else "Forward",
-        "samples": sample_entries,
-    })
-    # the reference writes no gpl_options record on this path
-    write_json(out_dir / "generate_permit_list.json", {
-        "velo_mode": False,
-        "expected_ori": strand,
-        "version_str": opts.version,
-        "cmd": opts.cmdline,
-        "permit-list-type": opts.fmeth.describe(),
-        "multi_barcode": True,
-        "num_barcodes": num_barcodes,
-    })
+    if write:
+        write_json(out_dir / "sample_info.json", {
+            "num_samples": num_samples,
+            "num_barcodes": num_barcodes,
+            "total_cells": total_cells,
+            "total_reads": total_reads,
+            "matched_reads": matched_reads,
+            "unmatched_reads": unmatched_reads,
+            "sample_correction_mode": (
+                "OneEdit" if opts.sample_correction_mode == "1-edit" else "Exact"
+            ),
+            "sample_bc_ori": "Reverse" if reverse else "Forward",
+            "samples": sample_entries,
+        })
+        # the reference writes no gpl_options record on this path
+        write_json(out_dir / "generate_permit_list.json", {
+            "velo_mode": False,
+            "expected_ori": strand,
+            "version_str": opts.version,
+            "cmd": opts.cmdline,
+            "permit-list-type": opts.fmeth.describe(),
+            "multi_barcode": True,
+            "num_barcodes": num_barcodes,
+        })
+    dist.barrier()
     log.info(
         "Multi-barcode permit list generation complete: %d samples, %d total cells",
         num_samples, total_cells,

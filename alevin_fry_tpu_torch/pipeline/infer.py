@@ -5,7 +5,9 @@ Reads the cell x class MTX (``quant -d``'s ``geqc_counts.mtx``) and the
 gzipped class labels (``gene_eqclass.txt.gz``), runs every cell's EM on
 the device (kernel K6, ``ops/em.py``; USA offsets with ``--usa``, always
 with the thresholded last round) and writes the cell x gene matrix with
-its rows file and the input's cols file.
+its rows file and the input's cols file.  As the reference's, it runs as
+one process, a multi-process coordinator set or not; a device mesh
+(``AFT_EM_MESH``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..device import refuse_multi_process
+from ..device import refuse_device_mesh
 from ..ops.barcodes import pack_seqs
 from ..ops.em import em_cells
 from ..radz.mtx import read_matrix_market, write_matrix_market
@@ -56,7 +58,7 @@ def infer(
     device: torch.device,
 ) -> None:
     del num_threads  # the EM runs on the device
-    refuse_multi_process(mesh_var="AFT_EM_MESH")
+    refuse_device_mesh("AFT_EM_MESH")
     count_mat = Path(count_mat)
     parent = count_mat.parent
     rows, cols, vals, (n_cells, n_eqc_mat) = read_matrix_market(count_mat)

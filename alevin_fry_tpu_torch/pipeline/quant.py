@@ -38,6 +38,16 @@ hierarchically collated (Flex) directory's ``collation_manifest.bin``
 names the samples: each cell's manifest ordinal, in its first record's
 barcodes[0], prefixes its row (``<sample>_<barcode>``) and fills
 featureDump.txt's ``sample_name`` column, whatever the resolution.
+
+The count triplets stay in memory up to ``QUANT_SPILL_TRIPLETS``;
+past that they go to a binary sidecar and the matrix body streams from
+it to disk in rounds of ``QUANT_MERGE_TRIPLETS`` (``radz/mtx.py``'s
+``MtxStreamWriter``), the same bytes.  A multi-process run
+(``parallel/dist.py``) is the same with N ranks: each resolves a
+contiguous range of the cells holding about its share of the records,
+and rank 0 writes every artifact, the matrix body streamed from the
+ranks in rank order, the rest sent to it in rank order, with the rows of
+each rank shifted by the cells of the ranks before it.
 """
 
 from __future__ import annotations
@@ -51,19 +61,20 @@ import numpy as np
 import torch
 
 from ..radz import KnownRecordType, _native, record_type_from_prelude
-from ..radz.chunkio import ReadBatch, iter_decoded_blocks
+from ..radz.chunkio import ReadBatch, chunk_record_counts, iter_decoded_blocks
 from ..radz.collation import CollationManifest
 from ..radz.constants import SMALL_CELL_FAST_THRESHOLD
-from ..radz.mtx import format_f32_list, write_matrix_market
+from ..radz.mtx import MtxStreamWriter, format_f32_list, write_matrix_market
 from ..radz.records import RecordSchema
 from ..radz.unmapped import UnmappedLookup
 
 from .. import __version__
-from ..device import refuse_multi_process
+from ..device import refuse_device_mesh
 from ..ops import crlike, pug
 from ..ops.barcodes import unpack_seqs
 from ..ops.bootstrap import run_bootstraps
 from ..ops.em import class_weights_from_prob_rows, em_cells
+from ..parallel import dist
 from ..utils import parse_tg_map, read_barcode_file, write_json
 from .collate import open_collated
 from .logging_ import get_logger
@@ -73,6 +84,10 @@ log = get_logger("quant")
 
 # reads per streamed block of whole cells
 QUANT_BLOCK_RECORDS = 30_000_000
+# count triplets held in memory before the matrix body streams to disk
+QUANT_SPILL_TRIPLETS = 50_000_000
+# triplets a round of the streamed matrix body moves
+QUANT_MERGE_TRIPLETS = 4_000_000
 
 # the reference serializes the enum's Debug name (src/quant.rs:92-96)
 RESOLUTION_NAMES = {
@@ -127,7 +142,7 @@ class CellResult:
 
 def _check_supported(opts: QuantOpts) -> None:
     if opts.resolution.endswith("-em"):
-        refuse_multi_process(mesh_var="AFT_EM_MESH")
+        refuse_device_mesh("AFT_EM_MESH")
 
 
 def quantify(opts: QuantOpts) -> None:
@@ -188,25 +203,59 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
     if opts.filter_list is not None:
         listed = np.unique(read_barcode_file(Path(opts.filter_list), barcode_len)[0])
 
+    rank, world = dist.rank_world()
+    chunk_range = None
+    if world > 1:
+        # the cells are chunks, largest first: split by records
+        with open_collated(parent) as (fh, _prelude, _ftm):
+            chunk_range = dist.record_chunk_plan(chunk_record_counts(fh, hdr.num_chunks),
+                                                 world, rank)
+        log.info("multi-host quant: process %d/%d owns cell chunks [%d, %d)",
+                 rank, world, *chunk_range)
+    mtx_path = Path(opts.output_dir) / "alevin" / "quants_mat.mtx"
+    sink = _CooSpill(mtx_path.parent / f".quants_coo_r{rank}", QUANT_SPILL_TRIPLETS)
     # blocks of whole cells: cells are independent, so each block
     # resolves on its own; only each cell's first barcode is read
     parts: List[CellResult] = []
-    with stage_timer(log, "quant resolve", "reads") as pb:
-        for batch in iter_decoded_blocks(
-            br, schema, hdr.num_chunks, QUANT_BLOCK_RECORDS,
-            skip_read_fields=set(schema.barcode_fields), want_dirs=False,
-            prefetch=True,
-        ):
-            pb.update(batch.n_reads)
-            keep = np.ones(len(batch.chunk_offsets) - 1, bool)
-            if listed is not None:
-                keep = np.isin(batch.barcode_at(batch.chunk_offsets[:-1]), listed)
-            parts.append(_resolve_cells(batch, keep, tid_to_gid, opts, sa_model, usa_mode,
-                                        num_genes, num_rows, sample_names))
-    _write_outputs(
-        opts, _merge_results(parts), gene_names, usa_mode, num_rows,
-        barcode_len, unmapped, sample_names,
-    )
+    empty = (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float32))
+    try:
+        with stage_timer(log, "quant resolve", "reads") as pb:
+            for batch in iter_decoded_blocks(
+                br, schema, hdr.num_chunks, QUANT_BLOCK_RECORDS,
+                skip_read_fields=set(schema.barcode_fields), want_dirs=False,
+                chunk_range=chunk_range, prefetch=True,
+            ):
+                pb.update(batch.n_reads)
+                keep = np.ones(len(batch.chunk_offsets) - 1, bool)
+                if listed is not None:
+                    keep = np.isin(batch.barcode_at(batch.chunk_offsets[:-1]), listed)
+                res = _resolve_cells(batch, keep, tid_to_gid, opts, sa_model, usa_mode,
+                                     num_genes, num_rows, sample_names)
+                # the triplets go to the sink, which shifts their rows
+                sink.add(res.rows, res.cols, res.vals, len(res.cells))
+                res.rows, res.cols, res.vals = empty
+                parts.append(res)
+        result = _merge_results(parts)
+        mtx_written = world > 1 or sink.spilled
+        if sink.spilled:
+            log.info("process %d: %d triplets spilled to the rank-local binary sidecar past "
+                     "the %d in-memory bound; quants_mat.mtx streamed to disk", rank,
+                     sink.nnz, QUANT_SPILL_TRIPLETS)
+        if mtx_written:
+            _stream_merge_mtx(sink, len(result.cells), num_rows, mtx_path)
+        else:
+            result.rows, result.cols, result.vals = sink.concatenated()
+        if world > 1:
+            result = _merge_hosts(result, opts,
+                                  sample_names is not None and len(schema.barcode_fields) > 1)
+    finally:
+        sink.cleanup()
+    if rank == 0:
+        _write_outputs(
+            opts, result, gene_names, usa_mode, num_rows, barcode_len, unmapped,
+            sample_names, mtx_written,
+        )
+    dist.barrier()
 
 
 def _coo_cell_stats(rows: np.ndarray, vals: np.ndarray, n_cells: int) -> tuple:
@@ -493,6 +542,161 @@ def _merge_results(parts: List[CellResult]) -> CellResult:
     )
 
 
+class _CooSpill:
+    """One rank's count triplets at bounded memory: in memory until more
+    than ``spill`` triplets came, then in three rank-local binary
+    sidecars ``<base>.rows``, ``.cols`` and ``.vals``, read back by
+    :meth:`iter_chunks` for the streamed matrix body.  Rows come
+    block-local and are shifted here to rank-local rows; the body shifts
+    them by the ranks before."""
+
+    DTYPES = (np.int64, np.int64, np.float32)
+
+    def __init__(self, base: Path, spill: int):
+        self.base, self.spill = Path(base), spill
+        self.row_off = self.nnz = 0
+        self._blocks: List[tuple] = []
+        self._fh = None
+
+    def _paths(self) -> List[Path]:
+        return [Path(f"{self.base}.{s}") for s in ("rows", "cols", "vals")]
+
+    def add(self, rows, cols, vals, n_cells: int) -> None:
+        blk = tuple(np.asarray(a, dt) for a, dt in zip((rows + self.row_off, cols, vals),
+                                                       self.DTYPES))
+        self.row_off += n_cells
+        self.nnz += len(vals)
+        if self._fh is None:
+            self._blocks.append(blk)
+            if self.nnz <= self.spill:
+                return
+            self.base.parent.mkdir(parents=True, exist_ok=True)
+            self._fh = [open(p, "wb") for p in self._paths()]
+            blks, self._blocks = self._blocks, []
+        else:
+            blks = [blk]
+        for b in blks:
+            for fh, a in zip(self._fh, b):
+                fh.write(a.tobytes())
+
+    @property
+    def spilled(self) -> bool:
+        return self._fh is not None
+
+    def concatenated(self) -> tuple:
+        """The triplets held in memory (none spilled), concatenated."""
+        cat = tuple(np.concatenate([np.zeros(0, dt)] + [b[i] for b in self._blocks])
+                    for i, dt in enumerate(self.DTYPES))
+        self._blocks = []
+        return cat
+
+    def iter_chunks(self, chunk: int):
+        """The triplets in windows of at most ``chunk``: exactly
+        ``ceil(nnz / chunk)`` of them, as the merge counts on."""
+        if self._fh is None:
+            cat = self.concatenated()
+            for off in range(0, self.nnz, chunk):
+                yield tuple(c[off:off + chunk] for c in cat)
+            return
+        for fh in self._fh:
+            fh.close()
+        for off in range(0, self.nnz, chunk):
+            n = min(chunk, self.nnz - off)
+            yield tuple(np.fromfile(p, dt, count=n, offset=off * np.dtype(dt).itemsize)
+                        for p, dt in zip(self._paths(), self.DTYPES))
+
+    def cleanup(self) -> None:
+        """Close and remove the sidecars."""
+        for fh in self._fh or ():
+            fh.close()
+        self._fh, self._blocks = None, []
+        for p in self._paths():
+            p.unlink(missing_ok=True)
+
+
+def _stream_merge_mtx(sink: _CooSpill, n_local_cells: int, num_rows: int,
+                      out_path: Path) -> None:
+    """quants_mat.mtx at rank 0 from every rank's triplets, with no whole
+    matrix in memory: the ranks own contiguous cell ranges, so the body
+    is their triplets in rank order, each round of at most
+    ``QUANT_MERGE_TRIPLETS`` sent to rank 0 once.  Rank 0 counts each
+    rank's rounds from gathered numbers.  One process is world 1."""
+    rank, world = dist.rank_world()
+    chunk = QUANT_MERGE_TRIPLETS
+    counts = np.concatenate(dist.allgather_ragged(np.asarray([n_local_cells], np.int64)))
+    nnz = np.concatenate(dist.allgather_ragged(np.asarray([sink.nnz], np.int64)))
+    if rank != 0:
+        try:
+            for part in sink.iter_chunks(chunk):
+                for a in part:
+                    dist.send_to_root(a)
+        finally:
+            sink.cleanup()
+        return
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    writer = MtxStreamWriter(out_path)
+    base = 0
+    try:
+        for r in range(world):
+            rounds = (sink.iter_chunks(chunk) if r == 0 else
+                      (tuple(dist.recv_from(r, dt) for dt in _CooSpill.DTYPES)
+                       for _ in range(-(-int(nnz[r]) // chunk))))
+            for rr, cc, vv in rounds:
+                writer.add(rr + base, cc, vv)
+            base += int(counts[r])
+        writer.finalize((int(counts.sum()), num_rows))
+        writer = None
+    finally:
+        if writer is not None:
+            writer.abort()
+        sink.cleanup()
+
+
+def _merge_hosts(result: CellResult, opts: QuantOpts, want_sample: bool) -> CellResult:
+    """Every rank's CellResult (its matrix triplets already merged by
+    :func:`_stream_merge_mtx`) gathered at rank 0 in rank order; rows
+    shift by the cells of the ranks before.  What is gathered follows the
+    options and the input, never the local result, which may be empty on
+    a rank, so every rank enters the same collectives.  Other ranks get
+    an empty result."""
+    rank, _world = dist.rank_world()
+    n_rows = np.concatenate(dist.allgather_ragged(np.asarray([len(result.cells)], np.int64)))
+    row_off = int(n_rows[:rank].sum())
+
+    def gather(a, dt):
+        return np.concatenate(dist.gather_to_root(np.asarray(a, dt)))
+
+    eqc = None
+    if opts.dump_eq:
+        rows, lens, labels, counts = result.eqc if result.eqc is not None else (
+            np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.uint32),
+            np.zeros(0, np.uint32))
+        eqc = (gather(rows + row_off, np.int64), gather(lens, np.int64),
+               gather(labels, np.uint32), gather(counts, np.uint32))
+    boot_mean = boot_var = None
+    if opts.num_bootstraps > 0:
+        # as in one process, the matrices exist once some block ran the EM
+        ran = gather([result.boot_mean is not None], np.int64).any()
+        z = (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float32))
+        boot_mean, boot_var = (dist.merge_partial_coo(*(t if t is not None else z), row_off)
+                               for t in (result.boot_mean, result.boot_var))
+        if not ran:
+            boot_mean = boot_var = None
+    sample_idx = None
+    if want_sample:
+        sample_idx = gather(result.sample_idx if result.sample_idx is not None
+                            else np.zeros(0, np.int64), np.int64)
+    z64 = np.zeros(0, np.int64)
+    return CellResult(
+        cells=gather(result.cells, np.int64), cell_bcs=gather(result.cell_bcs, np.uint64),
+        nrec=gather(result.nrec, np.int64), rows=z64, cols=z64, vals=np.zeros(0, np.float32),
+        cell_stats=tuple(gather(a, dt) for a, dt in zip(
+            result.cell_stats, (np.float32, np.float32, np.int64, np.int64))),
+        eqc=eqc, alt_cells=[int(c) for c in gather(result.alt_cells, np.int64)],
+        boot_mean=boot_mean, boot_var=boot_var, sample_idx=sample_idx,
+    )
+
+
 def _write_outputs(
     opts: QuantOpts,
     result: CellResult,
@@ -502,7 +706,11 @@ def _write_outputs(
     barcode_len: int,
     unmapped: UnmappedLookup,
     sample_names: Optional[List[str]],
+    mtx_written: bool = False,
 ) -> None:
+    """Write the stage's artifacts; ``mtx_written``: quants_mat.mtx is
+    already there (streamed past the spill bound, or merged from the
+    ranks)."""
     out_path = Path(opts.output_dir)
     mat_path = out_path / "alevin"
     mat_path.mkdir(parents=True, exist_ok=True)
@@ -559,10 +767,11 @@ def _write_outputs(
         )
         ffd.write("".join(line.tolist()))
 
-    write_matrix_market(
-        mat_path / "quants_mat.mtx", result.rows, result.cols, result.vals,
-        (n_rows_out, num_rows),
-    )
+    if not mtx_written:
+        write_matrix_market(
+            mat_path / "quants_mat.mtx", result.rows, result.cols, result.vals,
+            (n_rows_out, num_rows),
+        )
     if result.boot_mean is not None:
         for name, (r, c, v) in (("bootstraps_mean.mtx", result.boot_mean),
                                 ("bootstraps_var.mtx", result.boot_var)):

@@ -188,6 +188,19 @@ def read_chunk_bodies(
     return buf, region_starts, np.asarray(chunk_recs, np.int64)
 
 
+def chunk_record_counts(fh: BinaryIO, num_chunks: int) -> np.ndarray:
+    """The record count of each of the next ``num_chunks`` chunks of
+    ``fh``, from their headers alone: the bodies are skipped."""
+    counts = np.zeros(num_chunks, np.int64)
+    for i in range(num_chunks):
+        hdr = fh.read(8)
+        if len(hdr) < 8:
+            raise EOFError(f"expected {num_chunks} chunks but hit EOF after {i}")
+        nbytes, counts[i] = struct.unpack("<II", hdr)
+        fh.seek(nbytes - 8, 1)
+    return counts
+
+
 def decode_all_chunks(
     fh: BinaryIO,
     schema: RecordSchema,

@@ -97,6 +97,38 @@ def write_matrix_market(
         fh.write(format_mtx_body(rows, cols, vals))
 
 
+class MtxStreamWriter:
+    """A MatrixMarket file written block by block at bounded memory: the
+    body streams to a sidecar as the blocks come, and :meth:`finalize`
+    writes the header, whose entry count is known only then, and one
+    sequential copy of the body; nothing seeks back.  The bytes equal
+    one ``write_matrix_market`` call over the concatenated triplets."""
+
+    def __init__(self, path: Path):
+        self.path = Path(path)
+        self._tmp = self.path.with_suffix(self.path.suffix + ".body.tmp")
+        self._fh = open(self._tmp, "wb")
+        self.nnz = 0
+
+    def add(self, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray) -> None:
+        self._fh.write(format_mtx_body(rows, cols, vals))
+        self.nnz += len(vals)
+
+    def finalize(self, shape: Tuple[int, int]) -> None:
+        import shutil
+
+        self._fh.close()
+        with open(self.path, "wb") as out, open(self._tmp, "rb") as body:
+            out.write(MTX_HEADER)
+            out.write(f"{shape[0]} {shape[1]} {self.nnz}\n".encode())
+            shutil.copyfileobj(body, out, 1 << 22)
+        self._tmp.unlink()
+
+    def abort(self) -> None:
+        self._fh.close()
+        self._tmp.unlink(missing_ok=True)
+
+
 def read_matrix_market(path: Path):
     """Read a coordinate MatrixMarket file -> (rows, cols, vals f64,
     (nrows, ncols)), indices 0-based."""

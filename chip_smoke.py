@@ -148,7 +148,22 @@ Phases, one line each:
    stage JSONs field for field, the stages' seconds, peak device memory
    and launches; (d) convert -f and view -H of a second BAM of 1M
    alignments in both packages, the RAD byte for byte and the text by
-   sha256; K4 and K1-K3 replayed on this path's largest inputs.
+   sha256; K4 and K1-K3 replayed on this path's largest inputs;
+12. multi-process runs: the port's CLI stages as two processes sharing
+   the card (a pair of tools/stage_worker.py ranks over gloo a run, each
+   stage joining at a free local port of its own), each against an earlier
+   phase's one-process run on the same data: (a) phase 3's gpl -u,
+   collate and quant -r cr-like, the eight data artifacts byte for byte
+   and the stage JSONs field for field (K4 in gpl and K1-K3 in quant on
+   both ranks); (b) on (a)'s collated data quant -r cr-like-em -d against
+   phase 7 and -r cr-like-em -b 20 --summary-stat on phase 9 (c)'s
+   subset against 9 (c) (K6, K6's bootstrap mode and K8 on both ranks);
+   (c) quant -r cr-like with the spill bound at 1,000,000 triplets and
+   the merge round at 250,000, as one process and as two, against phase
+   3; (d) phase 5's ATAC stages (K5 on both ranks in gpl, K1 and K2 in
+   deduplicate), the counters too; (e) phase 10 (a)'s Flex stages (K4 on
+   both ranks in gpl and collate); every stage's seconds, peak device
+   memory and gloo bytes per rank, and the phase's seconds.
 
 With --profile, phases 3, 5, 6, 7, 10 and 11 also run each stage under torch.profiler
 and cProfile and print the device's busy time (the union of its kernel
@@ -280,6 +295,12 @@ FLEX_KERNELS = ("K1", "K2", "K3", "K4")  # quant's WTA, gpl's rescue and collate
 # a second one for convert -f and view; only the depth is cut
 BAM_SEED, BAM_ALIGNMENTS = 17, 20_000_000
 BAM_F_SEED, BAM_F_ALIGNMENTS = 19, 1_000_000
+# phase 12: two processes of the port on the card (a pair of
+# tools/stage_worker.py ranks over gloo a run); the seconds a run's pair
+# may take before both are killed, and quant's spill bound and merge
+# round for run (c)
+MH_TIMEOUT = 300
+MH_SPILL, MH_MERGE = 1_000_000, 250_000
 
 
 def card_line() -> str:
@@ -1075,6 +1096,7 @@ def atac_phase(work: Path, card: str, profile: bool) -> list:
     if bad or ref["dedup"] != stats:
         raise AssertionError(f"port and reference differ in {bad}, counters {stats} vs "
                              f"{ref['dedup']}")
+    (work / "atac_counters.json").write_text(json.dumps(stats))  # phase 12 (d)'s
     bed_rows = sum(1 for _ in open(out / "gpl" / "map.bed"))
     print(f"phase 5: 8 data artifacts byte-identical ({bed_rows} deduplicated BED rows), "
           "3 stage JSONs and the 4 deduplicate counters equal to the reference host path "
@@ -2254,6 +2276,188 @@ def bam_phase(work: Path, chain: dict, card: str, profile: bool) -> list:
     return replay(cap.inputs, RNA_KERNELS, total, "bam", "phase 11", card)
 
 
+# --- phase 12 ---------------------------------------------------------------
+
+def mh_jsons_differ(a: Path, b: Path, names) -> list:
+    """The stage JSONs of ``names`` that differ between two runs, field
+    for field without the fields naming a run's directories and its
+    command line."""
+    from reference_host_path import comparable_json
+
+    def fields(path):
+        d = comparable_json(path)
+        d.pop("cmd", None)
+        for key in ("gpl_options", "quant_options"):
+            d.get(key, {}).pop("cmdline", None)
+        return d
+
+    return [n for n in names if fields(a / n) != fields(b / n)]
+
+
+def mh_run(label: str, stages: list, logs: Path, card: str, set_=(), **env) -> tuple:
+    """A run's stages as two ranks of the port on the card: one pair of
+    tools/stage_worker.py processes (tests/two_process.py) runs them one
+    after another, each stage joining the run at a free local port of its
+    own, as the CLI does.  ``stages``: (name, argv, kernels, ranks[, moves])
+    -- each kernel must launch on each of ``ranks`` in that stage.  Raises
+    if a rank fails or the pair outlives MH_TIMEOUT.  Prints each stage's
+    seconds, peak device memory, bytes sent through gloo and launches per
+    rank; returns each stage's per-rank summaries and the ranks' logs."""
+    from two_process import run_two
+
+    summaries, errs = run_two([[name, argv, *moves] for name, argv, _k, _r, *moves in stages],
+                              logs, set_, MH_TIMEOUT, **env)
+    out = {}
+    for name, _argv, need, ranks, *_moves in stages:
+        st = out[name] = [s["stages"][name] for s in summaries]
+        missing = [(r, k) for r in ranks for k in need if st[r]["launches"][k] < 1]
+        if missing:
+            raise AssertionError(f"phase 12 {label} {name}: (rank, kernel) never launched "
+                                 f"{missing}: {[x['launches'] for x in st]}")
+        print(f"phase 12 {label}: {name} " + "; ".join(
+            f"rank {r} on {x['device']} {x['seconds']:.2f} s, peak {x['peak_mib']:.0f} MiB, "
+            f"gloo {x['gloo_bytes']} B sent, launches "
+            f"{ {k: v for k, v in x['launches'].items() if v} }" for r, x in enumerate(st))
+            + f" [{card}]", flush=True)
+    return out, errs
+
+
+def multihost_phase(work: Path, data: Path, subset: Path, card: str) -> None:
+    """Phase 12: the port's stages as two processes on the card, each
+    against the one-process run of an earlier phase on the same data:
+    (a) phase 3's gpl, collate and quant; (b) on (a)'s collated data,
+    phase 7's quant -r cr-like-em -d and phase 9 (c)'s -b 20
+    --summary-stat on its subset; (c) quant with the spill bound at
+    MH_SPILL triplets and the merge round at MH_MERGE, as one process (in
+    this one) and as two, against phase 3's; (d) phase 5's ATAC stages;
+    (e) phase 10 (a)'s Flex stages."""
+    import logging
+
+    import torch
+
+    from alevin_fry_tpu_torch.pipeline import quant as port_quant
+    from reference_host_path import (
+        ATAC_DATA_ARTIFACTS, ATAC_STAGE_JSONS, BOOT_ARTIFACTS, DATA_ARTIFACTS, DUMP_ARTIFACTS,
+        FLEX_STAGE_JSONS, QUANT_ARTIFACTS, STAGE_JSONS, artifact_mismatches, flex_artifacts,
+    )
+
+    t_phase = time.perf_counter()
+    out, logs = work / "p12", work / "p12_logs"
+    dev = ["-t", str(THREADS), "--device", "cuda"]
+    both = (0, 1)
+
+    def check(label, got, want, names, jsons):
+        bad = artifact_mismatches(got, want, names, ()) + mh_jsons_differ(got, want, jsons)
+        if bad:
+            raise AssertionError(f"phase 12 {label}: differs from the one-process run in {bad}")
+
+    # (a) the main path
+    a = out / "a"
+    mh_run("(a)", [
+        ("gpl", ["generate-permit-list", "-i", str(data / "rad"), "-d", "fw", "-o",
+                 str(a / "gpl"), "-u", str(data / "permit.txt"), "-m", "10", *dev], ("K4",), both),
+        ("collate", ["collate", "-i", str(a / "gpl"), "-r", str(data / "rad"), *dev], (), ()),
+        ("quant", ["quant", "-i", str(a / "gpl"), "-m", str(data / "t2g_3col.tsv"), "-o",
+                   str(a / "quant"), "-r", "cr-like", *dev], SCAN_KERNELS, both),
+    ], logs / "a", card)
+    check("(a)", a, work / "port", DATA_ARTIFACTS, STAGE_JSONS)
+    print("phase 12 (a): 8 data artifacts byte-identical and 3 stage JSONs equal to phase 3's "
+          "one-process run (which phase 4 holds to the reference)", flush=True)
+
+    # (b) the EM with its dump, and the bootstraps on phase 9 (c)'s subset
+    mh_run("(b)", [
+        ("quant -r cr-like-em -d", [
+            "quant", "-i", str(a / "gpl"), "-m", str(data / "t2g_3col.tsv"), "-o",
+            str(out / "b_em" / "quant"), "-r", "cr-like-em", "-d", *dev], ("K6",), both),
+        ("quant -b 20", [
+            "quant", "-i", str(a / "gpl"), "-m", str(data / "t2g.tsv"), "-o",
+            str(out / "b_boot" / "quant"), *BOOT_QUANTS[0][1], "--quant-subset", str(subset),
+            *dev], ("K6", "K6-boot", "K8"), both),
+    ], logs / "b", card)
+    check("(b) -d", out / "b_em", work / "p7_port" / "em-usa", QUANT_ARTIFACTS + DUMP_ARTIFACTS,
+          ("quant/quant.json",))
+    check("(b) -b", out / "b_boot", work / "p9_port" / "cr-like-em",
+          QUANT_ARTIFACTS + BOOT_ARTIFACTS, ("quant/quant.json",))
+    print("phase 12 (b): cr-like-em -d (the dump too) equal to phase 7's run, -b 20 "
+          "--summary-stat (both bootstrap matrices) to phase 9 (c)'s", flush=True)
+
+    # (c) the spill, as one process (this one) and as two
+    quant = ["quant", "-i", str(a / "gpl"), "-m", str(data / "t2g_3col.tsv"), "-r", "cr-like"]
+    spill = {"QUANT_SPILL_TRIPLETS": MH_SPILL, "QUANT_MERGE_TRIPLETS": MH_MERGE}
+    saved = {k: getattr(port_quant, k) for k in spill}
+    said = []
+    heard = logging.Handler()
+    heard.emit = lambda record: said.append(record.getMessage())
+    logging.getLogger("aft_torch.quant").addHandler(heard)
+    peaks = {}
+    try:
+        for k, v in spill.items():
+            setattr(port_quant, k, v)
+        torch.cuda.reset_peak_memory_stats()
+        one = run_stages({"quant": [*quant, "-o", str(out / "c1" / "quant"), *dev]},
+                         "phase 12 (c)", after=peaks_after(peaks))
+    finally:
+        for k, v in saved.items():
+            setattr(port_quant, k, v)
+        logging.getLogger("aft_torch.quant").removeHandler(heard)
+    if not any("streamed to disk" in m for m in said):
+        raise AssertionError("phase 12 (c): the one-process quant did not spill")
+    print(f"phase 12 (c): one process, spill bound {MH_SPILL}: quant {one['quant']:.2f} s, peak "
+          f"{peaks['quant'] / 2**20:.0f} MiB [{card}]", flush=True)
+    _st, errs = mh_run("(c)", [("quant spill", [*quant, "-o", str(out / "c2" / "quant"), *dev],
+                                SCAN_KERNELS, both)],
+                       logs / "c", card, [("alevin_fry_tpu_torch.pipeline.quant", k, v)
+                                          for k, v in spill.items()])
+    if not all("spilled to the rank-local binary" in e for e in errs):
+        raise AssertionError("phase 12 (c): a rank did not spill")
+    for run in ("c1", "c2"):
+        check(f"(c) {run}", out / run, work / "port", QUANT_ARTIFACTS, ())
+    print(f"phase 12 (c): both quants_mat.mtx (and the other quant artifacts) equal phase 3's; "
+          f"the one process streamed its matrix past {MH_SPILL} triplets, both ranks spilled to "
+          f"their binary sidecars, merged in rounds of {MH_MERGE}", flush=True)
+
+    # (d) ATAC on phase 5's data (the rescue on K5, as in phase 5)
+    adata, d = work / "atac_data", out / "d"
+    gpl, m = str(d / "gpl"), ["-m", str(ATAC_MAX_RECORDS)]
+    st, _errs = mh_run("(d)", [
+        ("atac gpl", ["atac", "generate-permit-list", "-i", str(adata / "rad"), "-o", gpl,
+                      "-u", str(adata / "wl.txt"), "-m", "10", *dev], ("K5",), both),
+        ("atac sort", ["atac", "sort", "-i", gpl, "-r", str(adata / "rad"), *m, *dev],
+         ("K1", "K2"), (0,), [[f"{gpl}/map.bed", str(d / "sort" / "map.bed")]]),
+        ("atac collate", ["atac", "collate", "-i", gpl, "-r", str(adata / "rad"), *m, *dev],
+         (), ()),
+        ("atac deduplicate", ["atac", "deduplicate", "-i", gpl, *dev], ("K1", "K2"), both),
+    ], logs / "d", card, AFT_RESCUE_BACKEND="pallas")
+    counters = json.loads((work / "atac_counters.json").read_text())
+    if any(x["dedup"] != counters for x in st["atac deduplicate"]):
+        raise AssertionError(f"phase 12 (d): counters "
+                             f"{[x['dedup'] for x in st['atac deduplicate']]}, phase 5's "
+                             f"{counters}")
+    check("(d)", d, work / "atac_port", ATAC_DATA_ARTIFACTS, ATAC_STAGE_JSONS)
+    print(f"phase 12 (d): 8 ATAC data artifacts byte-identical, 3 stage JSONs and the 4 "
+          f"counters {counters} equal to phase 5's", flush=True)
+
+    # (e) Flex on phase 10's data, as phase 10 (a)
+    fdata, e = work / "flex", out / "e"
+    mh_run("(e)", [
+        ("flex gpl", ["generate-permit-list", "-i", str(fdata / "rad"), "-d", "fw", "-o",
+                      str(e / "gpl"), "-u", str(fdata / "permit.txt"), "-m", "10",
+                      "--sample-bc-list", str(fdata / "samples.tsv"),
+                      "--sample-correction-mode", "1-edit", *dev], ("K4",), both),
+        ("flex collate", ["collate", "-i", str(e / "gpl"), "-r", str(fdata / "rad"), *dev],
+         ("K4",), both),
+        ("flex quant", ["quant", "-i", str(e / "gpl"), "-m", str(fdata / "t2g.tsv"), "-o",
+                        str(e / "quant"), "-r", "cr-like", *dev], SCAN_KERNELS, both),
+    ], logs / "e", card)
+    names = flex_artifacts(work / "flex_port")
+    if flex_artifacts(e) != names:
+        raise AssertionError("phase 12 (e): the samples' permit files differ from phase 10's")
+    check("(e)", e, work / "flex_port", names, FLEX_STAGE_JSONS)
+    print(f"phase 12 (e): {len(names)} Flex data artifacts byte-identical and 4 stage JSONs "
+          f"equal to phase 10 (a)'s", flush=True)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s in all [{card}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -2351,6 +2555,7 @@ def main() -> int:
         boot_parity(work, data, subset, boot_chain, card, args.profile)
         rows += flex_phase(work, flex_chain, card, args.profile)
         rows += bam_phase(work, bam_chain, card, args.profile)
+        multihost_phase(work, data, subset, card)
     finally:
         for ch in (flex_chain, bam_chain):
             if ch is not None:

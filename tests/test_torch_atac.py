@@ -184,8 +184,10 @@ def test_atac_unported_options_raise(tmp_path, monkeypatch):
                           "--device", "cpu"]) == 0
     assert (tmp_path / "gpl" / "map.bed.gz").exists()
     assert (tmp_path / "gpl" / "map.collated.rad.sz").exists()
+    # multi-process runs are ported: a coordinator without
+    # AFT_NUM_PROCESSES and AFT_PROCESS_ID raises before any connection
     monkeypatch.setenv("AFT_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    with pytest.raises(ValueError, match="AFT_NUM_PROCESSES"):
         port_main(["atac", "sort", "-i", gpl, "-r", str(d / "rad"), "--device", "cpu"])
 
 

@@ -677,3 +677,43 @@ def test_flex_chain_on_the_card_equals_the_cpu(cuda, tmp_path):
                  "--device", "cuda"]) == 0
     assert (gpl / "map.collated.rad").read_bytes() == in_mem
     assert json.loads((gpl / "collate.json").read_text())["multi_barcode"] is True
+
+
+@pytest.mark.cuda
+def test_two_process_chain_on_the_card_equals_one_process_cpu(cuda, tmp_path):
+    """gpl, collate and quant as two ranks sharing the card (gloo between
+    them; K4 on both ranks in gpl, K1-K3 on both in quant) write the
+    one-process CPU run's bytes."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from alevin_fry_tpu_torch.cli import main
+    from reference_host_path import DATA_ARTIFACTS
+    from two_process import run_two
+
+    d = tmp_path / "d"
+    subprocess.run([sys.executable, str(Path(__file__).parent / "reference_host_path.py"),
+                    "make", str(d), "--n-cells", "200", "--n-reads", "100000",
+                    "--n-genes", "500"], check=True, capture_output=True)
+
+    def stages(out, device):
+        common = ["-t", "2", "--device", device]
+        return [
+            ["gpl", ["generate-permit-list", "-i", str(d / "rad"), "-d", "fw", "-o",
+                     str(out / "gpl"), "-u", str(d / "permit.txt"), "-m", "10", *common]],
+            ["collate", ["collate", "-i", str(out / "gpl"), "-r", str(d / "rad"), *common]],
+            ["quant", ["quant", "-i", str(out / "gpl"), "-m", str(d / "t2g_3col.tsv"), "-o",
+                       str(out / "quant"), "-r", "cr-like", *common]],
+        ]
+
+    for _name, argv in stages(tmp_path / "cpu", "cpu"):
+        assert main(argv) == 0
+    summaries, _logs = run_two(stages(tmp_path / "cuda", "cuda"), tmp_path / "logs",
+                               timeout=300)
+    for name in DATA_ARTIFACTS:
+        assert (tmp_path / "cpu" / name).read_bytes() == (tmp_path / "cuda" / name).read_bytes()
+    for r, s in enumerate(summaries):
+        assert s["stages"]["quant"]["device"] == f"cuda:{r % torch.cuda.device_count()}"
+        assert s["stages"]["gpl"]["launches"]["K4"] > 0
+        assert all(s["stages"]["quant"]["launches"][k] > 0 for k in ("K1", "K2", "K3"))

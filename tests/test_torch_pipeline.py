@@ -203,6 +203,8 @@ print(json.dumps(sorted(m for m in sys.modules if m.startswith("alevin_fry_tpu")
             "alevin_fry_tpu_torch.radz.writers"} <= set(loaded)
     assert proc.stdout.count("\tDIR:") > 100  # view's lines
     assert [m for m in loaded if m.split(".")[0] == "alevin_fry_tpu"] == []
+    # every stage asked the multi-process layer, which joined no run
+    assert "alevin_fry_tpu_torch.parallel.dist" in loaded
 
 
 def _flex_synth_data(d: Path) -> Path:
@@ -252,14 +254,39 @@ def test_unported_options_raise(tmp_path, monkeypatch):
                       "--collation-mode", "two-round", "--device", "cpu"]) == 0
     assert port_main(["quant", "-i", str(tmp_path / "fgpl"), "-m", str(f / "t2g.tsv"),
                       "-o", str(tmp_path / "fquant"), "-r", "cr-like", "--device", "cpu"]) == 0
+    # multi-process runs are ported (tests/test_torch_multihost*.py): a
+    # coordinator without AFT_NUM_PROCESSES and AFT_PROCESS_ID raises
+    # before any connection
     monkeypatch.setenv("AFT_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    with pytest.raises(ValueError, match="AFT_NUM_PROCESSES"):
         port_main(["collate", "-i", str(out / "gpl"), "-r", str(d / "rad"),
                    "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    with pytest.raises(ValueError, match="AFT_NUM_PROCESSES"):
         port_main(["generate-permit-list", "-i", str(f / "rad"), "-d", "both",
                    "-o", str(tmp_path / "fgpl2"), "--sample-bc-list", str(f / "samples.tsv"),
                    "-f", "3", "--device", "cpu"])
+    # infer never joins a multi-process run: it runs under a coordinator
+    monkeypatch.delenv("AFT_COORDINATOR")
+    equant = ["quant", "-i", str(out / "gpl"), "-m", str(d / "t2g_3col.tsv"),
+              "-o", str(out / "eq"), "-r", "cr-like-em", "-d", "--device", "cpu"]
+    assert port_main(equant) == 0
+    infer = ["infer", "-c", str(out / "eq" / "alevin" / "geqc_counts.mtx"),
+             "-e", str(out / "eq" / "alevin" / "gene_eqclass.txt.gz"),
+             "-o", str(tmp_path / "infer"), "--usa", "--device", "cpu"]
+    monkeypatch.setenv("AFT_COORDINATOR", "localhost:1234")
+    assert port_main(infer) == 0
+    assert (tmp_path / "infer" / "quants_mat.mtx").exists()
+    monkeypatch.delenv("AFT_COORDINATOR")
+    # device meshes are not ported: gpl's, and the EM's in quant and infer
+    monkeypatch.setenv("AFT_GPL_MESH", "auto")
+    with pytest.raises(NotImplementedError, match="device mesh"):
+        port_main(["generate-permit-list", "-i", str(d / "rad"), "-d", "fw", "-o",
+                   str(tmp_path / "mgpl"), "-u", str(d / "permit.txt"), "--device", "cpu"])
+    monkeypatch.delenv("AFT_GPL_MESH")
+    monkeypatch.setenv("AFT_EM_MESH", "2")
+    for argv in (equant, infer):
+        with pytest.raises(NotImplementedError, match="device mesh"):
+            port_main(argv)
 
 
 @pytest.mark.parametrize("max_records", [40, 700, 20_000])

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Runs one of chip_smoke.py's self-contained phases alone on one GPU:
-builds the kernels, starts the phase's data (and, for phase 10, the
-reference's host path) in a thread, runs the phase, which compares every
-artifact with the reference, and replays K4 and K1-K3 on the path's
-largest inputs.
+"""Runs one of chip_smoke.py's phases alone on one GPU.
 
     python3 tools/run_phase.py 10 [--profile]   # the 16-plex Flex run
     python3 tools/run_phase.py 11 [--profile]   # convert, the RNA path on its RAD, view
+    python3 tools/run_phase.py 12               # two processes of each stage
 
-Prints the phase's lines and the replay rows as one JSON line.  Work
-files go to build/phase_<N>/ and are removed at the end.  The script
-needs a CUDA device and exits non-zero without one, or when any check
-of the phase fails.
+Phases 10 and 11: builds the kernels, starts the phase's data (and, for
+phase 10, the reference's host path) in a thread, runs the phase, which
+compares every artifact with the reference, and replays K4 and K1-K3 on
+the path's largest inputs; prints the phase's lines and the replay rows
+as one JSON line.  Phase 12: makes the data of phases 3, 5 and 10 and
+runs the port's one-process stages that phase 12 is held against (phase
+3's gpl, collate and quant; phase 7's quant -r cr-like-em -d; phase 9
+(b)'s subset and (c)'s -b 20 --summary-stat; phase 5's ATAC stages with
+their counters; phase 10 (a)'s Flex stages), then phase 12.  Work files
+go to build/phase_<N>/ and are removed at the end.  The script needs a
+CUDA device and exits non-zero without one, or when any check of the
+phase fails.
 """
 
 from __future__ import annotations
@@ -24,7 +29,61 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 # phase -> (the function of chip_smoke.py that starts its thread, the phase)
-PHASES = {10: ("flex_ref_chain", "flex_phase"), 11: ("bam_data_chain", "bam_phase")}
+PHASES = {10: ("flex_ref_chain", "flex_phase"), 11: ("bam_data_chain", "bam_phase"),
+          12: (None, None)}
+
+
+def phase12_inputs(cs, work: Path, card: str) -> tuple:
+    """The data and one-process runs phase 12 is held against, as the
+    whole script leaves them; returns (phase 3's data, the subset)."""
+    import os
+
+    from alevin_fry_tpu_torch.atac import dedup
+
+    data = work / "data"
+    cs.helper(["make", str(data), "--n-cells", str(cs.N_CELLS), "--n-reads", str(cs.N_READS),
+               "--n-genes", str(cs.N_GENES)])
+    secs, _ = cs.run_port(data, work / "port")
+    secs.update(cs.run_stages({"em-usa": cs.em_port_argv(work, data)["em-usa"]}, "prep"))
+    _, _, subset = cs.boot_full_width(work, data, card, False)
+    secs.update(cs.run_stages(
+        {"-b 20": cs.boot_port_argv(work, data, subset)["cr-like-em"]}, "prep"))
+    adata, out = work / "atac_data", work / "atac_port"
+    cs.helper(["make-atac", str(adata), "--seed", str(cs.ATAC_SEED), "--n-cells",
+               str(cs.ATAC_CELLS), "--n-frags", str(cs.ATAC_FRAGS), "--n-chrs",
+               str(cs.ATAC_CHRS), "--chr-len", str(cs.ATAC_CHR_LEN), "--ambient-factor",
+               str(cs.ATAC_AMBIENT)])
+    gpl, m = str(out / "gpl"), ["-m", str(cs.ATAC_MAX_RECORDS)]
+    dev = ["-t", str(cs.THREADS), "--device", "cuda"]
+    counters, real = {}, dedup.deduplicate
+    dedup.deduplicate = lambda *a, **k: counters.update(real(*a, **k)) or counters
+    os.environ["AFT_RESCUE_BACKEND"] = "pallas"
+    try:
+        secs.update(cs.run_stages({
+            "atac gpl": ["atac", "generate-permit-list", "-i", str(adata / "rad"), "-o", gpl,
+                         "-u", str(adata / "wl.txt"), "-m", "10", *dev],
+            "atac sort": ["atac", "sort", "-i", gpl, "-r", str(adata / "rad"), *m, *dev],
+        }, "prep"))
+        (out / "sort").mkdir()
+        (out / "gpl" / "map.bed").rename(out / "sort" / "map.bed")
+        secs.update(cs.run_stages({
+            "atac collate": ["atac", "collate", "-i", gpl, "-r", str(adata / "rad"), *m, *dev],
+            "atac deduplicate": ["atac", "deduplicate", "-i", gpl, *dev],
+        }, "prep"))
+    finally:
+        dedup.deduplicate = real
+        os.environ.pop("AFT_RESCUE_BACKEND")
+    (work / "atac_counters.json").write_text(json.dumps(counters))
+    cs.helper(["make-flex", str(work / "flex"), "--n-samples", str(cs.FLEX_SAMPLES),
+               "--n-cells-per-sample", str(cs.FLEX_CELLS), "--n-reads", str(cs.FLEX_READS),
+               "--n-genes", str(cs.FLEX_GENES), "--seed", str(cs.FLEX_SEED),
+               "--permit-size", str(cs.FLEX_PERMIT)])
+    argv = cs.flex_argv(work)
+    secs.update(cs.run_stages({f"flex {k}": argv[k] for k in ("gpl", "collate", "quant")},
+                              "prep"))
+    print("one process on cuda: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+          + f" [{card}]", flush=True)
+    return data, subset
 
 
 def main() -> int:
@@ -42,13 +101,17 @@ def main() -> int:
     import chip_smoke
     from alevin_fry_tpu_torch import _kernels
 
-    start, run = (getattr(chip_smoke, name) for name in PHASES[args.phase])
     card = chip_smoke.card_line()
     _kernels.build()
     print(f"build {_kernels.BuildInfo.seconds:.2f} s [{card}]", flush=True)
     work = REPO / "build" / f"phase_{args.phase}"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    if args.phase == 12:
+        chip_smoke.multihost_phase(work, *phase12_inputs(chip_smoke, work, card), card)
+        shutil.rmtree(work, ignore_errors=True)
+        return 0
+    start, run = (getattr(chip_smoke, name) for name in PHASES[args.phase])
     chain = start(work)
     try:
         rows = run(work, chain, card, args.profile)
