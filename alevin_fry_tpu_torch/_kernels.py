@@ -9,6 +9,12 @@ sha256 of the sources changes (never by file mtimes, which a checkout
 does not preserve).  A missing ``nvcc`` or a failed build raises: there
 is no fallback.
 
+Every C entry point works on the *current* CUDA device: it reads that
+device's limits and launches there, on the stream it is given.  So each
+wrapper enters :func:`on` (the tensors' device) around its planning
+reads and its launches, and counts a launch with :func:`launched`, which
+also keeps the launches per card (``BY_CARD``).
+
 Nothing here runs at import; :func:`load` builds on first use.
 """
 
@@ -31,6 +37,8 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "
 
 _lib = None
 _streams = {}  # device -> side streams (fork)
+# (card index, kernel) -> launches since the process started
+BY_CARD = {}
 
 
 class BuildInfo:
@@ -151,6 +159,41 @@ def launch_groups(need, limit: int) -> list:
         cells = np.flatnonzero(bucket == b)
         out.append((cells, -1 if b == 63 else int(need[cells].max())))
     return out
+
+
+def ranges(cum, n_parts: int) -> list:
+    """Cut points (``n_parts + 1``, from 0 to the item count) that split
+    items of cumulative weights ``cum`` (``n + 1`` values from 0) into
+    contiguous ranges of about equal weight: the cells of a kernel's
+    launches split over a mesh's shards."""
+    import numpy as np
+
+    cum = np.asarray(cum, np.int64)
+    want = cum[-1] * np.arange(1, n_parts) // n_parts
+    cuts = np.searchsorted(cum, want, side="left")
+    return [0, *np.maximum.accumulate(cuts).tolist(), len(cum) - 1]
+
+
+def on(device):
+    """A context in which ``device`` is the current CUDA device (nothing
+    for the CPU): the kernels' entry points read the current device's
+    limits and launch on it."""
+    import contextlib
+
+    import torch
+
+    device = torch.device(device)
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def launched(counts: dict, key: str, device) -> None:
+    """Count one launch of kernel ``key`` in its module's ``counts`` and
+    in ``BY_CARD`` under the card it ran on."""
+    import torch
+
+    counts[key] += 1
+    card = (torch.device(device).index or 0, key)
+    BY_CARD[card] = BY_CARD.get(card, 0) + 1
 
 
 def fork(device, n: int) -> list:

@@ -15,8 +15,10 @@ generate_permit_list.json, as the reference does.  In a multi-process
 run (``parallel/dist.py``) each rank counts its contiguous range of the
 chunks, which the header must count; the bins, the barcode histogram
 and the counters merge over collectives, every rank runs the rescue on
-the merged histogram and rank 0 writes.  A device mesh
-(``AFT_GPL_MESH``) is not ported and raises.
+the merged histogram and rank 0 writes.  In a one-process run
+``AFT_GPL_MESH`` counts the bins and the whitelisted barcodes on a
+device mesh (``parallel/mesh.py``, atac/cellfilter.rs:67-102): only the
+unmatched barcodes are histogrammed on the host.
 """
 
 from __future__ import annotations
@@ -28,9 +30,9 @@ import numpy as np
 import torch
 
 from .. import __version__
-from ..device import refuse_device_mesh
 from ..ops import barcodes as bcops
 from ..parallel import dist
+from ..parallel.mesh import mesh_from_env, sharded_bin_histogram, sharded_histogram
 from ..pipeline.gpl import (
     GPL_BLOCK_RECORDS, _histogram, _merge_histograms, merge_rank_histograms, rescue_and_write,
 )
@@ -69,9 +71,17 @@ def initialize_rec_list(ref_lens: np.ndarray, size_range: int):
     return blens, int(blens[-1])
 
 
+def _whitelist(opts: AtacGplOpts) -> np.ndarray:
+    """The whitelist, reverse-complemented in rc mode
+    (atac/cellfilter.rs:104-139), sorted and unique."""
+    wl, wl_len = read_barcode_file(opts.unfiltered_pl)
+    if opts.rc:
+        wl = bcops.revcomp_packed(wl, wl_len)
+    return np.unique(wl)
+
+
 def generate_permit_list(opts: AtacGplOpts) -> int:
     """Run the stage; returns the number of distinct corrected barcodes."""
-    refuse_device_mesh("AFT_GPL_MESH")
     rank, world = dist.rank_world()
     with open(Path(opts.input_dir) / "map.rad", "rb") as fh:
         prelude, ftm, _ = read_prelude(fh)
@@ -96,6 +106,10 @@ def generate_permit_list(opts: AtacGplOpts) -> int:
         h_bc = np.zeros(0, np.uint64)
         h_ct = np.zeros(0, np.uint64)
         num_reads = num_chunks = max_ambig = 0
+        mesh = mesh_from_env("AFT_GPL_MESH", opts.device) if world == 1 else None
+        wl = _whitelist(opts)
+        if mesh is not None:
+            wl_counts = np.zeros(len(wl), np.int64)
         with stage_timer(log, "atac gpl histogram", "reads") as pb:
             # ATAC headers may hold num_chunks = 0: None streams to EOF
             for batch in iter_decoded_blocks(
@@ -114,9 +128,21 @@ def generate_permit_list(opts: AtacGplOpts) -> int:
                     + batch.aln_cols["start_pos"][first_aln].astype(np.int64)
                     // ATAC_BIN_SIZE
                 )
-                np.add.at(bins, bin_idx, 1)
-                b_bc, b_ct = _histogram(batch.barcode())
+                bcs = batch.barcode()
+                if mesh is None:
+                    np.add.at(bins, bin_idx, 1)
+                else:
+                    if len(bin_idx):
+                        bins += sharded_bin_histogram(mesh, bin_idx, tot_bins).astype(np.uint64)
+                    if len(bcs):
+                        cnt, _unmatched, hit = sharded_histogram(mesh, bcs, wl)
+                        wl_counts += cnt
+                        bcs = bcs[~hit]
+                b_bc, b_ct = _histogram(bcs)
                 h_bc, h_ct = _merge_histograms(h_bc, h_ct, b_bc, b_ct)
+        if mesh is not None:
+            nz = wl_counts > 0
+            h_bc, h_ct = _merge_histograms(h_bc, h_ct, wl[nz], wl_counts[nz].astype(np.uint64))
     if world > 1:
         bins = np.sum(np.stack(dist.allgather_ragged(bins)), axis=0, dtype=np.uint64)
         h_bc, h_ct = merge_rank_histograms(h_bc, h_ct)
@@ -131,13 +157,8 @@ def generate_permit_list(opts: AtacGplOpts) -> int:
         bincodeio.write_u64_vec_file(out_dir / "bin_recs.bin", bins)
         bincodeio.write_u64_vec_file(out_dir / "bin_lens.bin", blens)
 
-    # the whitelist, reverse-complemented in rc mode (atac/cellfilter.rs:104-139)
-    wl, wl_len = read_barcode_file(opts.unfiltered_pl)
-    if opts.rc:
-        wl = bcops.revcomp_packed(wl, wl_len)
     num_corrected = rescue_and_write(
-        np.unique(wl), h_bc, h_ct, bclen, opts.min_reads, num_reads, opts.device, out_dir,
-        write,
+        wl, h_bc, h_ct, bclen, opts.min_reads, num_reads, opts.device, out_dir, write,
     )
     if write:
         write_json(out_dir / "generate_permit_list.json", {

@@ -2,8 +2,6 @@
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 from .parallel import dist
@@ -27,10 +25,3 @@ def resolve_device(name: str) -> torch.device:
         return torch.device("cpu")
     raise ValueError(f"unknown device {name!r} (expected 'cuda' or 'cpu')")
 
-
-def refuse_device_mesh(mesh_var: str) -> None:
-    """Raise NotImplementedError where ``mesh_var`` (``AFT_GPL_MESH``,
-    ``AFT_EM_MESH``) asks, the reference's way, for an in-process device
-    mesh, which is not ported."""
-    if os.environ.get(mesh_var, "").strip().lower() not in ("", "0", "none", "off"):
-        raise NotImplementedError(f"{mesh_var} asks for a device mesh, which is not ported yet")

@@ -115,6 +115,26 @@ class EmPlan:
                          with_last_round=self.with_last_round, sizes=sizes,
                          usa=bool((self.p1 >= 0).any()))
 
+    def cells(self, a: int, b: int) -> "EmPlan":
+        """Cells [a, b) as a batch of their own: the offsets start at 0;
+        local ids, partners and class indices count from each cell's
+        first, so they stay as they are."""
+        e0, e1 = self.cell_cls[a], self.cell_cls[b]
+        l0, l1 = self.lab_off[e0], self.lab_off[e1]
+        u0, u1 = self.dict_off[a], self.dict_off[b]
+        o0, o1 = self.occ_off[u0], self.occ_off[u1]
+        return EmPlan(
+            cell_cls=self.cell_cls[a:b + 1] - e0, lab_off=self.lab_off[e0:e1 + 1] - l0,
+            lab_loc=self.lab_loc[l0:l1], countf=self.countf[e0:e1],
+            dict_off=self.dict_off[a:b + 1] - u0, p1=self.p1[u0:u1], p2=self.p2[u0:u1],
+            occ_off=self.occ_off[u0:u1 + 1] - o0, occ=self.occ[o0:o1],
+            lab_w=None if self.lab_w is None else self.lab_w[l0:l1],
+            occ_w=None if self.occ_w is None else self.occ_w[o0:o1],
+            init_value=self.init_value, with_last_round=self.with_last_round,
+            dict_id=self.dict_id[u0:u1],
+            cell_lp=None if self.cell_lp is None else self.cell_lp[a:b],
+        )
+
 
 @dataclass
 class EmTensors:
@@ -575,6 +595,12 @@ def em_run(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
     cell, int32), each (N, U) and (N, C) in the bootstrap mode."""
     if t.occ.device.type == "cpu":
         return em_run_twin(t)
+    # the shared-memory limit is read, and K6 launched, on the tensors' card
+    with _kernels.on(t.occ.device):
+        return _em_run_cuda(t)
+
+
+def _em_run_cuda(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
     lib = _kernels.load()
     dev = t.occ.device
     boot = t.boot_counts is not None
@@ -623,7 +649,7 @@ def em_run(t: EmTensors) -> Tuple[torch.Tensor, torch.Tensor]:
                 n_rep, E, U, C, n_scratch, streams[i % len(streams)].cuda_stream,
             ), "K6 aft_em_cells")
             first += len(ln.cells)
-            LAUNCHES["K6-boot" if boot else "K6"] += 1
+            _kernels.launched(LAUNCHES, "K6-boot" if boot else "K6", dev)
             STATS[f"{ROUTES[ln.route]}_cells"] += len(ln.cells) * n_rep
             if ln.tile > 1:
                 STATS["tiled_rows"] += len(ln.cells) * n_rep
@@ -664,16 +690,23 @@ def em_cells(
     with_last_round: bool,
     device: torch.device,
     weights: Optional[np.ndarray] = None,
+    mesh=None,
 ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """The EM of every cell on ``device``: per cell (ids ascending, int64;
     values, float32), the contract of the reference's
     ``em_cells_batched`` (em.py:917), weighted by ``weights`` (one per
     label) when given.  A cell whose classes all have one label takes its
     counts without EM; a class with no label contributes nothing; values
-    below 0.01 are dropped."""
+    below 0.01 are dropped.  With ``mesh`` (``parallel/mesh.py``) the
+    cells split into contiguous ranges of about equal occurrences, one a
+    shard, each run on its shard's device; every cell's EM is its own,
+    so the values are those of one device."""
     plan = plan_cells(cell_eq_offsets, label_offsets, labels, counts, num_rows, usa_offsets,
                       init_uniform, with_last_round, weights)
-    alpha = em_run(plan.to(device))[0].cpu().numpy()
+    if mesh is None:
+        alpha = em_run(plan.to(device))[0].cpu().numpy()
+    else:
+        alpha = _em_on_mesh(plan, mesh)
     C = len(plan.dict_off) - 1
     nu, ne = np.diff(plan.dict_off), np.diff(plan.cell_cls)
     STATS["calls"] += 1
@@ -687,3 +720,13 @@ def em_cells(
     nz = alpha != 0
     ends = np.cumsum(np.bincount(np.repeat(np.arange(C), nu)[nz], minlength=C))[:-1]
     return list(zip(np.split(plan.dict_id[nz], ends), np.split(alpha[nz], ends)))
+
+
+def _em_on_mesh(plan: EmPlan, mesh) -> np.ndarray:
+    """K6 (or its twin) over ``plan``'s cells split over the mesh's
+    shards by occurrences: each shard's range is launched on its device
+    before any result is read back; the values in cell order."""
+    cuts = _kernels.ranges(plan.lab_off[plan.cell_cls], mesh.size)
+    runs = [em_run(plan.cells(a, b).to(dev))[0]
+            for dev, a, b in zip(mesh.devices, cuts[:-1], cuts[1:]) if b > a]
+    return np.concatenate([r.cpu().numpy() for r in runs] or [np.zeros(0, np.float32)])

@@ -189,11 +189,13 @@ def _launch(key: str, fn: str, queries: torch.Tensor, kept_sorted: torch.Tensor,
                 torch.full((nq,), none, dtype=dtype, device=queries.device))
     cnt = torch.empty(nq, dtype=torch.int32, device=queries.device)
     best = torch.empty(nq, dtype=dtype, device=queries.device)
-    _kernels.check(getattr(_kernels.load(), fn)(
-        queries.data_ptr(), nq, kept_sorted.data_ptr(), nk, positions, cnt.data_ptr(),
-        best.data_ptr(), _kernels.stream_of(queries),
-    ), f"{key} {fn}")
-    LAUNCHES[key] += 1
+    # the entry point plans for, and launches on, the current card
+    with _kernels.on(queries.device):
+        _kernels.check(getattr(_kernels.load(), fn)(
+            queries.data_ptr(), nq, kept_sorted.data_ptr(), nk, positions, cnt.data_ptr(),
+            best.data_ptr(), _kernels.stream_of(queries),
+        ), f"{key} {fn}")
+    _kernels.launched(LAUNCHES, key, queries.device)
     return cnt, best
 
 
@@ -220,12 +222,13 @@ def neighbor_counts_brute(queries: torch.Tensor, kept: torch.Tensor):
     return _launch("K5", "aft_hamming1_min", queries, kept_sorted, positions, torch.int64, -1)
 
 
-def search_plan(nk: int) -> dict:
-    """How the kernels search a table of ``nk`` codes on this card: every
-    ``stride``-th code in shared memory (``smem_bytes`` a block), and
-    ``blocks_per_sm`` resident blocks."""
+def search_plan(nk: int, device="cuda") -> dict:
+    """How the kernels search a table of ``nk`` codes on ``device``'s
+    card: every ``stride``-th code in shared memory (``smem_bytes`` a
+    block), and ``blocks_per_sm`` resident blocks."""
     out = (ctypes.c_longlong * 3)()
-    _kernels.check(_kernels.load().aft_hamming1_plan(nk, out), "hamming1 plan")
+    with _kernels.on(device):
+        _kernels.check(_kernels.load().aft_hamming1_plan(nk, out), "hamming1 plan")
     return {"stride": out[0], "smem_bytes": out[1], "blocks_per_sm": out[2]}
 
 

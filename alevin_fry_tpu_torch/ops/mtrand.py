@@ -136,8 +136,9 @@ def random_init(seeds: torch.Tensor, dict_off: torch.Tensor, ids: torch.Tensor) 
     if N == 0 or C == 0 or not len(ids):
         return out
     lib = _kernels.load()
-    _kernels.check(lib.aft_mt_init(seeds.data_ptr(), dict_off.data_ptr(), ids.data_ptr(), C, N,
-                                   len(ids), out.data_ptr(), _kernels.stream_of(out)),
-                   "K8 aft_mt_init")
-    LAUNCHES["K8"] += 1
+    with _kernels.on(out.device):
+        _kernels.check(lib.aft_mt_init(seeds.data_ptr(), dict_off.data_ptr(), ids.data_ptr(),
+                                       C, N, len(ids), out.data_ptr(), _kernels.stream_of(out)),
+                       "K8 aft_mt_init")
+    _kernels.launched(LAUNCHES, "K8", out.device)
     return out

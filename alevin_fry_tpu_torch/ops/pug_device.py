@@ -278,6 +278,12 @@ def connected_components(n_nodes: np.ndarray, n_entries: np.ndarray, deg: torch.
     without blocking; nothing is read back."""
     if nbrs.device.type == "cpu":
         return connected_components_twin(n_nodes, deg, nbrs)
+    # the shared-memory limit is read, and K7 launched, on the tensors' card
+    with _kernels.on(nbrs.device):
+        return _connected_components_cuda(n_nodes, n_entries, deg, nbrs)
+
+
+def _connected_components_cuda(n_nodes, n_entries, deg, nbrs):
     dev = nbrs.device
     counts, entries = np.asarray(n_nodes), np.asarray(n_entries)
     for a, total in ((counts, len(deg)), (entries, len(nbrs))):
@@ -313,7 +319,7 @@ def connected_components(n_nodes: np.ndarray, n_entries: np.ndarray, deg: torch.
                 streams[i % len(streams)].cuda_stream,
             ), "K7 aft_pug_cc")
             at += 4 * len(ln.cells)
-            LAUNCHES["K7"] += 1
+            _kernels.launched(LAUNCHES, "K7", dev)
             STATS[f"{ROUTES[ln.route]}_cells"] += len(ln.cells)
     finally:
         _kernels.join(dev, streams)
@@ -321,11 +327,29 @@ def connected_components(n_nodes: np.ndarray, n_entries: np.ndarray, deg: torch.
 
 
 def cc_labels(n_nodes: np.ndarray, deg: np.ndarray, nbrs: np.ndarray,
-              device: torch.device) -> np.ndarray:
+              device: torch.device, mesh=None) -> np.ndarray:
     """Component labels (cell-local smallest node index, int32) of every
     exported graph, computed on ``device`` and read back into pinned host
-    memory."""
-    labels, _rounds = connected_components(*upload_csr(n_nodes, deg, nbrs, device))
+    memory.  With ``mesh`` (``parallel/mesh.py``; the reference's
+    ``connected_components_batched(mesh=...)``, :122) the cells split
+    into contiguous ranges of about equal nodes and adjacency entries,
+    one a shard, each on its shard's device; labels are cell-local, so
+    they are those of one device."""
+    if mesh is None:
+        return _read_back(connected_components(*upload_csr(n_nodes, deg, nbrs, device))[0])
+    n_nodes = np.asarray(n_nodes, np.int64)
+    node_off = np.concatenate(([0], np.cumsum(n_nodes)))
+    entry_off = np.concatenate(([0], np.cumsum(deg)))[node_off]
+    cuts = _kernels.ranges(node_off + entry_off, mesh.size)
+    runs = [connected_components(*upload_csr(
+                n_nodes[a:b], deg[node_off[a]:node_off[b]],
+                nbrs[entry_off[a]:entry_off[b]], dev))[0]
+            for dev, a, b in zip(mesh.devices, cuts[:-1], cuts[1:]) if b > a]
+    return np.concatenate([_read_back(r) for r in runs] or [np.zeros(0, np.int32)])
+
+
+def _read_back(labels: torch.Tensor) -> np.ndarray:
+    """``labels`` on the host, through pinned memory from a card."""
     if labels.device.type == "cpu":
         return labels.numpy()
     host = torch.empty(labels.shape, dtype=labels.dtype, pin_memory=True)

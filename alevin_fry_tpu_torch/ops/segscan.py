@@ -19,7 +19,8 @@ The three scans are hand-written CUDA kernels (``csrc/segscan.cu``):
 
 Each is one launch of a single-pass scan with decoupled look-back.
 Every launch takes a fresh scratch buffer, whose counter and status
-words the C entry point clears before the kernel runs.
+words the C entry point clears before the kernel runs, and runs on its
+tensors' card (``_kernels.on``).
 
 Each kernel has a plain PyTorch twin (``*_twin``) in this module: the
 cumulative formulas of ``alevin_fry_tpu/ops/crlike_device.py`` over
@@ -62,11 +63,12 @@ def _launch(key: str, out: torch.Tensor, ins: tuple, fn, *args) -> None:
     scratch = torch.empty(
         lib.aft_segscan_scratch_bytes(n), dtype=torch.uint8, device=out.device
     )
-    _kernels.check(
-        getattr(lib, fn)(*args, scratch.data_ptr(), _kernels.stream_of(out)),
-        f"{key} {fn}",
-    )
-    LAUNCHES[key] += 1
+    with _kernels.on(out.device):
+        _kernels.check(
+            getattr(lib, fn)(*args, scratch.data_ptr(), _kernels.stream_of(out)),
+            f"{key} {fn}",
+        )
+    _kernels.launched(LAUNCHES, key, out.device)
 
 
 # --- K1 ----------------------------------------------------------------------

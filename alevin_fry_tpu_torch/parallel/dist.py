@@ -19,8 +19,9 @@ never initialized.
 Every collective moves host data: histograms, spill-bucket bytes, COO
 triplets and counters, as CPU tensors over the ``gloo`` backend.  NCCL
 is not used: it would need device tensors and one GPU per rank, where
-here two ranks may share one card.  The in-process device mesh of the
-reference (``parallel/mesh.py``) is not ported.
+here two ranks may share one card.  The cards of one process form the
+device mesh of ``parallel/mesh.py``, which a multi-process run does not
+take.
 """
 
 from __future__ import annotations

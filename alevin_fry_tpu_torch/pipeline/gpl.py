@@ -23,8 +23,11 @@ which filters each sample's cells.
 In a multi-process run (``parallel/dist.py``) each rank histograms its
 contiguous range of the RAD chunks; the histograms and the read counts
 merge over collectives, every rank filters the merged histogram (so
-every rank runs the rescue) and rank 0 writes the artifacts.  A device
-mesh (``AFT_GPL_MESH``) is not ported and raises.
+every rank runs the rescue) and rank 0 writes the artifacts.  In a
+one-process run with the unfiltered list, ``AFT_GPL_MESH`` counts the
+whitelisted barcodes on a device mesh (``parallel/mesh.py``) block by
+block; only the unmatched tail is histogrammed on the host, and the two
+merge before the rescue (cellfilter.rs:1762-1888).
 """
 
 from __future__ import annotations
@@ -44,10 +47,10 @@ from ..radz.chunkio import _gather_uint, iter_decoded_blocks, iter_raw_blocks
 from ..radz.records import RecordSchema
 
 from .. import __version__
-from ..device import refuse_device_mesh
 from ..ops import barcodes as bcops
 from ..ops.knee import get_knee
 from ..parallel import dist
+from ..parallel.mesh import mesh_from_env, sharded_histogram
 from ..utils import (
     STRAND_BOTH, STRAND_FW, read_barcode_file, read_strand_mask,
     record_layout, strand_from_ori_arg, write_json,
@@ -182,7 +185,6 @@ def _iter_block_barcodes(fh, schema, num_chunks, strand, chunk_range=None):
 def generate_permit_list(opts: GenPermitListOpts) -> int:
     """Run the stage; returns the number of distinct corrected barcodes
     (src/cellfilter.rs:487)."""
-    refuse_device_mesh("AFT_GPL_MESH")
     rank, world = dist.rank_world()
     with open(Path(opts.input_dir) / "map.rad", "rb") as fh:
         prelude, ftm, _ = read_prelude(fh)
@@ -222,6 +224,12 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
         num_reads = num_compat = max_ambig = 0
         h_bc = np.zeros(0, np.uint64)
         h_ct = np.zeros(0, np.uint64)
+        mesh = None
+        if opts.fmeth.kind == "unfiltered" and world == 1:
+            mesh = mesh_from_env("AFT_GPL_MESH", opts.device)
+        if mesh is not None:
+            wl_mesh = np.unique(read_barcode_file(opts.fmeth.path)[0])
+            wl_counts = np.zeros(len(wl_mesh), np.int64)
         with stage_timer(log, "generate-permit-list histogram", "reads") as pb:
             for bcs, compat, nal in _iter_block_barcodes(
                 fh, schema, prelude.hdr.num_chunks, strand, chunk_range,
@@ -232,8 +240,17 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
                 num_compat += nc
                 if nc:
                     max_ambig = max(max_ambig, int(nal[compat].max()))
-                b_bc, b_ct = _histogram(bcs[compat] if nc < len(bcs) else bcs)
+                kept = bcs[compat] if nc < len(bcs) else bcs
+                if mesh is not None and len(kept):
+                    cnt, _unmatched, hit = sharded_histogram(mesh, kept, wl_mesh)
+                    wl_counts += cnt
+                    kept = kept[~hit]
+                b_bc, b_ct = _histogram(kept)
                 h_bc, h_ct = _merge_histograms(h_bc, h_ct, b_bc, b_ct)
+        if mesh is not None:
+            nz = wl_counts > 0
+            h_bc, h_ct = _merge_histograms(h_bc, h_ct, wl_mesh[nz],
+                                           wl_counts[nz].astype(np.uint64))
     if world > 1:
         h_bc, h_ct = merge_rank_histograms(h_bc, h_ct)
         num_reads, num_compat, max_ambig = dist.merge_counts([num_reads, num_compat],

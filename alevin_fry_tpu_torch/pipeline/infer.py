@@ -6,8 +6,8 @@ gzipped class labels (``gene_eqclass.txt.gz``), runs every cell's EM on
 the device (kernel K6, ``ops/em.py``; USA offsets with ``--usa``, always
 with the thresholded last round) and writes the cell x gene matrix with
 its rows file and the input's cols file.  As the reference's, it runs as
-one process, a multi-process coordinator set or not; a device mesh
-(``AFT_EM_MESH``) is not ported and raises.
+one process, a multi-process coordinator set or not; ``AFT_EM_MESH``
+splits the EM's cells over a device mesh (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -20,9 +20,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..device import refuse_device_mesh
 from ..ops.barcodes import pack_seqs
 from ..ops.em import em_cells
+from ..parallel.mesh import mesh_from_env
 from ..radz.mtx import read_matrix_market, write_matrix_market
 from ..utils import read_barcode_file
 from .logging_ import get_logger
@@ -58,7 +58,6 @@ def infer(
     device: torch.device,
 ) -> None:
     del num_threads  # the EM runs on the device
-    refuse_device_mesh("AFT_EM_MESH")
     count_mat = Path(count_mat)
     parent = count_mat.parent
     rows, cols, vals, (n_cells, n_eqc_mat) = read_matrix_market(count_mat)
@@ -93,6 +92,7 @@ def infer(
     results = em_cells(
         cell_eq_offsets, lab_offsets, labels, vals.astype(np.uint32), num_genes,
         (num_genes // 3, 2 * num_genes // 3) if usa_mode else None, False, True, device,
+        mesh=mesh_from_env("AFT_EM_MESH", device),
     )
 
     out_path = Path(output_dir)

@@ -69,12 +69,12 @@ from ..radz.records import RecordSchema
 from ..radz.unmapped import UnmappedLookup
 
 from .. import __version__
-from ..device import refuse_device_mesh
 from ..ops import crlike, pug
 from ..ops.barcodes import unpack_seqs
 from ..ops.bootstrap import run_bootstraps
 from ..ops.em import class_weights_from_prob_rows, em_cells
 from ..parallel import dist
+from ..parallel.mesh import mesh_from_env
 from ..utils import parse_tg_map, read_barcode_file, write_json
 from .collate import open_collated
 from .logging_ import get_logger
@@ -140,11 +140,6 @@ class CellResult:
     sample_idx: Optional[np.ndarray] = None
 
 
-def _check_supported(opts: QuantOpts) -> None:
-    if opts.resolution.endswith("-em"):
-        refuse_device_mesh("AFT_EM_MESH")
-
-
 def quantify(opts: QuantOpts) -> None:
     parent = Path(opts.input_dir)
     with open_collated(parent) as (br, prelude, ftm):
@@ -180,7 +175,6 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
     if usa_mode and opts.num_bootstraps:
         # the reference's refusal (its assert), kept under python -O
         raise AssertionError("currently USA-mode analysis cannot be used with bootstrapping.")
-    _check_supported(opts)
     if usa_mode and opts.resolution == "trivial":
         raise ValueError("the trivial resolution strategy is not available in USA mode")
     sa_model = opts.sa_model
@@ -481,16 +475,21 @@ def _em_counts(eqc: crlike.CellEqClasses, opts: QuantOpts, usa_mode: bool,
     variance triplets, else None) (src/quant.rs:822-1000); ``first`` is
     the block's first cell number in the file; ``weights`` (one per
     label, outside USA mode) for the long-read EM, which the bootstraps
-    do not take."""
+    do not take.  ``AFT_EM_MESH`` splits the EM's cells over a device
+    mesh (``parallel/mesh.py``); the bootstraps take none, as in the
+    reference."""
+    mesh = mesh_from_env("AFT_EM_MESH", opts.device)
     if usa_mode:
         # the USA EM couples each gene's three slots and runs the
         # thresholded last round (em_optimize_subset, em.rs:178-299)
         lab_offs, labels = crlike.usa_transform_labels(eqc.label_offsets, eqc.labels, num_rows)
         res = em_cells(eqc.cell_eq_offsets, lab_offs, labels, eqc.counts, num_rows,
-                       (num_rows // 3, 2 * num_rows // 3), opts.init_uniform, True, opts.device)
+                       (num_rows // 3, 2 * num_rows // 3), opts.init_uniform, True, opts.device,
+                       mesh=mesh)
     else:
         res = em_cells(eqc.cell_eq_offsets, eqc.label_offsets, eqc.labels, eqc.counts,
-                       num_genes, None, opts.init_uniform, False, opts.device, weights)
+                       num_genes, None, opts.init_uniform, False, opts.device, weights,
+                       mesh=mesh)
     n = [len(ids) for ids, _ in res]
     boot = None
     if opts.num_bootstraps > 0:

@@ -73,9 +73,10 @@ Phases, one line each:
    that K1-K3 launched, with the eleven data artifacts byte for byte and
    the three stage JSONs field for field; the same collate without -c
    and quant from its .rad for their seconds (the quant artifacts must
-   match); on phase 5's data and permit list, atac sort -c, atac collate
-   -c and atac deduplicate from the .sz (the reference's run of the same
-   stages goes on beside them), with map.bed.gz equal in its
+   match); on a dataset of phase 5's widths cut to 10M fragments, atac
+   generate-permit-list, sort -c, collate -c and deduplicate from the .sz
+   (the reference's run of the same stages goes on beside them), with
+   map.bed.gz equal in its
    decompressed bytes and its header apart from the MTIME, the .sz and
    the deduplicated BED byte for byte, the stage JSONs and the four
    counters; and the multi-word WTA (keys past 62 bits, 32-base UMIs
@@ -163,7 +164,19 @@ Phases, one line each:
    3; (d) phase 5's ATAC stages (K5 on both ranks in gpl, K1 and K2 in
    deduplicate), the counters too; (e) phase 10 (a)'s Flex stages (K4 on
    both ranks in gpl and collate); every stage's seconds, peak device
-   memory and gloo bytes per rank, and the phase's seconds.
+   memory and gloo bytes per rank, and the phase's seconds;
+13. the device mesh of one process (parallel/mesh.py) with 2 shards on
+   the card: (b) gpl -u with AFT_GPL_MESH=2, collate (its stable sort,
+   which takes no mesh), quant -r cr-like-em -d and infer --usa with
+   AFT_EM_MESH=2 and atac gpl with AFT_GPL_MESH=2, each byte for byte
+   against its one-card run of phases 3, 5 and 7; (a) each mesh program
+   on the inputs that path gave it (the barcode and bin histograms, the
+   collate shuffle on collate's 20M ranks, the EM's cells, phase 3's WTA
+   keys through K1-K3 and phase 8's UMI graphs through K7) against its
+   one-card result, with its seconds, the bytes its collectives moved
+   and its launches per card; (c) where there are two cards or more,
+   (b) with the variables unset (one shard a card), K6 required on each
+   card.
 
 With --profile, phases 3, 5, 6, 7, 10 and 11 also run each stage under torch.profiler
 and cProfile and print the device's busy time (the union of its kernel
@@ -198,6 +211,10 @@ N_CELLS, N_READS, N_GENES, THREADS = 10_000, 20_000_000, 20_000, 8
 ATAC_SEED, ATAC_CELLS, ATAC_FRAGS, ATAC_CHRS, ATAC_CHR_LEN, ATAC_AMBIENT = (
     11, 10_000, 20_000_000, 24, 130_000_000, 30)
 ATAC_MAX_RECORDS = 6_000_000
+# phase 6: the fragments of the ATAC -c path's data (phase 5's widths and
+# seed), cut from phase 5's 20M so the script keeps to its time: its
+# sort's one-thread gzip at level 9 took 161-215 s at 20M, in both packages
+ATAC_SZ_FRAGS = 10_000_000
 # phase 6: collate -m for the RNA path (20M reads, so the out-of-core
 # gather writes the .sz), and the multi-word WTA block
 RNA_SZ_MAX_RECORDS = 6_000_000
@@ -301,6 +318,11 @@ BAM_F_SEED, BAM_F_ALIGNMENTS = 19, 1_000_000
 # round for run (c)
 MH_TIMEOUT = 300
 MH_SPILL, MH_MERGE = 1_000_000, 250_000
+# phase 13: the shards of the device mesh on the one card the script
+# needs (they share it), and the inputs it takes from earlier phases:
+# phase 3's WTA keys ("wta") and phase 8's largest UMI graphs ("graph")
+MESH_SHARDS = 2
+P13 = {}
 
 
 def card_line() -> str:
@@ -1205,9 +1227,10 @@ def rna_sz_phase(work: Path, data: Path, card: str, profile: bool) -> list:
 
 
 def atac_sz_phase(work: Path, card: str, profile: bool) -> list:
-    """atac sort -c, collate -c, deduplicate from .sz on phase 5's data
-    and permit list, against the reference.  The reference's run goes on
-    at the same time, on other cores: each side's sort spends minutes in
+    """atac generate-permit-list, sort -c, collate -c and deduplicate from
+    the .sz on a dataset of phase 5's widths cut to ATAC_SZ_FRAGS
+    fragments, against the reference.  The reference's run goes on at
+    the same time, on other cores: each side's sort spends minutes in
     single-threaded gzip at level 9, and in turn they would take most of
     the script's time.  Returns the replay rows of K1 and K2 on this
     path."""
@@ -1218,28 +1241,29 @@ def atac_sz_phase(work: Path, card: str, profile: bool) -> list:
         ATAC_STAGE_JSONS, artifact_mismatches, atac_artifacts, move_sorted_bed,
     )
 
-    data, out, ref = work / "atac_data", work / "p6_atac_port", work / "p6_atac_ref"
-    gpl_files = ("permit_freq.bin", "permit_map.bin", "bin_recs.bin", "bin_lens.bin",
-                 "generate_permit_list.json")
-    for src, dst in ((work / "atac_port", out), (work / "atac_ref", ref)):
-        (dst / "gpl").mkdir(parents=True)
-        for f in gpl_files:
-            shutil.copy(src / "gpl" / f, dst / "gpl" / f)
+    data, out, ref = work / "p6_atac_data", work / "p6_atac_port", work / "p6_atac_ref"
+    t0 = time.perf_counter()
+    made = helper(["make-atac", str(data), "--seed", str(ATAC_SEED), "--n-cells",
+                   str(ATAC_CELLS), "--n-frags", str(ATAC_SZ_FRAGS), "--n-chrs", str(ATAC_CHRS),
+                   "--chr-len", str(ATAC_CHR_LEN), "--ambient-factor", str(ATAC_AMBIENT)])
+    print(f"phase 6: atac -c data {made['n_fragments']} fragments generated in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     gpl = str(out / "gpl")
     common = ["-t", str(THREADS), "--device", "cuda"]
     m = ["-m", str(ATAC_MAX_RECORDS), "-c"]
     stages = {
+        "gpl": ["atac", "generate-permit-list", "-i", str(data / "rad"), "-o", gpl,
+                "-u", str(data / "wl.txt"), "-m", "10", *common],
         "sort": ["atac", "sort", "-i", gpl, "-r", str(data / "rad"), *m, *common],
         "collate": ["atac", "collate", "-i", gpl, "-r", str(data / "rad"), *m, *common],
         "deduplicate": ["atac", "deduplicate", "-i", gpl, *common],
     }
-    cmdlines = {k: "alevin-fry-tpu " + " ".join(v) for k, v in stages.items()}
-    cmdlines["gpl"] = json.loads((out / "gpl" / "generate_permit_list.json").read_text())["cmd"]
-    (work / "p6_atac_cmdlines.json").write_text(json.dumps(cmdlines))
+    (work / "p6_atac_cmdlines.json").write_text(json.dumps(
+        {k: "alevin-fry-tpu " + " ".join(v) for k, v in stages.items()}))
     ref_logs = work / "p6_atac_ref_log"
     ref_proc = helper_start(["run-atac", str(data), str(ref), str(work / "p6_atac_cmdlines.json"),
                              "--max-records", str(ATAC_MAX_RECORDS), "--threads", str(THREADS),
-                             "--compress", "--skip-gpl"], ref_logs)
+                             "--compress"], ref_logs)
     stats, peaks = {}, {}
     real_dedup = dedup.deduplicate
     dedup.deduplicate = lambda *a, **k: stats.update(real_dedup(*a, **k)) or stats
@@ -1259,7 +1283,7 @@ def atac_sz_phase(work: Path, card: str, profile: bool) -> list:
     launches = launch_counts()
     if not all(launches[k] > 0 for k in ATAC_SZ_KERNELS):
         raise AssertionError(f"a kernel of the ATAC .sz path never launched: {launches}")
-    stage_lines("phase 6: port atac sort -c, collate -c, deduplicate from .sz on cuda "
+    stage_lines("phase 6: port atac gpl, sort -c, collate -c, deduplicate from .sz on cuda "
                 "(the reference's run beside it)", secs, peaks, card)
     names = atac_artifacts(compressed=True)
     bad = artifact_mismatches(out, ref, names, ATAC_STAGE_JSONS)
@@ -1268,19 +1292,18 @@ def atac_sz_phase(work: Path, card: str, profile: bool) -> list:
                              f"{ref_run['dedup']}")
     sizes = {
         "map.bed.gz": (out / "sort" / "map.bed.gz").stat().st_size,
-        "map.bed (phase 5 sort)": (work / "atac_port" / "sort" / "map.bed").stat().st_size,
         "map.collated.rad.sz": (out / "gpl" / "map.collated.rad.sz").stat().st_size,
-        "map.collated.rad (phase 5)":
-            (work / "atac_port" / "gpl" / "map.collated.rad").stat().st_size,
+        "map.collated.rad it holds": sz_uncompressed_bytes(out / "gpl" / "map.collated.rad.sz"),
     }
-    if sz_uncompressed_bytes(out / "gpl" / "map.collated.rad.sz") !=             sizes["map.collated.rad (phase 5)"]:
-        raise AssertionError("the ATAC .sz does not hold phase 5's collated bytes")
+    ref_holds = sz_uncompressed_bytes(ref / "gpl" / "map.collated.rad.sz")
+    if not sizes["map.collated.rad it holds"] == ref_holds > sizes["map.collated.rad.sz"]:
+        raise AssertionError(f"the ATAC .sz holds {sizes['map.collated.rad it holds']} B, "
+                             f"the reference's {ref_holds} B")
     print(f"phase 6: atac -c: {len(names)} data artifacts equal (map.bed.gz up to its MTIME), "
           f"3 stage JSONs and the 4 counters equal to the reference host path (host CPU: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in ref_run["seconds"].items())
           + f"); sizes {sizes}; launches {launches}", flush=True)
     return replay(cap.inputs, ATAC_SZ_KERNELS, launches, "atac-sz", "phase 6 atac", card)
-
 
 def wide_wta_phase(dev, card: str) -> list:
     """The multi-word WTA (cell, UMI, gene words; 32-base UMIs use bit
@@ -1599,6 +1622,12 @@ class K7Capture:
         pug_device.connected_components = self._orig
 
 
+def host_graph(graph) -> tuple:
+    """K7Capture's graphs as cc_labels takes them: (node counts,
+    degrees, neighbours) on the host."""
+    return graph[0], graph[2].cpu().numpy(), graph[3].cpu().numpy()
+
+
 def kernel_device_ms(fn, reps: int, pattern: str) -> float:
     """Mean device milliseconds a call of ``fn`` runs kernels whose names
     hold ``pattern`` (the union of their intervals: launches on side
@@ -1777,6 +1806,7 @@ def _parsimony_runs(work: Path, runs: dict, lr_stages: dict, chain: dict, card: 
               f"{name} {list(r.values())[0]:.2f} s" for name, r in zip(runs, ref_runs))
           + "; long-read " + ", ".join(f"{k} {v:.2f} s" for k, v in ref_runs[-1].items())
           + ")", flush=True)
+    P13["graph"] = host_graph(k7cap.largest)
     rows = [k7_replay(k7cap.largest, total["K7"], "rna-parsimony", "phase 8", card),
             k6_replay(k6cap.largest, total["K6"], "rna-parsimony-em", "phase 8", card),
             k6_replay(lr_k6.largest, lr_launches["K6"], "longread-em", "phase 8 long-read",
@@ -2457,6 +2487,301 @@ def multihost_phase(work: Path, data: Path, subset: Path, card: str) -> None:
           f"equal to phase 10 (a)'s", flush=True)
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s in all [{card}]", flush=True)
 
+# --- phase 13 ---------------------------------------------------------------
+
+class Spy:
+    """Records the arguments of the largest call (by its largest array)
+    of ``alevin_fry_tpu_torch.<module>.<name>`` while entered, and counts
+    the calls; with ``copy`` it keeps copies of the tensor arguments in
+    host memory (so the device's peak holds no instrumentation)."""
+
+    def __init__(self, module: str, name: str, copy: bool = False):
+        import importlib
+
+        self.mod = importlib.import_module(f"alevin_fry_tpu_torch.{module}")
+        self.name, self.copy = name, copy
+        self.args, self.kwargs, self.size, self.calls = None, None, -1, 0
+
+    def __enter__(self):
+        self._orig = getattr(self.mod, self.name)
+
+        def spy(*args, **kwargs):
+            self.calls += 1
+            size = max((a.numel() if hasattr(a, "numel") else a.size
+                        for a in args if hasattr(a, "shape")), default=0)
+            if size > self.size:
+                self.size = size
+                self.args = tuple(a.to("cpu", copy=True) if self.copy and hasattr(a, "to") else a
+                                  for a in args)
+                self.kwargs = dict(kwargs)
+            return self._orig(*args, **kwargs)
+
+        setattr(self.mod, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self._orig)
+
+    def host(self) -> tuple:
+        """The recorded call's (arguments, keywords), tensors on the host."""
+        return tuple(a.cpu() if hasattr(a, "cpu") else a for a in self.args), self.kwargs
+
+
+def mesh_stages(work: Path, data: Path, out: Path, dev) -> dict:
+    """Phase 13's CLI runs into ``out``: phase 3's gpl -u and collate,
+    phase 7's quant -r cr-like-em -d and infer --usa, phase 5's ATAC gpl
+    (K5, as there), on ``dev``: name -> (argv, its run's directory, the
+    one-card run's, data artifacts, stage JSONs)."""
+    from reference_host_path import DUMP_ARTIFACTS, INFER_ARTIFACTS, QUANT_ARTIFACTS
+
+    dev = ["-t", str(THREADS), "--device", dev.type]
+    gpl, dump = out / "gpl", out / "em-usa" / "quant" / "alevin"
+    adata = work / "atac_data"
+    return {
+        "gpl": (["generate-permit-list", "-i", str(data / "rad"), "-d", "fw", "-o", str(gpl),
+                 "-u", str(data / "permit.txt"), "-m", "10", *dev], out, work / "port",
+                ("gpl/permit_freq.bin", "gpl/permit_map.bin"),
+                ("gpl/generate_permit_list.json",)),
+        "collate": (["collate", "-i", str(gpl), "-r", str(data / "rad"), *dev], out,
+                    work / "port", ("gpl/map.collated.rad", "gpl/unmapped_bc_count_collated.bin"),
+                    ("gpl/collate.json",)),
+        "quant -r cr-like-em -d": (
+            ["quant", "-i", str(gpl), "-m", str(data / "t2g_3col.tsv"), "-o",
+             str(out / "em-usa" / "quant"), "-r", "cr-like-em", "-d", *dev], out / "em-usa",
+            work / "p7_port" / "em-usa", QUANT_ARTIFACTS + DUMP_ARTIFACTS, ("quant/quant.json",)),
+        "infer --usa": (
+            ["infer", "-c", str(dump / "geqc_counts.mtx"), "-e", str(dump / "gene_eqclass.txt.gz"),
+             "-o", str(out / "infer-usa" / "infer"), "--usa", *dev], out / "infer-usa",
+            work / "p7_port" / "infer-usa", INFER_ARTIFACTS, ()),
+        "atac gpl": (
+            ["atac", "generate-permit-list", "-i", str(adata / "rad"), "-o",
+             str(out / "atac" / "gpl"), "-u", str(adata / "wl.txt"), "-m", "10", *dev],
+            out / "atac", work / "atac_port",
+            ("gpl/permit_freq.bin", "gpl/permit_map.bin", "gpl/bin_recs.bin", "gpl/bin_lens.bin"),
+            ("gpl/generate_permit_list.json",)),
+    }
+
+
+def by_card(since: dict) -> dict:
+    """Launches per card and kernel since ``since`` (a copy of BY_CARD)."""
+    from alevin_fry_tpu_torch import _kernels
+
+    return {f"cuda:{c} {k}": n - since.get((c, k), 0)
+            for (c, k), n in sorted(_kernels.BY_CARD.items()) if n > since.get((c, k), 0)}
+
+
+def set_env(env: dict) -> dict:
+    """Set (a value) or remove (None) each variable of ``env``; returns
+    what was there, for set_env to restore."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return saved
+
+
+def mesh_runs(work: Path, data: Path, label: str, env: dict, card: str, dev) -> tuple:
+    """Phase 13's CLI runs with the mesh variables ``env``, each held to
+    its one-card run byte for byte.  Returns the Spies of the mesh
+    programs (each program's largest call; collate's order, which takes
+    no mesh, for the shuffle's input) and the launches per card and
+    kernel of the runs."""
+    from alevin_fry_tpu_torch import _kernels
+    from alevin_fry_tpu_torch.parallel import mesh
+    from reference_host_path import artifact_mismatches
+
+    stages = mesh_stages(work, data, work / "p13" / label.strip("()"), dev)
+    spies = {"hist": Spy("pipeline.gpl", "sharded_histogram"),
+             "bins": Spy("atac.gpl", "sharded_bin_histogram"),
+             "order": Spy("pipeline.collate", "collation_order"),
+             "em": Spy("pipeline.quant", "em_cells"), "infer": Spy("pipeline.infer", "em_cells")}
+    secs, lines, start = {}, [], dict(_kernels.BY_CARD)
+    saved = set_env(env)
+    try:
+        for spy in spies.values():
+            spy.__enter__()
+        for name, (argv, *_dirs) in stages.items():
+            rescue = set_env({"AFT_RESCUE_BACKEND": "pallas" if name == "atac gpl" else None})
+            since, bytes0 = dict(_kernels.BY_CARD), mesh.MOVED_BYTES
+            try:
+                secs.update(run_stages({name: argv}, f"phase 13 {label}"))
+            finally:
+                set_env(rescue)
+            lines.append(f"phase 13 {label}: {name} {secs[name]:.2f} s, mesh bytes moved "
+                         f"{mesh.MOVED_BYTES - bytes0}, launches by card {by_card(since)} "
+                         f"[{card}]")
+    finally:
+        for spy in spies.values():
+            spy.__exit__()
+        set_env(saved)
+    launches = by_card(start)
+    bad = []
+    for name, (_argv, run, one, names, jsons) in stages.items():
+        bad += [f"{name}: {n}" for n in artifact_mismatches(run, one, names, ())
+                + mh_jsons_differ(run, one, jsons)]
+    if bad:
+        raise AssertionError(f"phase 13 {label}: differs from the one-card runs in {bad}")
+    print("\n".join(lines), flush=True)
+    return spies, launches
+
+
+def timed(fn) -> tuple:
+    """(``fn()``, its host seconds, ended by a synchronize)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_programs(spies: dict, card: str, cuda) -> dict:
+    """Phase 13 (a): each mesh program on MESH_SHARDS shards of the card
+    against its result on one shard (or without a mesh), on the inputs the
+    path gave it: the barcode and bin histograms of (b)'s gpl runs, the
+    collate shuffle on the ranks of (b)'s collate, the EM of (b)'s quant,
+    the sharded WTA on phase 3's keys and the components on phase 8's
+    graphs.  Returns the launches per card and kernel."""
+    import numpy as np
+    import torch
+
+    from alevin_fry_tpu_torch import _kernels
+    from alevin_fry_tpu_torch.ops import crlike_device, em, pug_device
+    from alevin_fry_tpu_torch.parallel import mesh
+
+    two, one = mesh.make_mesh(MESH_SHARDS, cuda), mesh.make_mesh(1, cuda)
+    start, lines = dict(_kernels.BY_CARD), []
+
+    def held(name: str, shape, run, equal) -> None:
+        """Run ``run(mesh_or_None, sharded)`` sharded and on one card,
+        raise unless ``equal(sharded result, one-card result)``."""
+        since, bytes0 = dict(_kernels.BY_CARD), mesh.MOVED_BYTES
+        got, s2 = timed(lambda: run(two, True))
+        moved, cards = mesh.MOVED_BYTES - bytes0, by_card(since)
+        want, s1 = timed(lambda: run(one, False))
+        if not equal(got, want):
+            raise AssertionError(f"phase 13 (a): {name} on {MESH_SHARDS} shards differs from "
+                                 f"one card")
+        lines.append(f"phase 13 (a): {name} {shape}: {MESH_SHARDS} shards {s2:.3f} s, one card "
+                     f"{s1:.3f} s, equal; mesh bytes moved {moved}; launches by card {cards} "
+                     f"[{card}]")
+
+    def arrays_equal(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    _, bcs, wl = spies["hist"].args
+    held("sharded_histogram", [len(bcs), len(wl)],
+         lambda m, _s: mesh.sharded_histogram(m, bcs, wl),
+         lambda a, b: arrays_equal(a[::2], b[::2]) and a[1] == b[1])
+    _, idx, n_bins = spies["bins"].args
+    held("sharded_bin_histogram", [len(idx), n_bins],
+         lambda m, _s: mesh.sharded_bin_histogram(m, idx, n_bins), np.array_equal)
+
+    ranks, n_cells, _device = spies["order"].args
+    S = MESH_SHARDS
+    r = np.full(-(-len(ranks) // S) * S, n_cells, np.int64)
+    r[:len(ranks)] = ranks
+    owner = np.minimum(r // -(-n_cells // S), S - 1)
+    cap = int(np.bincount(np.repeat(np.arange(S), len(r) // S) * S + owner).max())
+
+    def shuffle(m, sharded):
+        # one shard holds every read in one bin
+        r_out, p_out, dropped = mesh.sharded_collate_shuffle(
+            m, r, np.arange(len(r)), n_cells, cap if sharded else len(r))
+        return None if dropped else p_out[r_out != n_cells]
+
+    held("sharded_collate_shuffle", [len(r), n_cells, cap], shuffle,
+         lambda a, b: a is not None and np.array_equal(a, b)
+         and np.array_equal(a, np.argsort(ranks, kind="stable")))
+    if not mesh.sharded_collate_shuffle(two, r, np.arange(len(r)), n_cells, cap - 1)[2]:
+        raise AssertionError("phase 13 (a): the shuffle one below the capacity dropped no read")
+
+    args, kwargs = spies["em"].args, dict(spies["em"].kwargs)
+    kwargs.pop("mesh", None)
+
+    def em_equal(a, b):
+        return len(a) == len(b) and all(np.array_equal(ai, bi) and np.array_equal(
+            av.view(np.int32), bv.view(np.int32)) for (ai, av), (bi, bv) in zip(a, b))
+
+    held("em_cells", [len(args[0]) - 1, len(args[1]) - 1, len(args[2])],
+         lambda m, sharded: em.em_cells(*args, **kwargs, mesh=m if sharded else None),
+         em_equal)
+
+    (key, *wta_args), wta_kw = P13["wta"]
+    ubits, gbits = wta_args[0], wta_args[1]
+    key = torch.sort(key.to(cuda)).values.cpu().numpy()
+    cell = key >> (ubits + gbits)
+    cut = int(np.searchsorted(cell, cell[len(key) // 2]))
+    blocks = np.full((S, max(cut, len(key) - cut)), crlike_device.PAD, np.int64)
+    blocks[0, :cut], blocks[1, :len(key) - cut] = key[:cut], key[cut:]
+
+    def wta(m, sharded):
+        ok, oc = crlike_device.sharded_crlike_wta(m, blocks if sharded else key[None, :],
+                                                  *wta_args, **wta_kw)
+        keep = ok != crlike_device.PAD
+        return ok[keep], oc[keep]
+
+    held("sharded_crlike_wta", [len(key), *wta_args], wta, arrays_equal)
+    graph = P13["graph"]
+    held("cc_labels", [len(graph[0]), len(graph[1]), len(graph[2])],
+         lambda m, sharded: pug_device.cc_labels(*graph, cuda, m if sharded else None),
+         np.array_equal)
+    print("\n".join(lines), flush=True)
+    return by_card(start)
+
+
+def mesh_phase(work: Path, data: Path, card: str, dev) -> None:
+    """Phase 13: the device mesh of one process on the card.  (b) the CLI
+    with AFT_GPL_MESH and AFT_EM_MESH at MESH_SHARDS (shard s on
+    cuda:{s % cards}: all on the card of a one-card machine) and collate
+    (which takes no mesh), each stage against its
+    one-card run of phases 3, 5 and 7 (which phases 4, 5 and 7 hold to
+    the reference); (a) each mesh program on the inputs (b) and phases 3
+    and 8 gave it against its one-card result; (c) where there are two
+    cards or more, (b) with the variables unset, which means one shard a
+    card, with each card's launches."""
+    import torch
+
+    from alevin_fry_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    bytes0 = mesh.MOVED_BYTES
+    n = str(MESH_SHARDS)
+    spies, launches = mesh_runs(work, data, "(b)", {"AFT_GPL_MESH": n, "AFT_EM_MESH": n},
+                                card, dev)
+    want = [f"cuda:0 {k}" for k in ("K1", "K2", "K3", "K4", "K5", "K6")]
+    if any(k not in launches for k in want) or any(
+            not (s.calls and s.args) for s in spies.values()):
+        raise AssertionError(f"phase 13 (b): a kernel or a mesh program never ran: {launches}, "
+                             f"{ {k: s.calls for k, s in spies.items()} }")
+    cards = torch.cuda.device_count()
+    print(f"phase 13 (b): gpl -u, collate, quant -r cr-like-em -d, infer --usa and atac gpl "
+          f"with {MESH_SHARDS} shards on {min(cards, MESH_SHARDS)} card(s) byte-identical to "
+          f"phases 3, 5 and 7; "
+          f"program calls { {k: s.calls for k, s in spies.items()} }; launches by card "
+          f"{launches}", flush=True)
+    launches = mesh_programs(spies, card, dev)
+    if any(f"cuda:0 {k}" not in launches for k in ("K1", "K2", "K3", "K6", "K7")):
+        raise AssertionError(f"phase 13 (a): a kernel never launched: {launches}")
+    if cards < 2:
+        print(f"phase 13 (c): one card ({cards}), so no mesh of several cards ran", flush=True)
+    else:
+        _spies, launches = mesh_runs(work, data, "(c)", {"AFT_GPL_MESH": None,
+                                                         "AFT_EM_MESH": None}, card, dev)
+        missing = [c for c in range(cards) if f"cuda:{c} K6" not in launches]
+        if missing:
+            raise AssertionError(f"phase 13 (c): K6 never launched on cards {missing}: "
+                                 f"{launches}")
+        print(f"phase 13 (c): the same runs with one shard on each of {cards} cards "
+              f"byte-identical; launches by card {launches}", flush=True)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all, mesh bytes moved "
+          f"{mesh.MOVED_BYTES - bytes0} [{card}]", flush=True)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
@@ -2502,8 +2827,10 @@ def main() -> int:
     gen_s = time.perf_counter() - t0
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    with Capture() as cap:
+    with Capture() as cap, Spy("ops.crlike", "resolve_crlike_wta_device", copy=True) as wta:
         secs, cmdlines = run_port(data, work / "port", args.profile)
+    P13["wta"] = wta.host()
+    del wta
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if not all(launches[k] > 0 for k in RNA_KERNELS):
@@ -2556,6 +2883,7 @@ def main() -> int:
         rows += flex_phase(work, flex_chain, card, args.profile)
         rows += bam_phase(work, bam_chain, card, args.profile)
         multihost_phase(work, data, subset, card)
+        mesh_phase(work, data, card, dev)
     finally:
         for ch in (flex_chain, bam_chain):
             if ch is not None:

@@ -173,11 +173,13 @@ def test_atac_unported_options_raise(tmp_path, monkeypatch):
     gpl = str(tmp_path / "gpl")
     base = ["atac", "generate-permit-list", "-i", str(d / "rad"), "-o", gpl,
             "-u", str(d / "wl.txt"), "-m", "1", "--device", "cpu"]
+    # a device mesh is ported (tests/test_torch_mesh.py): the same bytes
     monkeypatch.setenv("AFT_GPL_MESH", "4")
-    with pytest.raises(NotImplementedError, match="device mesh"):
-        port_main(base)
+    assert port_main([*base[:5], str(tmp_path / "mgpl"), *base[6:]]) == 0
     monkeypatch.delenv("AFT_GPL_MESH")
     assert port_main(base) == 0
+    for name in ("permit_freq.bin", "permit_map.bin", "bin_recs.bin", "bin_lens.bin"):
+        assert (tmp_path / "mgpl" / name).read_bytes() == (tmp_path / "gpl" / name).read_bytes()
     # -c is ported: sort and collate write map.bed.gz and map.collated.rad.sz
     for sub in ("sort", "collate"):
         assert port_main(["atac", sub, "-i", gpl, "-r", str(d / "rad"), "-c",

@@ -717,3 +717,133 @@ def test_two_process_chain_on_the_card_equals_one_process_cpu(cuda, tmp_path):
         assert s["stages"]["quant"]["device"] == f"cuda:{r % torch.cuda.device_count()}"
         assert s["stages"]["gpl"]["launches"]["K4"] > 0
         assert all(s["stages"]["quant"]["launches"][k] > 0 for k in ("K1", "K2", "K3"))
+
+
+# --- the device mesh (parallel/mesh.py) --------------------------------------------
+
+WRAPPERS = ("K1", "K2", "K3", "K4", "K5", "K6", "K6-boot", "K7", "K8")
+
+
+def _wrapper_case(key: str, dev):
+    """(the wrapper's outputs on ``dev``, its twin's on the CPU) for one
+    small input of kernel ``key``."""
+    rng = np.random.RandomState(len(key) * 7 + ord(key[1]))
+    on = lambda *ts: [t.to(dev) for t in ts]  # noqa: E731
+    if key in ("K1", "K2", "K3"):
+        n = 100_003
+        x = torch.from_numpy(rng.randint(0, 5, n).astype(np.int32))
+        st = torch.from_numpy(_segments(rng, n))
+        w = torch.from_numpy(rng.randint(-(1 << 62), 1 << 62, n, dtype=np.int64))
+        fn, twin, args = {
+            "K1": (segscan.scan_fwd, segscan.scan_fwd_twin, (x, st)),
+            "K2": (segscan.scan_min, segscan.scan_min_twin, (x, True)),
+            "K3": (segscan.scan_lex, segscan.scan_lex_twin, (w, True, True)),
+        }[key]
+        dev_args = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+        got, want = fn(*dev_args), twin(*args)
+    elif key in ("K4", "K5"):
+        q, kept = _hamming_case(rng, 16, 3000, "unique")
+        qt, kt = barcodes_to_torch(q), barcodes_to_torch(kept)
+        if key == "K4":
+            got = hamming.neighbor_counts(*on(qt, kt), 16)
+            want = hamming.neighbor_counts(qt, kt, 16)
+        else:
+            kt = kt[torch.from_numpy(rng.permutation(len(kt)))]
+            got, want = hamming.neighbor_counts_brute(*on(qt, kt)), \
+                hamming.neighbor_counts_brute(qt, kt)
+    elif key == "K6":
+        plan = _k6_plan("small", True, True, False)
+        got, want = em.em_run(plan.to(dev)), em.em_run_twin(plan.to("cpu"))
+    elif key == "K6-boot":
+        got, want = em.em_run(_boot_tensors("rungs", 2, dev)), \
+            em.em_run_twin(_boot_tensors("rungs", 2, "cpu"))
+    elif key == "K7":
+        graph = pug_case("random")
+        got = pug_device.connected_components(*pug_device.upload_csr(*graph, dev))[0]
+        want = torch.from_numpy(union_find_labels(*graph))
+    else:
+        ids = [np.sort(rng.choice(5000, rng.randint(1, 300), replace=False)) for _ in range(20)]
+        off = torch.from_numpy(np.concatenate(([0], np.cumsum([len(i) for i in ids]))))
+        seeds = torch.from_numpy(rng.randint(0, 2**32, (3, 20), dtype=np.int64))
+        ids = torch.from_numpy(np.concatenate(ids).astype(np.int32))
+        got = mtrand.random_init(*on(seeds, off, ids))
+        want = mtrand.random_init_twin(seeds, off, ids)
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    return [(_bits(g), _bits(w)) for g, w in pairs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", WRAPPERS)
+def test_each_wrapper_on_each_shard_of_a_mesh_matches_twin(cuda, key):
+    """Every wrapper launched on each shard's card of a 2-shard mesh (both
+    shards on one card where there is one) equals its twin, and counts
+    its launch under that card."""
+    from alevin_fry_tpu_torch import _kernels
+    from alevin_fry_tpu_torch.parallel import mesh
+
+    for dev in mesh.make_mesh(2, "cuda").devices:
+        before = _kernels.BY_CARD.get((dev.index, key), 0)
+        for g, w in _wrapper_case(key, dev):
+            assert torch.equal(g, w)
+        assert _kernels.BY_CARD[(dev.index, key)] > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", WRAPPERS)
+def test_each_wrapper_launches_on_its_tensors_card(cuda, key):
+    """With card 0 current, every wrapper given tensors on card 1 plans
+    for and launches on card 1, and equals its twin (skips on one card)."""
+    from alevin_fry_tpu_torch import _kernels
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    before = {c: _kernels.BY_CARD.get((c, key), 0) for c in (0, 1)}
+    with torch.cuda.device(0):
+        for g, w in _wrapper_case(key, dev):
+            assert torch.equal(g, w)
+        torch.cuda.synchronize(dev)
+    assert _kernels.BY_CARD[(1, key)] > before[1]
+    assert _kernels.BY_CARD.get((0, key), 0) == before[0]
+
+
+@pytest.mark.cuda
+def test_mesh_programs_on_two_shards_match_the_cpu(cuda):
+    """The mesh programs on 2 shards of the card (or of two cards) equal
+    their 2-shard CPU results: the histograms, the collate shuffle, the
+    sharded WTA (K1-K3), the EM (K6) and the components (K7)."""
+    from alevin_fry_tpu_torch.ops import crlike_device
+    from alevin_fry_tpu_torch.parallel import mesh
+
+    gm, cm = mesh.make_mesh(2, "cuda"), mesh.make_mesh(2, "cpu")
+    rng = np.random.RandomState(7)
+    wl = np.unique(rng.randint(0, 1 << 62, 50_000, dtype=np.uint64) * np.uint64(3))
+    bcs = np.where(rng.rand(300_001) < 0.7, wl[rng.randint(0, len(wl), 300_001)],
+                   rng.randint(0, 1 << 62, 300_001, dtype=np.uint64))
+    for g, c in zip(mesh.sharded_histogram(gm, bcs, wl), mesh.sharded_histogram(cm, bcs, wl)):
+        np.testing.assert_array_equal(g, c)
+    idx = rng.randint(0, 31_000, 500_001)
+    np.testing.assert_array_equal(mesh.sharded_bin_histogram(gm, idx, 31_000),
+                                  np.bincount(idx, minlength=31_000))
+    ranks = rng.randint(0, 5_000, 400_002)
+    cap = int(np.bincount(np.repeat([0, 1], 200_001) * 2 + (ranks >= 2_500)).max())
+    for g, c in zip(mesh.sharded_collate_shuffle(gm, ranks, np.arange(len(ranks)), 5_000, cap),
+                    mesh.sharded_collate_shuffle(cm, ranks, np.arange(len(ranks)), 5_000, cap)):
+        np.testing.assert_array_equal(g, c)
+    c = np.sort(rng.randint(0, 400, 200_000)).astype(np.int64)
+    key = (c << 20) | (rng.randint(0, 1 << 10, len(c)) << 8) | rng.randint(0, 200, len(c))
+    cut = int(np.searchsorted(c, 200))
+    blocks = np.full((2, len(c)), crlike_device.PAD, np.int64)
+    blocks[0, :cut], blocks[1, :len(c) - cut] = key[:cut], key[cut:]
+    for g, w in zip(crlike_device.sharded_crlike_wta(gm, blocks, 12, 8, 200),
+                    crlike_device.sharded_crlike_wta(cm, blocks, 12, 8, 200)):
+        np.testing.assert_array_equal(g, w)
+    batch, n_rows = em_case("10k-cells")
+    args = (*batch, n_rows, usa_offsets(n_rows), False, True)
+    for (gi, gv), (wi, wv) in zip(em.em_cells(*args, cuda, mesh=gm),
+                                  em.em_cells(*args, torch.device("cpu"))):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gv.view(np.int32), wv.view(np.int32))
+    graph = pug_case("random")
+    np.testing.assert_array_equal(pug_device.cc_labels(*graph, cuda, mesh=gm),
+                                  union_find_labels(*graph))

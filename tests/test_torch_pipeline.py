@@ -14,6 +14,7 @@ bytes, so every comparison is exact.  Inputs come from numpy seeds
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -277,16 +278,33 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     assert port_main(infer) == 0
     assert (tmp_path / "infer" / "quants_mat.mtx").exists()
     monkeypatch.delenv("AFT_COORDINATOR")
-    # device meshes are not ported: gpl's, and the EM's in quant and infer
-    monkeypatch.setenv("AFT_GPL_MESH", "auto")
-    with pytest.raises(NotImplementedError, match="device mesh"):
-        port_main(["generate-permit-list", "-i", str(d / "rad"), "-d", "fw", "-o",
-                   str(tmp_path / "mgpl"), "-u", str(d / "permit.txt"), "--device", "cpu"])
+    # device meshes are ported (tests/test_torch_mesh.py): gpl's, and the
+    # EM's in quant and infer, run and write the bytes of a run without
+    gpl_argv = ["generate-permit-list", "-i", str(d / "rad"), "-d", "fw", "-o",
+                str(tmp_path / "mgpl"), "-u", str(d / "permit.txt"), "-m", "1",
+                "--device", "cpu"]
+    monkeypatch.setenv("AFT_GPL_MESH", "3")
+    assert port_main(gpl_argv) == 0
     monkeypatch.delenv("AFT_GPL_MESH")
+    for name in ("permit_freq.bin", "permit_map.bin"):
+        assert (tmp_path / "mgpl" / name).read_bytes() == (out / "gpl" / name).read_bytes()
     monkeypatch.setenv("AFT_EM_MESH", "2")
-    for argv in (equant, infer):
-        with pytest.raises(NotImplementedError, match="device mesh"):
-            port_main(argv)
+    mesh_out = {"quant": out / "meq", "infer": tmp_path / "minfer"}
+    assert port_main([*equant[:6], str(mesh_out["quant"]), *equant[7:]]) == 0
+    assert port_main([*infer[:6], str(mesh_out["infer"]), *infer[7:]]) == 0
+    monkeypatch.delenv("AFT_EM_MESH")
+    for name in ("alevin/quants_mat.mtx", "alevin/geqc_counts.mtx"):
+        assert (mesh_out["quant"] / name).read_bytes() == (out / "eq" / name).read_bytes()
+    assert (mesh_out["infer"] / "quants_mat.mtx").read_bytes() == \
+        (tmp_path / "infer" / "quants_mat.mtx").read_bytes()
+    # velocity mode is not ported (nor implemented in the reference): quant raises
+    velo = tmp_path / "velo"
+    shutil.copytree(out / "gpl", velo)
+    meta = json.loads((velo / "generate_permit_list.json").read_text())
+    (velo / "generate_permit_list.json").write_text(json.dumps({**meta, "velo_mode": True}))
+    with pytest.raises(NotImplementedError, match="velocity mode"):
+        port_main(["quant", "-i", str(velo), "-m", str(d / "t2g.tsv"), "-o",
+                   str(tmp_path / "vq"), "-r", "cr-like", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("max_records", [40, 700, 20_000])

@@ -4,6 +4,7 @@
     python3 tools/run_phase.py 10 [--profile]   # the 16-plex Flex run
     python3 tools/run_phase.py 11 [--profile]   # convert, the RNA path on its RAD, view
     python3 tools/run_phase.py 12               # two processes of each stage
+    python3 tools/run_phase.py 13               # the device mesh of one process
 
 Phases 10 and 11: builds the kernels, starts the phase's data (and, for
 phase 10, the reference's host path) in a thread, runs the phase, which
@@ -13,8 +14,12 @@ as one JSON line.  Phase 12: makes the data of phases 3, 5 and 10 and
 runs the port's one-process stages that phase 12 is held against (phase
 3's gpl, collate and quant; phase 7's quant -r cr-like-em -d; phase 9
 (b)'s subset and (c)'s -b 20 --summary-stat; phase 5's ATAC stages with
-their counters; phase 10 (a)'s Flex stages), then phase 12.  Work files
-go to build/phase_<N>/ and are removed at the end.  The script needs a
+their counters; phase 10 (a)'s Flex stages), then phase 12.  Phase 13: makes the data of
+phases 3 and 5 and runs the one-card stages phase 13 is held against
+(phase 3's gpl, collate and quant, whose WTA keys it keeps; phase 7's
+quant -r cr-like-em -d and infer --usa; phase 5's atac gpl), and phase
+8's quant -r parsimony, whose largest UMI graphs it keeps, then phase
+13.  Work files go to build/phase_<N>/ and are removed at the end.  The script needs a
 CUDA device and exits non-zero without one, or when any check of the
 phase fails.
 """
@@ -30,7 +35,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 # phase -> (the function of chip_smoke.py that starts its thread, the phase)
 PHASES = {10: ("flex_ref_chain", "flex_phase"), 11: ("bam_data_chain", "bam_phase"),
-          12: (None, None)}
+          12: (None, None), 13: (None, None)}
 
 
 def phase12_inputs(cs, work: Path, card: str) -> tuple:
@@ -86,6 +91,41 @@ def phase12_inputs(cs, work: Path, card: str) -> tuple:
     return data, subset
 
 
+def phase13_inputs(cs, work: Path, card: str) -> Path:
+    """The data, one-card runs and kept inputs phase 13 takes, as the
+    whole script leaves them; returns phase 3's data."""
+    import os
+
+    data, adata = work / "data", work / "atac_data"
+    cs.helper(["make", str(data), "--n-cells", str(cs.N_CELLS), "--n-reads", str(cs.N_READS),
+               "--n-genes", str(cs.N_GENES)])
+    with cs.Spy("ops.crlike", "resolve_crlike_wta_device", copy=True) as wta:
+        secs, _ = cs.run_port(data, work / "port")
+    cs.P13["wta"] = wta.host()
+    del wta
+    em = cs.em_port_argv(work, data)
+    secs.update(cs.run_stages({k: em[k] for k in ("em-usa", "infer-usa")}, "prep"))
+    cs.helper(["make-atac", str(adata), "--seed", str(cs.ATAC_SEED), "--n-cells",
+               str(cs.ATAC_CELLS), "--n-frags", str(cs.ATAC_FRAGS), "--n-chrs",
+               str(cs.ATAC_CHRS), "--chr-len", str(cs.ATAC_CHR_LEN), "--ambient-factor",
+               str(cs.ATAC_AMBIENT)])
+    os.environ["AFT_RESCUE_BACKEND"] = "pallas"
+    try:
+        secs.update(cs.run_stages({"atac gpl": [
+            "atac", "generate-permit-list", "-i", str(adata / "rad"), "-o",
+            str(work / "atac_port" / "gpl"), "-u", str(adata / "wl.txt"), "-m", "10", "-t",
+            str(cs.THREADS), "--device", "cuda"]}, "prep"))
+    finally:
+        os.environ.pop("AFT_RESCUE_BACKEND")
+    with cs.K7Capture() as k7:
+        secs.update(cs.run_stages(
+            {"parsimony": cs.parsimony_argv(work, data)["parsimony"]}, "prep"))
+    cs.P13["graph"] = cs.host_graph(k7.largest)
+    print("one card: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+          + f" [{card}]", flush=True)
+    return data
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="one of chip_smoke.py's phases alone")
     ap.add_argument("phase", type=int, choices=sorted(PHASES))
@@ -109,6 +149,11 @@ def main() -> int:
     work.mkdir(parents=True)
     if args.phase == 12:
         chip_smoke.multihost_phase(work, *phase12_inputs(chip_smoke, work, card), card)
+        shutil.rmtree(work, ignore_errors=True)
+        return 0
+    if args.phase == 13:
+        chip_smoke.mesh_phase(work, phase13_inputs(chip_smoke, work, card), card,
+                              torch.device("cuda"))
         shutil.rmtree(work, ignore_errors=True)
         return 0
     start, run = (getattr(chip_smoke, name) for name in PHASES[args.phase])
