@@ -244,7 +244,7 @@ def _quant(args, cmdline, device) -> int:
         )
         return 1
     if is_velo_mode(args.input_dir):
-        raise NotImplementedError("velocity mode is not ported yet")
+        raise NotImplementedError("velocity mode is not implemented on this branch")
     quantify(QuantOpts(
         input_dir=args.input_dir, tg_map=args.tg_map, output_dir=args.output_dir,
         device=device, num_threads=args.threads,

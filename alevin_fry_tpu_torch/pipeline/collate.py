@@ -19,11 +19,15 @@ paths, keyed by barcode alone.
 Writes the reference's artifacts: ``map.collated.rad`` (one chunk per
 cell), ``unmapped_bc_count_collated.bin`` and ``collate.json``.  With
 ``-c`` the collated file is ``map.collated.rad.sz`` instead, the same
-bytes as one snappy framing stream (``radz/snappyz.py``).  A compressed
-stream cannot be seeked back into, so every path knows its chunk count
-before it writes the header: the cells that kept a read.  A
-multi-barcode (Flex) input goes through ``pipeline/collate_multi.py``,
-which shares the ordering, the spill buckets and their gather.
+bytes as one snappy framing stream (``radz/snappyz.py``).  A
+velocity-mode directory (``velo_mode`` in its gpl JSON) names the
+collated file ``velo.map.collated.rad``, with ``-c`` too (then it holds
+the snappy stream), as the reference does; quant refuses such a
+directory.  A compressed stream cannot be seeked back into, so every
+path knows its chunk count before it writes the header: the cells that
+kept a read.  A multi-barcode (Flex) input goes through
+``pipeline/collate_multi.py``, which shares the ordering, the spill
+buckets and their gather; it and ATAC keep ``map.collated.rad``.
 
 A multi-process run (``parallel/dist.py``) always takes the out-of-core
 path: each rank scatters its contiguous range of the RAD chunks into
@@ -115,11 +119,13 @@ def collation_order(ranks: np.ndarray, n_cells: int, device: torch.device):
 
 
 @contextlib.contextmanager
-def _collated_writer(input_dir: Path, compress_out: bool):
+def _collated_writer(input_dir: Path, compress_out: bool, velo_mode: bool = False):
     """A sink for the collated file's bytes: ``map.collated.rad``, or
     with ``compress_out`` a snappy framing stream into
-    ``map.collated.rad.sz``."""
-    name = "map.collated.rad.sz" if compress_out else "map.collated.rad"
+    ``map.collated.rad.sz``; in ``velo_mode`` either goes to
+    ``velo.map.collated.rad``."""
+    name = ("velo.map.collated.rad" if velo_mode
+            else "map.collated.rad.sz" if compress_out else "map.collated.rad")
     with open(input_dir / name, "wb") as fh:
         if not compress_out:
             yield fh
@@ -172,7 +178,7 @@ def _check_record_type(prelude, ftm, expect_atac: bool = False) -> None:
 
 def _collate_in_memory_native(
     input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori,
-    device, compress_out: bool, expect_atac: bool = False,
+    device, compress_out: bool, expect_atac: bool = False, velo_mode: bool = False,
 ) -> bool:
     """Byte-level collation: walk record boundaries, correct barcodes,
     then gather whole records in cell-rank order with the barcode
@@ -254,7 +260,7 @@ def _collate_in_memory_native(
         schema.read_bytes, schema.aln_bytes, bc_off, bc_width, ref_off, ori_mode,
     )
     n_written = int((per_cell > 0).sum())
-    with _collated_writer(input_dir, compress_out) as out:
+    with _collated_writer(input_dir, compress_out, velo_mode) as out:
         out.write(_prelude_bytes(prelude, ftm, n_written))
         out.write(memoryview(body.data))
     log.info("finished collating input rad file; wrote %d cell chunks", n_written)
@@ -263,7 +269,7 @@ def _collate_in_memory_native(
 
 def _collate_columnar(
     input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori,
-    device, compress_out: bool, expect_atac: bool = False,
+    device, compress_out: bool, expect_atac: bool = False, velo_mode: bool = False,
 ) -> None:
     """Columnar collation: decode every record, reorder the columns by
     cell rank, re-encode one chunk per cell.  Reads left without
@@ -297,13 +303,14 @@ def _collate_columnar(
     n_written = write_collated(
         input_dir, compress_out, prelude, ftm, batch, np.flatnonzero(keep_read),
         {schema.barcode_fields[-1]: corrected[keep_read]}, np.diff(new_offsets), keep_aln,
-        sort_idx, per_cell,
+        sort_idx, per_cell, velo_mode,
     )
     log.info("finished collating input rad file; wrote %d cell chunks", n_written)
 
 
 def write_collated(input_dir, compress_out: bool, prelude, ftm, batch: ReadBatch, kept,
-                   rewrite: dict, nal, keep_aln, order, per_cell) -> int:
+                   rewrite: dict, nal, keep_aln, order, per_cell,
+                   velo_mode: bool = False) -> int:
     """Write the collated file: ``batch``'s kept reads (indices
     ``kept``, with the read fields of ``rewrite`` replaced, ``nal``
     alignments each: the alignments under ``keep_aln``) in the order
@@ -323,7 +330,7 @@ def write_collated(input_dir, compress_out: bool, prelude, ftm, batch: ReadBatch
         + np.arange(int(out_offsets[-1])) - np.repeat(out_offsets[:-1], out_nal)
     ]
     n_written = int((per_cell > 0).sum())
-    with _collated_writer(input_dir, compress_out) as sink:
+    with _collated_writer(input_dir, compress_out, velo_mode) as sink:
         sink.write(_prelude_bytes(prelude, ftm, n_written))
         write_cell_chunks(
             sink, batch.schema, read_cols, out_offsets, batch.refs[aln_gather],
@@ -375,7 +382,8 @@ def _gather_bucket_payload(rec_bytes, ranks, schema, n_cells, device):
 
 
 def _gather_rank_buckets(input_dir, spill_dir, n_buckets, schema, prelude, ftm,
-                         n_cells, device, compress_out: bool) -> int:
+                         n_cells, device, compress_out: bool,
+                         velo_mode: bool = False) -> int:
     """Gather phase of the spill-bucket collation: order each bucket by
     cell rank and append one chunk per cell to the collated file.  The
     header's chunk count, the cells with a record, comes first from the
@@ -403,7 +411,7 @@ def _gather_rank_buckets(input_dir, spill_dir, n_buckets, schema, prelude, ftm,
             per_cell[c] += n
     n_expected = int((per_cell > 0).sum())
     n_written = 0
-    with (_collated_writer(input_dir, compress_out) if rank == 0
+    with (_collated_writer(input_dir, compress_out, velo_mode) if rank == 0
           else contextlib.nullcontext()) as sink:
         if sink is not None:
             sink.write(_prelude_bytes(prelude, ftm, n_expected))
@@ -425,7 +433,7 @@ def _gather_rank_buckets(input_dir, spill_dir, n_buckets, schema, prelude, ftm,
 def _collate_out_of_core(
     input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori,
     max_records, device, compress_out: bool, expect_atac: bool = False,
-    num_chunks: int = 0,
+    num_chunks: int = 0, velo_mode: bool = False,
 ) -> None:
     """Bounded-memory collation (src/collate.rs:584-905): scatter the
     corrected records, re-encoded once, into spill buckets of
@@ -484,7 +492,7 @@ def _collate_out_of_core(
                 kf.close()
             n_written, _per_cell = _gather_rank_buckets(
                 input_dir, spill_dir, n_buckets, schema, prelude, ftm, len(cell_bcs),
-                device, compress_out,
+                device, compress_out, velo_mode,
             )
         finally:
             for rf, kf in files:
@@ -594,20 +602,19 @@ def collate(
         collate_multi_bc(input_dir, rad_dir, device, max_records, compress_out, cmdline,
                          version, collation_mode)
         return
-    if mdata.get("velo_mode"):
-        raise NotImplementedError("velocity mode is not ported yet")
-
     collate_cells(input_dir, rad_dir, mdata["expected_ori"], device, max_records,
-                  compress_out, cmdline, version)
+                  compress_out, cmdline, version,
+                  velo_mode=bool(mdata.get("velo_mode", False)))
 
 
 def collate_cells(input_dir, rad_dir, expected_ori, device, max_records, compress_out,
-                  cmdline, version, expect_atac: bool = False, num_chunks: int = 0) -> None:
+                  cmdline, version, expect_atac: bool = False, num_chunks: int = 0,
+                  velo_mode: bool = False) -> None:
     """The collation proper, shared with ``atac collate``: the sidecars
     (rank 0's), then the out-of-core path beyond ``max_records`` records
     or in a multi-process run (``num_chunks``: the chunk count where the
     header holds none), else the byte-level path, else the columnar
-    one."""
+    one; ``velo_mode`` names the collated file for velocity mode."""
     rank, world = dist.rank_world()
     cell_bcs, cell_cts, map_keys, map_vals = _read_cells_and_map(input_dir)
     if rank == 0:
@@ -616,7 +623,7 @@ def collate_cells(input_dir, rad_dir, expected_ori, device, max_records, compres
     args = (input_dir, rad_dir, cell_bcs, cell_cts, map_keys, map_vals, expected_ori)
     if world > 1 or int(cell_cts.sum()) > max_records:
         _collate_out_of_core(*args, max_records, device, compress_out, expect_atac,
-                             num_chunks)
-    elif not _collate_in_memory_native(*args, device, compress_out, expect_atac):
-        _collate_columnar(*args, device, compress_out, expect_atac)
+                             num_chunks, velo_mode)
+    elif not _collate_in_memory_native(*args, device, compress_out, expect_atac, velo_mode):
+        _collate_columnar(*args, device, compress_out, expect_atac, velo_mode)
     dist.barrier()

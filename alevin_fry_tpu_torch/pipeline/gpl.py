@@ -91,6 +91,9 @@ class GenPermitListOpts:
     expected_ori: str  # "fw" | "rc" | "both" | "either"
     device: torch.device  # where the rescue (K4) runs
     threads: int = 8
+    # velocity mode: recorded in the JSON, where collate reads it (no
+    # CLI flag sets it, as in the reference)
+    velo_mode: bool = False
     cmdline: str = ""
     version: str = __version__
     # the multi-barcode (Flex) options (pipeline/gpl_multi.py); a plain
@@ -109,7 +112,7 @@ def _serialize_opts(opts: GenPermitListOpts) -> dict:
         "output_dir": str(opts.output_dir),
         "fmeth": opts.fmeth.describe(),
         "expected_ori": opts.expected_ori,
-        "velo_mode": False,
+        "velo_mode": opts.velo_mode,
         "threads": opts.threads,
         "cmdline": opts.cmdline,
         "version": opts.version,
@@ -389,7 +392,7 @@ def _process_unfiltered(
 def _write_gpl_json(opts: GenPermitListOpts, max_ambig: int, out_dir: Path,
                     list_type: str) -> None:
     write_json(out_dir / "generate_permit_list.json", {
-        "velo_mode": False,
+        "velo_mode": opts.velo_mode,
         "expected_ori": strand_from_ori_arg(opts.expected_ori),
         "version_str": opts.version,
         "max-ambig-record": max_ambig,

@@ -218,7 +218,7 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
         })
         # the reference writes no gpl_options record on this path
         write_json(out_dir / "generate_permit_list.json", {
-            "velo_mode": False,
+            "velo_mode": opts.velo_mode,
             "expected_ori": strand,
             "version_str": opts.version,
             "cmd": opts.cmdline,

@@ -44,7 +44,15 @@ Phases, one line each:
 3. generates a 10x-v3-shaped synthetic dataset (tests/synth_hard.py:
    10,000 cells, 20M reads, 20,000 genes, 3-column t2g) and runs the
    port's generate-permit-list -> collate -> quant -r cr-like on the
-   card through its CLI, asserting that K1-K4 each launched;
+   card through its CLI, asserting that K1-K4 each launched; then (v)
+   velocity mode on the same data: generate-permit-list through the
+   port's library API with velo_mode=True (K4 required), its permit files
+   byte for byte and its JSON field for field (but velo_mode) against
+   phase 3's, collate and collate -c (in a copy) from the CLI, each
+   velo.map.collated.rad equal to phase 3's map.collated.rad (the -c
+   one decompressed), and quant refusing the directory with the
+   reference's NotImplementedError, with each stage's seconds and peak
+   device memory;
 4. runs the reference package's host path on the same data (in a
    subprocess, tests/reference_host_path.py) and asserts that the eight
    data artifacts match byte for byte and the three stage JSONs field
@@ -243,6 +251,7 @@ FP32_OPS_PER_S = 67e12
 # 132 SMs, at the clock that gives the 67 TFLOP/s fp32 rate (1.98 GHz)
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 RNA_KERNELS = ("K1", "K2", "K3", "K4")  # the RNA path's kernels
+VELO_COLLATED = "velo.map.collated.rad"  # collate's file in velocity mode
 ATAC_KERNELS = ("K1", "K2", "K5")     # the ATAC path's kernels
 SCAN_KERNELS = ("K1", "K2", "K3")     # quant's, the multi-word WTA's
 ATAC_SZ_KERNELS = ("K1", "K2")        # atac sort and deduplicate's
@@ -949,6 +958,110 @@ def check_outputs(out: Path, n_rows_expected: int) -> int:
             and nnz > 0 and all(v > 0 and v == v and v != float("inf") for v in vals)):
         raise AssertionError(f"unexpected matrix {n_cells} x {n_cols}, nnz {nnz}")
     return nnz
+
+
+def same_stream(a, b, chunk: int = 1 << 26) -> bool:
+    """Whether two readable streams hold the same bytes."""
+    while True:
+        x, y = a.read(chunk), b.read(chunk)
+        if x != y:
+            return False
+        if not x:
+            return True
+
+
+def velo_check(work: Path, data: Path, cmdlines: dict, card: str) -> None:
+    """Phase 3 (v): velocity mode on phase 3's data.  The port's
+    generate-permit-list through its library API (no CLI flag sets the
+    mode) with phase 3's unfiltered list and velo_mode=True on the card,
+    K4 required; its permit files byte for byte and its JSON field for
+    field against phase 3's, but for velo_mode; collate from the CLI, and
+    with -c in a copy, each velo.map.collated.rad against phase 3's
+    map.collated.rad (the -c file decompressed); quant refusing the
+    directory with the reference's NotImplementedError."""
+    import torch
+
+    from alevin_fry_tpu_torch.cli import main as port_main
+    from alevin_fry_tpu_torch.pipeline.gpl import (
+        CellFilterMethod, GenPermitListOpts, generate_permit_list,
+    )
+    from alevin_fry_tpu_torch.radz.snappyz import SnappyFrameReader
+    from reference_host_path import comparable_json
+
+    base = work / "port" / "gpl"
+    velo, velo_sz = work / "velo" / "gpl", work / "velo_sz" / "gpl"
+    common = ["-t", str(THREADS), "--device", "cuda"]
+    secs, peaks = {}, {}
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    # phase 3's captured replay inputs stay on the card until phase 4:
+    # every peak below includes them
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    generate_permit_list(GenPermitListOpts(
+        input_dir=data / "rad", output_dir=velo,
+        fmeth=CellFilterMethod("unfiltered", path=data / "permit.txt", min_reads=10),
+        expected_ori="fw", device=torch.device("cuda"), threads=THREADS, velo_mode=True,
+        cmdline=cmdlines["gpl"],
+    ))
+    torch.cuda.synchronize()
+    secs["gpl"] = time.perf_counter() - t0
+    peaks_after(peaks)("gpl")
+    launches = launch_counts()
+    if not launches["K4"]:
+        raise AssertionError(f"phase 3 (v): K4 never launched in gpl: {launches}")
+    for name in ("permit_freq.bin", "permit_map.bin"):
+        if (velo / name).read_bytes() != (base / name).read_bytes():
+            raise AssertionError(f"phase 3 (v): {name} differs from phase 3's")
+    want, got = (comparable_json(p / "generate_permit_list.json") for p in (base, velo))
+    if not (got["velo_mode"] is True and got["gpl_options"]["velo_mode"] is True):
+        raise AssertionError(f"phase 3 (v): the gpl JSON does not record velocity mode: {got}")
+    for js in (want, got):
+        js["velo_mode"] = js["gpl_options"]["velo_mode"] = None
+    if got != want:
+        raise AssertionError(f"phase 3 (v): the gpl JSON {got} differs from phase 3's {want}")
+    shutil.copytree(velo, velo_sz)
+    stages = {
+        "collate": ["collate", "-i", str(velo), "-r", str(data / "rad"), *common],
+        "collate -c": ["collate", "-i", str(velo_sz), "-r", str(data / "rad"), "-c", *common],
+    }
+    secs.update(run_stages(stages, "phase 3 (v)", after=peaks_after(peaks)))
+    for d, compressed in ((velo, False), (velo_sz, True)):
+        if list(d.glob("map.collated.rad*")) or json.loads(
+                (d / "collate.json").read_text())["compressed_output"] is not compressed:
+            raise AssertionError(f"phase 3 (v): {d} holds map.collated.rad* or the wrong "
+                                 "collate.json")
+    with open(base / "map.collated.rad", "rb") as a, open(velo / VELO_COLLATED, "rb") as b:
+        if not same_stream(a, b):
+            raise AssertionError("phase 3 (v): velo.map.collated.rad differs from phase 3's "
+                                 "map.collated.rad")
+    with open(base / "map.collated.rad", "rb") as a, \
+            SnappyFrameReader(open(velo_sz / VELO_COLLATED, "rb")) as b:
+        b.drop_history()
+        if not same_stream(a, b):
+            raise AssertionError("phase 3 (v): the -c velo.map.collated.rad does not "
+                                 "decompress to phase 3's map.collated.rad")
+    try:
+        port_main(["quant", "-i", str(velo), "-m", str(data / "t2g_3col.tsv"),
+                   "-o", str(work / "velo" / "quant"), "-r", "cr-like", *common])
+    except NotImplementedError as exc:
+        if str(exc) != "velocity mode is not implemented on this branch":
+            raise AssertionError(f"phase 3 (v): quant raised {exc!r}") from exc
+    else:
+        raise AssertionError("phase 3 (v): quant ran on a velocity-mode directory")
+    sizes = [(d / VELO_COLLATED).stat().st_size for d in (velo, velo_sz)]
+    print("phase 3 (v): velocity mode on phase 3's data, port on cuda: "
+          + ", ".join(f"{k} {v:.2f} s (peak device memory {peaks[k] / 2**20:.0f} MiB)"
+                      for k, v in secs.items())
+          + f", each peak including the {held / 2**20:.0f} MiB held from phase 3 at the start"
+          + f"; gpl (library API, velo_mode=True) K4 launches {launches['K4']}, permit files "
+          f"byte-identical and JSON equal to phase 3's but for velo_mode; "
+          f"velo.map.collated.rad ({sizes[0]} bytes) byte-identical to phase 3's "
+          f"map.collated.rad, the -c one ({sizes[1]} bytes) decompresses to it; quant raises "
+          f"the reference's NotImplementedError [{card}]", flush=True)
+    shutil.rmtree(work / "velo")
+    shutil.rmtree(work / "velo_sz")
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -2841,6 +2954,7 @@ def main() -> int:
           f"port on cuda: gpl {secs['gpl']:.2f} s, collate {secs['collate']:.2f} s, "
           f"quant {secs['quant']:.2f} s; nnz {nnz}; launches {launches}; "
           f"peak device memory {peak / 2**20:.0f} MiB [{card}]", flush=True)
+    velo_check(work, data, cmdlines, card)
 
     (work / "cmdlines.json").write_text(json.dumps(cmdlines))
     ref_secs = helper(["run", str(data), str(work / "ref"), str(work / "cmdlines.json"),

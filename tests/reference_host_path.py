@@ -318,24 +318,47 @@ def run_reference_infer(count_mat: Path, eq_labels: Path, out: Path, usa: bool,
 
 def _run_reference(d, out, cmdlines, usa, min_reads, threads, cell_filter_spec,
                    compress, max_records, gpl_opts, rad) -> dict:
-    from alevin_fry_tpu.pipeline.collate import collate
-    from alevin_fry_tpu.pipeline.gpl import GenPermitListOpts, generate_permit_list
-    from alevin_fry_tpu.radz import _native
+    return {
+        "gpl": run_reference_gpl(d, out / "gpl", cmdlines["gpl"], cell_filter_spec,
+                                 min_reads, threads, gpl_opts=gpl_opts, rad=rad),
+        "collate": run_reference_collate(out / "gpl", rad, cmdlines["collate"], compress,
+                                         max_records, threads),
+    }
 
-    _native.set_threads(threads)
-    secs = {}
-    t0 = time.perf_counter()
-    generate_permit_list(GenPermitListOpts(
-        input_dir=rad, output_dir=out / "gpl",
-        fmeth=cell_filter(cell_filter_spec, d, min_reads),
-        expected_ori="fw", threads=threads, cmdline=cmdlines["gpl"], **gpl_opts,
-    ))
-    secs["gpl"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    collate(out / "gpl", rad, threads, max_records, compress,
-            cmdline=cmdlines["collate"])
-    secs["collate"] = time.perf_counter() - t0
-    return secs
+
+def run_reference_gpl(d: Path, gpl: Path, cmdline: str, cell_filter_spec=None,
+                      min_reads: int = 10, threads: int = 4, expected_ori: str = "fw",
+                      velo_mode: bool = False, gpl_opts=None, rad=None) -> float:
+    """The reference's generate-permit-list alone on ``d/rad`` (or
+    ``rad``) into ``gpl``, with ``velo_mode`` (its library option: the
+    CLI has no flag) and ``gpl_opts`` added to its options; returns its
+    seconds."""
+    with host_policies():
+        from alevin_fry_tpu.pipeline.gpl import GenPermitListOpts, generate_permit_list
+        from alevin_fry_tpu.radz import _native
+
+        _native.set_threads(threads)
+        t0 = time.perf_counter()
+        generate_permit_list(GenPermitListOpts(
+            input_dir=rad or d / "rad", output_dir=gpl,
+            fmeth=cell_filter(cell_filter_spec, d, min_reads), expected_ori=expected_ori,
+            threads=threads, velo_mode=velo_mode, cmdline=cmdline, **(gpl_opts or {}),
+        ))
+        return time.perf_counter() - t0
+
+
+def run_reference_collate(gpl: Path, rad: Path, cmdline: str, compress: bool = False,
+                          max_records: int = 30_000_000, threads: int = 4) -> float:
+    """The reference's collate alone of ``rad`` into the permit-list
+    directory ``gpl``; returns its seconds."""
+    with host_policies():
+        from alevin_fry_tpu.pipeline.collate import collate
+        from alevin_fry_tpu.radz import _native
+
+        _native.set_threads(threads)
+        t0 = time.perf_counter()
+        collate(gpl, rad, threads, max_records, compress, cmdline=cmdline)
+        return time.perf_counter() - t0
 
 
 def run_reference_atac(d: Path, out: Path, cmdlines: dict, min_reads: int = 10,

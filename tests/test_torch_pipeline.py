@@ -297,12 +297,17 @@ def test_unported_options_raise(tmp_path, monkeypatch):
         assert (mesh_out["quant"] / name).read_bytes() == (out / "eq" / name).read_bytes()
     assert (mesh_out["infer"] / "quants_mat.mtx").read_bytes() == \
         (tmp_path / "infer" / "quants_mat.mtx").read_bytes()
-    # velocity mode is not ported (nor implemented in the reference): quant raises
+    # velocity mode is ported (tests/test_torch_velocity.py): collate
+    # writes velo.map.collated.rad; quant raises, as in the reference
     velo = tmp_path / "velo"
     shutil.copytree(out / "gpl", velo)
     meta = json.loads((velo / "generate_permit_list.json").read_text())
     (velo / "generate_permit_list.json").write_text(json.dumps({**meta, "velo_mode": True}))
-    with pytest.raises(NotImplementedError, match="velocity mode"):
+    assert port_main(["collate", "-i", str(velo), "-r", str(d / "rad"), "--device", "cpu"]) == 0
+    assert (velo / "velo.map.collated.rad").read_bytes() == \
+        (out / "gpl" / "map.collated.rad").read_bytes()
+    with pytest.raises(NotImplementedError, match="velocity mode is not implemented on this "
+                                                  "branch"):
         port_main(["quant", "-i", str(velo), "-m", str(d / "t2g.tsv"), "-o",
                    str(tmp_path / "vq"), "-r", "cr-like", "--device", "cpu"])
 
