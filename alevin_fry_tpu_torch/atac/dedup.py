@@ -23,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import __version__
+from .. import __version__, spans
 from ..ops.atac_device import sort_rle
 from ..parallel import dist
 from ..pipeline.collate import open_collated
@@ -95,6 +95,8 @@ def deduplicate(input_dir: Path, device: torch.device, num_threads: int = 8,
         keys = sorted(stats)
         stats.update(zip(keys, dist.merge_counts([stats[k] for k in keys])))
         dist.barrier()
+    if rank == 0:
+        spans.wrote(input_dir / "map.bed")
     log.info(
         "records >1 mapping: %d; deduplicated: %d; non-proper pairs: %d; "
         "frag length > %d: %d",

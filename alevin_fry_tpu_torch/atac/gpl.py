@@ -29,7 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import __version__
+from .. import __version__, spans
 from ..ops import barcodes as bcops
 from ..parallel import dist
 from ..parallel.mesh import mesh_from_env, sharded_bin_histogram, sharded_histogram
@@ -37,7 +37,7 @@ from ..pipeline.gpl import (
     GPL_BLOCK_RECORDS, _histogram, _merge_histograms, merge_rank_histograms, rescue_and_write,
 )
 from ..pipeline.logging_ import get_logger
-from ..pipeline.progress import stage_timer
+from ..pipeline.progress import Progress
 from ..radz import KnownRecordType, bincodeio, read_prelude, record_type_from_prelude
 from ..radz.chunkio import iter_decoded_blocks
 from ..radz.constants import ATAC_BIN_SIZE
@@ -73,11 +73,13 @@ def initialize_rec_list(ref_lens: np.ndarray, size_range: int):
 
 def _whitelist(opts: AtacGplOpts) -> np.ndarray:
     """The whitelist, reverse-complemented in rc mode
-    (atac/cellfilter.rs:104-139), sorted and unique."""
-    wl, wl_len = read_barcode_file(opts.unfiltered_pl)
-    if opts.rc:
-        wl = bcops.revcomp_packed(wl, wl_len)
-    return np.unique(wl)
+    (atac/cellfilter.rs:104-139), sorted and unique: a ``list_parse``
+    span."""
+    with spans.span("list_parse", "codec"):
+        wl, wl_len = read_barcode_file(opts.unfiltered_pl)
+        if opts.rc:
+            wl = bcops.revcomp_packed(wl, wl_len)
+        return np.unique(wl)
 
 
 def generate_permit_list(opts: AtacGplOpts) -> int:
@@ -110,7 +112,8 @@ def generate_permit_list(opts: AtacGplOpts) -> int:
         wl = _whitelist(opts)
         if mesh is not None:
             wl_counts = np.zeros(len(wl), np.int64)
-        with stage_timer(log, "atac gpl histogram", "reads") as pb:
+        with spans.span("histogram", "resolution"), \
+                Progress("atac gpl histogram", "reads") as pb:
             # ATAC headers may hold num_chunks = 0: None streams to EOF
             for batch in iter_decoded_blocks(
                 fh, schema, prelude.hdr.num_chunks or None, GPL_BLOCK_RECORDS,
@@ -154,8 +157,10 @@ def generate_permit_list(opts: AtacGplOpts) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     write = rank == 0
     if write:
-        bincodeio.write_u64_vec_file(out_dir / "bin_recs.bin", bins)
-        bincodeio.write_u64_vec_file(out_dir / "bin_lens.bin", blens)
+        with spans.span("write", "codec"):
+            bincodeio.write_u64_vec_file(out_dir / "bin_recs.bin", bins)
+            bincodeio.write_u64_vec_file(out_dir / "bin_lens.bin", blens)
+            spans.wrote(out_dir / "bin_recs.bin", out_dir / "bin_lens.bin")
 
     num_corrected = rescue_and_write(
         wl, h_bc, h_ct, bclen, opts.min_reads, num_reads, opts.device, out_dir, write,

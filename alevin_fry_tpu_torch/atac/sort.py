@@ -34,13 +34,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import __version__
+from .. import __version__, spans
 from ..ops.atac_device import sort_rle
 from ..ops.barcodes import revcomp_packed, unpack_seqs
 from ..parallel import dist
 from ..pipeline.collate import _lookup_map
 from ..pipeline.logging_ import get_logger
-from ..pipeline.progress import stage_timer
+from ..pipeline.progress import Progress
 from ..radz import _native, bincodeio, read_prelude
 from ..radz.chunkio import iter_decoded_blocks
 from ..radz.constants import ATAC_BIN_SIZE, MAX_ATAC_FRAG_LEN
@@ -83,6 +83,20 @@ def format_bed_rows(ref_names, chrs, starts, frag_lens, bcs, counts, bc_len: int
     return "".join(line.tolist()).encode()
 
 
+@contextlib.contextmanager
+def _bed_writer(bed: Path, compress_out: bool):
+    """The BED file (through gzip with ``compress_out``), opened and
+    closed inside ``write`` spans; its bytes are counted."""
+    with spans.span("write", "codec"):
+        out = gzip.open(bed, "wb") if compress_out else open(bed, "wb")
+    try:
+        yield out
+    finally:
+        with spans.span("write", "codec"):
+            out.close()
+    spans.wrote(bed)
+
+
 def _plan_buckets(bins: np.ndarray, max_records: int) -> np.ndarray:
     """Bucket of each genomic bin: consecutive bins grouped greedily
     into buckets of at most ``max_records`` records; a bin is never
@@ -114,16 +128,21 @@ def _extract_cols(batch, map_keys, map_vals) -> np.ndarray:
 
 def _sort_dedup_emit(rows, ref_names, bc_len, rc, out, n_threads, device) -> int:
     """Sort one bucket's rows on ``device``, count their duplicates and
-    write the BED rows; returns the number of unique fragments."""
+    write the BED rows (a ``sort``, a ``format`` and a ``write`` span);
+    returns the number of unique fragments."""
     if len(rows) == 0:
         return 0
-    (chrs, starts, flens, bcs), counts = sort_rle(
-        [rows["chr"].astype(np.int64), rows["start"], rows["flen"].astype(np.int64),
-         rows["bc"]],
-        device,
-    )
-    out.write(format_bed_rows(ref_names, chrs, starts, flens, bcs, counts, bc_len, rc,
-                              n_threads))
+    with spans.span("sort", "resolution"):
+        (chrs, starts, flens, bcs), counts = sort_rle(
+            [rows["chr"].astype(np.int64), rows["start"], rows["flen"].astype(np.int64),
+             rows["bc"]],
+            device,
+        )
+    with spans.span("format", "codec"):
+        bed = format_bed_rows(ref_names, chrs, starts, flens, bcs, counts, bc_len, rc,
+                              n_threads)
+    with spans.span("write", "codec"):
+        out.write(bed)
     return len(chrs)
 
 
@@ -145,9 +164,10 @@ def sort(
     for f in ("bin_recs.bin", "bin_lens.bin"):
         if not (input_dir / f).exists():
             raise FileNotFoundError(f"bin file {f} does not exist; re-run atac gpl")
-    map_keys, map_vals = bincodeio.read_u64_map_file(input_dir / "permit_map.bin")
-    bins = bincodeio.read_u64_vec_file(input_dir / "bin_recs.bin")
-    blens = bincodeio.read_u64_vec_file(input_dir / "bin_lens.bin").astype(np.int64)
+    with spans.span("map_read", "codec"):
+        map_keys, map_vals = bincodeio.read_u64_map_file(input_dir / "permit_map.bin")
+        bins = bincodeio.read_u64_vec_file(input_dir / "bin_recs.bin")
+        blens = bincodeio.read_u64_vec_file(input_dir / "bin_lens.bin").astype(np.int64)
     total_unique = int(bins.sum())
     if rank == 0:
         write_json(input_dir / "sort.json", {
@@ -156,8 +176,7 @@ def sort(
 
     bed = input_dir / ("map.bed.gz" if compress_out else "map.bed")
     with open(rad_dir / "map.rad", "rb") as fh, \
-            (contextlib.nullcontext() if rank != 0 else
-             gzip.open(bed, "wb") if compress_out else open(bed, "wb")) as out:
+            (contextlib.nullcontext() if rank != 0 else _bed_writer(bed, compress_out)) as out:
         prelude, ftm, _ = read_prelude(fh)
         schema = RecordSchema.from_prelude(prelude)
         # ATAC headers may hold num_chunks = 0: None streams to EOF
@@ -178,8 +197,10 @@ def sort(
             n_threads=num_threads, device=device,
         )
         if world == 1 and total_unique <= max_records:
-            parts = [_extract_cols(batch, map_keys, map_vals)
-                     for batch in iter_decoded_blocks(fh, schema, nc, max_records)]
+            parts = []
+            for batch in iter_decoded_blocks(fh, schema, nc, max_records):
+                with spans.span("map_lookup", "resolution"):
+                    parts.append(_extract_cols(batch, map_keys, map_vals))
             n_frag = emit(np.concatenate(parts) if parts else np.empty(0, SPILL_DTYPE))
         else:
             n_frag = _sort_out_of_core(fh, schema, nc, bins, blens, max_records,
@@ -195,16 +216,18 @@ def _sort_out_of_core(fh, schema, nc, bins, blens, max_records, map_keys, map_va
     bucket in bin order; in a multi-process run rank 0 emits each bucket
     gathered from every rank."""
     rank, world = dist.rank_world()
-    bucket_of_bin = _plan_buckets(bins, max_records)
-    n_buckets = int(bucket_of_bin[-1]) + 1 if len(bins) else 1
+    with spans.span("plan", "resolution"):
+        bucket_of_bin = _plan_buckets(bins, max_records)
+        n_buckets = int(bucket_of_bin[-1]) + 1 if len(bins) else 1
+        spill_dir = input_dir / ("_sort_tmp" if world == 1 else f"_sort_tmp_r{rank}")
+        spill_dir.mkdir(exist_ok=True)
+        paths = [spill_dir / f"bin_{b}.rows" for b in range(n_buckets)]
+        files = [open(p, "wb") for p in paths]
     log.info("out-of-core sort: %d unique records into %d genomic-bin buckets",
              int(bins.sum()), n_buckets)
-    spill_dir = input_dir / ("_sort_tmp" if world == 1 else f"_sort_tmp_r{rank}")
-    spill_dir.mkdir(exist_ok=True)
-    paths = [spill_dir / f"bin_{b}.rows" for b in range(n_buckets)]
-    files = [open(p, "wb") for p in paths]
     try:
-        with stage_timer(log, "atac sort scatter", "reads") as pb:
+        with spans.span("scatter", "resolution"), \
+                Progress("atac sort scatter", "reads") as pb:
             for batch in iter_decoded_blocks(fh, schema, nc, max_records, prefetch=True,
                                              chunk_range=chunk_range):
                 pb.update(batch.n_reads)
@@ -215,17 +238,19 @@ def _sort_out_of_core(fh, schema, nc, bins, blens, max_records, map_keys, map_va
                 order = np.argsort(bmask, kind="stable")
                 rows, bmask = rows[order], bmask[order]
                 bnds = np.flatnonzero(np.diff(bmask)) + 1
-                for seg, b in zip(np.split(rows, bnds), bmask[np.append(0, bnds)]):
-                    files[int(b)].write(seg.tobytes())
+                with spans.span("write", "codec"):
+                    for seg, b in zip(np.split(rows, bnds), bmask[np.append(0, bnds)]):
+                        files[int(b)].write(seg.tobytes())
         for f in files:
             f.close()
         n_frag = 0
         for p in paths:
-            rows = np.fromfile(p, SPILL_DTYPE)
-            if world > 1:
-                rows = np.concatenate(dist.gather_to_root(rows))
+            with spans.span("spill_read", "codec"):
+                rows = np.fromfile(p, SPILL_DTYPE)
+                p.unlink()
+                if world > 1:
+                    rows = np.concatenate(dist.gather_to_root(rows))
             n_frag += emit(rows)
-            p.unlink()
     finally:
         for f in files:
             f.close()

@@ -40,7 +40,7 @@ import os
 import sys
 from pathlib import Path
 
-from . import __version__
+from . import __version__, spans
 
 
 def _existing_dir(v: str) -> Path:
@@ -258,14 +258,27 @@ def _quant(args, cmdline, device) -> int:
 
 
 def main(argv=None) -> int:
-    from .device import resolve_device
-    from .parallel import dist
-    from .radz import _native
+    """Run one subcommand inside its root span (``spans.py``), named by
+    the subcommand; a stage that succeeds logs the span tree's summary."""
+    from .pipeline.logging_ import get_logger
 
     argv = argv if argv is not None else sys.argv[1:]
     cmdline = "alevin-fry-tpu " + " ".join(argv)
     ap = build_parser()
     args = ap.parse_args(argv)
+    name = f"atac {args.atac_command}" if args.command == "atac" else args.command
+    with spans.span(name, "stage") as root:
+        rc = _dispatch(ap, args, cmdline)
+    if rc == 0:
+        get_logger("stage").info("%s", spans.summary(root))
+    return rc
+
+
+def _dispatch(ap, args, cmdline) -> int:
+    from .device import resolve_device
+    from .parallel import dist
+    from .radz import _native
+
     # -t/--threads also governs the native codec's thread pool
     if getattr(args, "threads", None) is not None:
         _native.set_threads(args.threads)

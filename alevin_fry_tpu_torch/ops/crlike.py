@@ -25,6 +25,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..radz import _native
 
 from .crlike_device import PAD, resolve_crlike_wta_device, resolve_crlike_wta_words
@@ -125,38 +126,44 @@ def wta_counts_device(
     (plain) or USA slotting (``usa``; gene ids interleaved, ``n_rows``
     the three-section space; ``prefer_ambig`` counts per spliced /
     unspliced gene pair).  Returns COO (rows, cols, counts f32) sorted
-    by (cell, column)."""
-    pair_read, pair_gene = _dedup_read_genes(refs, aln_offsets, tid_to_gid)
-    c = cell_of_read[pair_read]
-    u = umi[pair_read]
-    g = pair_gene
-    if len(c) == 0:
-        z = np.zeros(0, np.int64)
-        return z, z, np.zeros(0, np.float32)
-    cbits = _bits_for(int(c.max()) + 1)
-    ubits = _bits_for(int(u.max()) + 1)
-    gbits = _bits_for(int(g.max()) + 1)
-    # one packed key up to 62 bits, so that no key reaches INT64_MAX,
-    # the resolver's padding; beyond, one word per field
-    if cbits + ubits + gbits > 62:
-        if int(c.max()) * n_rows + n_rows > PAD:
-            raise ValueError(f"{int(c.max()) + 1} cells x {n_rows} columns do "
-                             "not fit the int64 output words")
-        words = (c.astype(np.int64), np.ascontiguousarray(u, np.uint64).view(np.int64),
-                 g.astype(np.int64))
-        return resolve_crlike_wta_words(
-            *(torch.from_numpy(w).to(device) for w in words), gbits, n_rows, usa=usa,
+    by (cell, column).  The deduplication and key packing on the host
+    are a ``key_pack`` span, the resolver on ``device`` a ``wta`` span."""
+    with spans.span("key_pack", "resolution"):
+        pair_read, pair_gene = _dedup_read_genes(refs, aln_offsets, tid_to_gid)
+        c = cell_of_read[pair_read]
+        u = umi[pair_read]
+        g = pair_gene
+        if len(c) == 0:
+            z = np.zeros(0, np.int64)
+            return z, z, np.zeros(0, np.float32)
+        cbits = _bits_for(int(c.max()) + 1)
+        ubits = _bits_for(int(u.max()) + 1)
+        gbits = _bits_for(int(g.max()) + 1)
+        # one packed key up to 62 bits, so that no key reaches INT64_MAX,
+        # the resolver's padding; beyond, one word per field
+        wide = cbits + ubits + gbits > 62
+        if wide:
+            if int(c.max()) * n_rows + n_rows > PAD:
+                raise ValueError(f"{int(c.max()) + 1} cells x {n_rows} columns do "
+                                 "not fit the int64 output words")
+            words = (c.astype(np.int64), np.ascontiguousarray(u, np.uint64).view(np.int64),
+                     g.astype(np.int64))
+        else:
+            key = (
+                (c.astype(np.int64) << (ubits + gbits))
+                | (u.astype(np.int64) << gbits)
+                | g.astype(np.int64)
+            )
+    with spans.span("wta", "resolution"):
+        if wide:
+            return resolve_crlike_wta_words(
+                *(torch.from_numpy(w).to(device) for w in words), gbits, n_rows, usa=usa,
+                prefer_ambig=prefer_ambig,
+            )
+        return resolve_crlike_wta_device(
+            torch.from_numpy(key).to(device), ubits, gbits, n_rows, usa=usa,
             prefer_ambig=prefer_ambig,
         )
-    key = (
-        (c.astype(np.int64) << (ubits + gbits))
-        | (u.astype(np.int64) << gbits)
-        | g.astype(np.int64)
-    )
-    return resolve_crlike_wta_device(
-        torch.from_numpy(key).to(device), ubits, gbits, n_rows, usa=usa,
-        prefer_ambig=prefer_ambig,
-    )
 
 
 # --- host resolution (pugutils.rs:505-749) ------------------------------------

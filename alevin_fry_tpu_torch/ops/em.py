@@ -67,7 +67,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import _kernels
+from .. import _kernels, spans
 from ..radz import _native
 from ..radz.constants import (
     ALPHA_CHECK_CUTOFF, EM_MAX_ITER, EM_MIN_ITER, EM_REL_DIFF_TOLERANCE, MIN_OUTPUT_ALPHA,
@@ -700,9 +700,11 @@ def em_cells(
     below 0.01 are dropped.  With ``mesh`` (``parallel/mesh.py``) the
     cells split into contiguous ranges of about equal occurrences, one a
     shard, each run on its shard's device; every cell's EM is its own,
-    so the values are those of one device."""
-    plan = plan_cells(cell_eq_offsets, label_offsets, labels, counts, num_rows, usa_offsets,
-                      init_uniform, with_last_round, weights)
+    so the values are those of one device.  The host's plan is an
+    ``em_plan`` span."""
+    with spans.span("em_plan", "resolution"):
+        plan = plan_cells(cell_eq_offsets, label_offsets, labels, counts, num_rows,
+                          usa_offsets, init_uniform, with_last_round, weights)
     if mesh is None:
         alpha = em_run(plan.to(device))[0].cpu().numpy()
     else:

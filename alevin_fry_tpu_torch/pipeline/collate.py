@@ -60,11 +60,11 @@ from ..radz.chunkio import (
 from ..radz.records import RecordSchema
 from ..radz.snappyz import SnappyFrameReader, SnappyFrameWriter
 
-from .. import __version__
+from .. import __version__, spans
 from ..parallel import dist
 from ..utils import aln_strand_mask, check_version_compat, record_layout, write_json
 from .logging_ import get_logger
-from .progress import stage_timer
+from .progress import Progress
 
 log = get_logger("collate")
 
@@ -123,16 +123,19 @@ def _collated_writer(input_dir: Path, compress_out: bool, velo_mode: bool = Fals
     """A sink for the collated file's bytes: ``map.collated.rad``, or
     with ``compress_out`` a snappy framing stream into
     ``map.collated.rad.sz``; in ``velo_mode`` either goes to
-    ``velo.map.collated.rad``."""
-    name = ("velo.map.collated.rad" if velo_mode
-            else "map.collated.rad.sz" if compress_out else "map.collated.rad")
-    with open(input_dir / name, "wb") as fh:
-        if not compress_out:
-            yield fh
-            return
-        frames = SnappyFrameWriter(fh)
-        yield frames
-        frames.flush()
+    ``velo.map.collated.rad``.  Open inside a ``write`` span, which
+    counts the file's bytes."""
+    path = input_dir / ("velo.map.collated.rad" if velo_mode
+                        else "map.collated.rad.sz" if compress_out else "map.collated.rad")
+    with spans.span("write", "codec"):
+        with open(path, "wb") as fh:
+            if compress_out:
+                frames = SnappyFrameWriter(fh)
+                yield frames
+                frames.flush()
+            else:
+                yield fh
+        spans.wrote(path)
 
 
 @contextlib.contextmanager
@@ -201,64 +204,70 @@ def _collate_in_memory_native(
         # ATAC headers may hold num_chunks = 0 (atac/collate.rs:212):
         # None streams to EOF
         buf, region_starts, chunk_recs = read_chunk_bodies(fh, prelude.hdr.num_chunks or None)
-    rec_starts, num_aln = _native.walk_records(
-        buf, region_starts, chunk_recs, schema.read_bytes, schema.aln_bytes
-    )
-    n = len(rec_starts)
+    with spans.span("decode", "codec"):
+        rec_starts, num_aln = _native.walk_records(
+            buf, region_starts, chunk_recs, schema.read_bytes, schema.aln_bytes
+        )
+        n = len(rec_starts)
+        spans.add("records", n)
+        bcs = _gather_uint(buf, rec_starts + 4 + bc_off, bc_width)
+        if ori_mode == 0:
+            kept_per_read = num_aln
+        else:
+            kept_per_read = _native.ori_counts(
+                buf, rec_starts, num_aln, schema.read_bytes, schema.aln_bytes,
+                ref_off, ori_mode,
+            )
     log.info(
         "collating %d reads across %d chunks into %d cells",
         n, len(chunk_recs), len(cell_bcs),
     )
-    bcs = _gather_uint(buf, rec_starts + 4 + bc_off, bc_width)
-    # one lookup per read: remap the correction map's values to cell
-    # ranks up front, so the map yields the rank directly
-    sort_perm = np.argsort(cell_bcs, kind="stable")
-    cell_sorted = cell_bcs[sort_perm]
-    mpos = np.minimum(np.searchsorted(cell_sorted, map_vals), len(cell_sorted) - 1)
-    # an explicit permit list (-b) may name barcodes that no read with an
-    # alignment of the expected orientation carries; they are not cells,
-    # and the reads their map entries correct are dropped below, so the
-    # entries leave the lookup (the columnar path never looks them up)
-    is_cell = cell_sorted[mpos] == map_vals
-    hit, rank = _lookup_map(map_keys[is_cell], sort_perm[mpos[is_cell]].astype(np.uint64),
-                            bcs)
-    if ori_mode == 0:
-        kept_per_read = num_aln
-    else:
-        kept_per_read = _native.ori_counts(
-            buf, rec_starts, num_aln, schema.read_bytes, schema.aln_bytes,
-            ref_off, ori_mode,
+    with spans.span("map_lookup", "resolution"):
+        # one lookup per read: remap the correction map's values to cell
+        # ranks up front, so the map yields the rank directly
+        sort_perm = np.argsort(cell_bcs, kind="stable")
+        cell_sorted = cell_bcs[sort_perm]
+        mpos = np.minimum(np.searchsorted(cell_sorted, map_vals), len(cell_sorted) - 1)
+        # an explicit permit list (-b) may name barcodes that no read with
+        # an alignment of the expected orientation carries; they are not
+        # cells, and the reads their map entries correct are dropped
+        # below, so the entries leave the lookup (the columnar path never
+        # looks them up)
+        is_cell = cell_sorted[mpos] == map_vals
+        hit, rank = _lookup_map(map_keys[is_cell],
+                                sort_perm[mpos[is_cell]].astype(np.uint64), bcs)
+        kept_idx = np.flatnonzero(hit & (kept_per_read > 0))
+        corrected = (
+            cell_bcs[np.where(hit, rank, 0).astype(np.int64)]
+            if len(cell_bcs) else np.zeros(n, np.uint64)
         )
-    kept_idx = np.flatnonzero(hit & (kept_per_read > 0))
-    corrected = (
-        cell_bcs[np.where(hit, rank, 0).astype(np.int64)]
-        if len(cell_bcs) else np.zeros(n, np.uint64)
-    )
-    order_rel, per_cell = collation_order(
-        rank[kept_idx].astype(np.int64), len(cell_bcs), device
-    )
-    order = kept_idx[order_rel]
+    with spans.span("order", "resolution"):
+        order_rel, per_cell = collation_order(
+            rank[kept_idx].astype(np.int64), len(cell_bcs), device
+        )
+        order = kept_idx[order_rel]
+        # record sizes are known from the kept-alignment counts, so every
+        # chunk's output offset is exact and the native gather runs threaded
+        order_offsets = np.zeros(len(per_cell) + 1, np.int64)
+        np.cumsum(per_cell, out=order_offsets[1:])
+        sizes = 4 + schema.read_bytes + kept_per_read[order] * schema.aln_bytes
+        szsum = np.zeros(len(order) + 1, np.int64)
+        np.cumsum(sizes, out=szsum[1:])
+        chunk_bytes = (
+            szsum[order_offsets[1:]] - szsum[order_offsets[:-1]] + 8 * (per_cell > 0)
+        )
+        out_offsets = np.zeros(len(per_cell) + 1, np.int64)
+        np.cumsum(chunk_bytes, out=out_offsets[1:])
     if not np.array_equal(per_cell, cell_cts.astype(np.int64)):
         log.warning(
             "per-cell collated record counts differ from permit_freq counts "
             "(total %d vs %d)", int(per_cell.sum()), int(cell_cts.sum()),
         )
-    # record sizes are known from the kept-alignment counts, so every
-    # chunk's output offset is exact and the native gather runs threaded
-    order_offsets = np.zeros(len(per_cell) + 1, np.int64)
-    np.cumsum(per_cell, out=order_offsets[1:])
-    sizes = 4 + schema.read_bytes + kept_per_read[order] * schema.aln_bytes
-    szsum = np.zeros(len(order) + 1, np.int64)
-    np.cumsum(sizes, out=szsum[1:])
-    chunk_bytes = (
-        szsum[order_offsets[1:]] - szsum[order_offsets[:-1]] + 8 * (per_cell > 0)
-    )
-    out_offsets = np.zeros(len(per_cell) + 1, np.int64)
-    np.cumsum(chunk_bytes, out=out_offsets[1:])
-    body = _native.collate_emit2(
-        buf, rec_starts, num_aln, corrected, order, order_offsets, out_offsets,
-        schema.read_bytes, schema.aln_bytes, bc_off, bc_width, ref_off, ori_mode,
-    )
+    with spans.span("emit", "codec"):
+        body = _native.collate_emit2(
+            buf, rec_starts, num_aln, corrected, order, order_offsets, out_offsets,
+            schema.read_bytes, schema.aln_bytes, bc_off, bc_width, ref_off, ori_mode,
+        )
     n_written = int((per_cell > 0).sum())
     with _collated_writer(input_dir, compress_out, velo_mode) as out:
         out.write(_prelude_bytes(prelude, ftm, n_written))
@@ -283,18 +292,19 @@ def _collate_columnar(
         "collating %d reads across %d chunks into %d cells",
         batch.n_reads, prelude.hdr.num_chunks, len(cell_bcs),
     )
-    corrected, keep_read, keep_aln, new_offsets = correct_and_filter(
-        batch, map_keys, map_vals, expected_ori
-    )
-    sort_perm = np.argsort(cell_bcs, kind="stable")
-    cell_sorted = cell_bcs[sort_perm]
-    kept_bcs = corrected[keep_read]
-    pos = np.searchsorted(cell_sorted, kept_bcs)
-    if not (cell_sorted[np.minimum(pos, len(cell_sorted) - 1)] == kept_bcs).all():
-        raise ValueError("corrected barcode missing from permit list")
-    rank = sort_perm[pos]
-
-    sort_idx, per_cell = collation_order(rank, len(cell_bcs), device)
+    with spans.span("map_lookup", "resolution"):
+        corrected, keep_read, keep_aln, new_offsets = correct_and_filter(
+            batch, map_keys, map_vals, expected_ori
+        )
+        sort_perm = np.argsort(cell_bcs, kind="stable")
+        cell_sorted = cell_bcs[sort_perm]
+        kept_bcs = corrected[keep_read]
+        pos = np.searchsorted(cell_sorted, kept_bcs)
+        if not (cell_sorted[np.minimum(pos, len(cell_sorted) - 1)] == kept_bcs).all():
+            raise ValueError("corrected barcode missing from permit list")
+        rank = sort_perm[pos]
+    with spans.span("order", "resolution"):
+        sort_idx, per_cell = collation_order(rank, len(cell_bcs), device)
     if not np.array_equal(per_cell, cell_cts.astype(np.int64)):
         log.warning(
             "per-cell collated record counts differ from permit_freq counts "
@@ -316,19 +326,20 @@ def write_collated(input_dir, compress_out: bool, prelude, ftm, batch: ReadBatch
     alignments each: the alignments under ``keep_aln``) in the order
     ``order`` of them, one chunk per cell of ``per_cell`` records; a
     cell with none writes no chunk.  Returns the chunks written."""
-    final_reads = kept[order]
-    read_cols = {k: v[final_reads] for k, v in batch.read_cols.items()}
-    read_cols.update({k: v[order] for k, v in rewrite.items()})
-    offsets = np.zeros(len(kept) + 1, np.int64)
-    np.cumsum(nal, out=offsets[1:])
-    out_nal = nal[order]
-    out_offsets = np.zeros(len(kept) + 1, np.int64)
-    np.cumsum(out_nal, out=out_offsets[1:])
-    # positions of the kept alignments in the original flat arrays
-    aln_gather = np.flatnonzero(keep_aln)[
-        np.repeat(offsets[:-1][order], out_nal)
-        + np.arange(int(out_offsets[-1])) - np.repeat(out_offsets[:-1], out_nal)
-    ]
+    with spans.span("emit", "codec"):
+        final_reads = kept[order]
+        read_cols = {k: v[final_reads] for k, v in batch.read_cols.items()}
+        read_cols.update({k: v[order] for k, v in rewrite.items()})
+        offsets = np.zeros(len(kept) + 1, np.int64)
+        np.cumsum(nal, out=offsets[1:])
+        out_nal = nal[order]
+        out_offsets = np.zeros(len(kept) + 1, np.int64)
+        np.cumsum(out_nal, out=out_offsets[1:])
+        # positions of the kept alignments in the original flat arrays
+        aln_gather = np.flatnonzero(keep_aln)[
+            np.repeat(offsets[:-1][order], out_nal)
+            + np.arange(int(out_offsets[-1])) - np.repeat(out_offsets[:-1], out_nal)
+        ]
     n_written = int((per_cell > 0).sum())
     with _collated_writer(input_dir, compress_out, velo_mode) as sink:
         sink.write(_prelude_bytes(prelude, ftm, n_written))
@@ -416,15 +427,18 @@ def _gather_rank_buckets(input_dir, spill_dir, n_buckets, schema, prelude, ftm,
         if sink is not None:
             sink.write(_prelude_bytes(prelude, ftm, n_expected))
         for b in range(n_buckets):
-            ranks, rec_bytes = gathered(b, "rank", np.uint32), gathered(b, "rec", np.uint8)
+            with spans.span("spill_read", "codec"):
+                ranks = gathered(b, "rank", np.uint32)
+                rec_bytes = gathered(b, "rec", np.uint8)
+                (spill_dir / f"bucket_{b}.rec").unlink()
+                (spill_dir / f"bucket_{b}.rank").unlink()
             if sink is not None and len(ranks):
-                out_buf, n_chunks = _gather_bucket_payload(
-                    rec_bytes, ranks, schema, n_cells, device
-                )
+                with spans.span("order", "resolution"):
+                    out_buf, n_chunks = _gather_bucket_payload(
+                        rec_bytes, ranks, schema, n_cells, device
+                    )
                 sink.write(memoryview(out_buf.data))
                 n_written += n_chunks
-            (spill_dir / f"bucket_{b}.rec").unlink()
-            (spill_dir / f"bucket_{b}.rank").unlink()
     if rank == 0 and n_written != n_expected:
         raise RuntimeError(f"wrote {n_written} cell chunks, the header says {n_expected}")
     return n_written, per_cell
@@ -477,7 +491,8 @@ def _collate_out_of_core(
             for b in range(n_buckets)
         ]
         try:
-            with stage_timer(log, "collate scatter", "reads") as pb:
+            with spans.span("scatter", "resolution"), \
+                    Progress("collate scatter", "reads") as pb:
                 # ATAC headers may hold num_chunks = 0: None streams to EOF
                 for batch in iter_decoded_blocks(
                     fh, schema, prelude.hdr.num_chunks or None,
@@ -543,36 +558,42 @@ def spill_records(files, bucket_of_rank, rank, batch: ReadBatch, kept, rewrite: 
             schema, {k: v[sel] for k, v in read_cols.items()}, offs,
             refs[gather], dirs[gather], {k: v[gather] for k, v in aln_cols.items()},
         )
-        files[int(b)][0].write(memoryview(body.data))
-        files[int(b)][1].write(rank[sel].astype(np.uint32).tobytes())
+        with spans.span("write", "codec"):
+            files[int(b)][0].write(memoryview(body.data))
+            files[int(b)][1].write(rank[sel].astype(np.uint32).tobytes())
 
 
 def _read_cells_and_map(input_dir: Path):
     """The permit list's cells by descending read count (ties by
     barcode) with their counts, and the correction map's keys and
     values."""
-    _bclen, freq_bc, freq_ct = bincodeio.read_permit_freq(input_dir / "permit_freq.bin")
-    order = np.lexsort((freq_bc, -freq_ct.astype(np.int64)))
-    map_keys, map_vals = bincodeio.read_u64_map_file(input_dir / "permit_map.bin")
+    with spans.span("map_read", "codec"):
+        _bclen, freq_bc, freq_ct = bincodeio.read_permit_freq(input_dir / "permit_freq.bin")
+        map_keys, map_vals = bincodeio.read_u64_map_file(input_dir / "permit_map.bin")
     log.info("deserialized correction map of length: %d", len(map_keys))
-    return freq_bc[order], freq_ct[order], map_keys, map_vals
+    with spans.span("order", "resolution"):
+        order = np.lexsort((freq_bc, -freq_ct.astype(np.int64)))
+        return freq_bc[order], freq_ct[order], map_keys, map_vals
 
 
 def _write_collate_sidecars(input_dir, rad_dir, map_keys, map_vals, compress_out,
                             cmdline, version):
     """``unmapped_bc_count_collated.bin`` (the unmapped-read counts per
     corrected barcode) and ``collate.json``."""
-    bcs_u, cts_u = unmappedio.read_raw_unmapped(rad_dir / "unmapped_bc_count.bin")
-    cb = np.zeros(0, np.uint64)
-    agg = np.zeros(0, np.uint64)
-    if len(bcs_u):
-        hit, corr = _lookup_map(map_keys, map_vals, bcs_u)
-        cb, inv = np.unique(corr[hit], return_inverse=True)
-        agg = np.zeros(len(cb), np.uint64)
-        np.add.at(agg, inv, cts_u[hit].astype(np.uint64))
-    unmappedio.write_collated_single(
-        input_dir / "unmapped_bc_count_collated.bin", cb, agg.astype(np.uint32)
-    )
+    with spans.span("map_read", "codec"):
+        bcs_u, cts_u = unmappedio.read_raw_unmapped(rad_dir / "unmapped_bc_count.bin")
+    with spans.span("map_lookup", "resolution"):
+        cb = np.zeros(0, np.uint64)
+        agg = np.zeros(0, np.uint64)
+        if len(bcs_u):
+            hit, corr = _lookup_map(map_keys, map_vals, bcs_u)
+            cb, inv = np.unique(corr[hit], return_inverse=True)
+            agg = np.zeros(len(cb), np.uint64)
+            np.add.at(agg, inv, cts_u[hit].astype(np.uint64))
+    with spans.span("write", "codec"):
+        path = input_dir / "unmapped_bc_count_collated.bin"
+        unmappedio.write_collated_single(path, cb, agg.astype(np.uint32))
+        spans.wrote(path)
     write_json(input_dir / "collate.json", {
         "cmd": cmdline,
         "version_str": version,

@@ -41,6 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import spans
 from ..ops import barcodes as bcops
 from ..parallel import dist
 from ..radz import bincodeio, read_prelude
@@ -54,7 +55,7 @@ from .collate import (
     write_collated,
 )
 from .logging_ import get_logger
-from .progress import stage_timer
+from .progress import Progress
 
 log = get_logger("collate.multi")
 
@@ -234,6 +235,7 @@ def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_r
         input_dir / "unmapped_bc_count_collated.bin",
         np.zeros(0, np.uint64), np.zeros(0, np.uint64), np.zeros(0, np.uint32),
     )
+    spans.wrote(input_dir / "unmapped_bc_count_collated.bin")
     # the present samples in ascending plate index; chunk ranges count
     # the cells that wrote a chunk
     manifest = CollationManifest(["sample", "cell"])
@@ -289,7 +291,8 @@ def _collate_multi_out_of_core(fh, input_dir, schema, prelude, ftm, ctx, comp_co
     files = [(open(spill_dir / f"bucket_{b}.rec", "wb"),
               open(spill_dir / f"bucket_{b}.rank", "wb")) for b in range(n_buckets)]
     try:
-        with stage_timer(log, "multi-BC collate scatter", "reads") as pb:
+        with spans.span("scatter", "resolution"), \
+                Progress("multi-BC collate scatter", "reads") as pb:
             for batch in iter_decoded_blocks(
                 fh, schema, prelude.hdr.num_chunks or None,
                 min(max_records, COLLATE_BLOCK_RECORDS), prefetch=True,

@@ -43,6 +43,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from .. import spans
 from ..ops.barcodes import pack_seq
 from ..radz import RadHeader, RadPrelude, RadWriter
 from ..radz import _native as native
@@ -538,5 +539,6 @@ def bam2rad(input_file: Path, rad_file: Path, num_threads: int = 1,
         for cols in batches:
             em.feed(cols)
         n_chunks = em.close()
+    spans.wrote(rad_file)
     log.info("wrote %d records in %d chunks from %d input alignments",
              em.total_records, n_chunks, em.n_in)

@@ -46,7 +46,7 @@ from ..radz import _native
 from ..radz.chunkio import _gather_uint, iter_decoded_blocks, iter_raw_blocks
 from ..radz.records import RecordSchema
 
-from .. import __version__
+from .. import __version__, spans
 from ..ops import barcodes as bcops
 from ..ops.knee import get_knee
 from ..parallel import dist
@@ -56,7 +56,7 @@ from ..utils import (
     record_layout, strand_from_ori_arg, write_json,
 )
 from .logging_ import get_logger
-from .progress import stage_timer
+from .progress import Progress
 
 log = get_logger("gpl")
 
@@ -165,23 +165,26 @@ def _iter_block_barcodes(fh, schema, num_chunks, strand, chunk_range=None):
         for buf, region_starts, chunk_recs in iter_raw_blocks(
             fh, num_chunks, GPL_BLOCK_RECORDS, prefetch=True, chunk_range=chunk_range,
         ):
-            rec_starts, num_aln = _native.walk_records(
-                buf, region_starts, chunk_recs, schema.read_bytes, schema.aln_bytes,
-            )
-            bcs = _gather_uint(buf, rec_starts + 4 + bc_off, bc_width)
-            if ori_mode == 0:
-                compat = num_aln > 0
-            else:
-                compat = _native.ori_counts(
-                    buf, rec_starts, num_aln, schema.read_bytes,
-                    schema.aln_bytes, ref_off, ori_mode,
-                ) > 0
+            with spans.span("decode", "codec"):
+                rec_starts, num_aln = _native.walk_records(
+                    buf, region_starts, chunk_recs, schema.read_bytes, schema.aln_bytes,
+                )
+                spans.add("records", len(rec_starts))
+                bcs = _gather_uint(buf, rec_starts + 4 + bc_off, bc_width)
+                if ori_mode == 0:
+                    compat = num_aln > 0
+                else:
+                    compat = _native.ori_counts(
+                        buf, rec_starts, num_aln, schema.read_bytes,
+                        schema.aln_bytes, ref_off, ori_mode,
+                    ) > 0
             yield bcs, compat, num_aln
         return
     for block in iter_decoded_blocks(
         fh, schema, num_chunks, GPL_BLOCK_RECORDS, prefetch=True, chunk_range=chunk_range,
     ):
-        compat = read_strand_mask(block.dirs, block.aln_offsets, strand)
+        with spans.span("decode", "codec"):
+            compat = read_strand_mask(block.dirs, block.aln_offsets, strand)
         yield block.barcode(), compat, block.num_aln_per_read
 
 
@@ -231,9 +234,11 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
         if opts.fmeth.kind == "unfiltered" and world == 1:
             mesh = mesh_from_env("AFT_GPL_MESH", opts.device)
         if mesh is not None:
-            wl_mesh = np.unique(read_barcode_file(opts.fmeth.path)[0])
+            with spans.span("list_parse", "codec"):
+                wl_mesh = np.unique(read_barcode_file(opts.fmeth.path)[0])
             wl_counts = np.zeros(len(wl_mesh), np.int64)
-        with stage_timer(log, "generate-permit-list histogram", "reads") as pb:
+        with spans.span("histogram", "resolution"), \
+                Progress("generate-permit-list histogram", "reads") as pb:
             for bcs, compat, nal in _iter_block_barcodes(
                 fh, schema, prelude.hdr.num_chunks, strand, chunk_range,
             ):
@@ -304,6 +309,26 @@ def rescue_and_write(
     permit_freq.bin and permit_map.bin (unless ``write`` is false: a
     rank other than 0).  Returns the number of distinct corrected
     barcodes."""
+    with spans.span("rescue", "resolution"):
+        kept_bc, kept_ct, rescue_bc, reps, rescued = _rescue(
+            wl_sorted, uniq, counts, bclen, min_reads, num_reads, device)
+    if not write:
+        return int(rescued.sum())
+    with spans.span("write", "codec"):
+        bincodeio.write_permit_freq(out_dir / "permit_freq.bin", bclen, kept_bc, kept_ct)
+        # correction map: kept -> itself, rescued -> its unique neighbour
+        bincodeio.write_u64_map_file(
+            out_dir / "permit_map.bin",
+            np.concatenate([kept_bc, rescue_bc[rescued]]),
+            np.concatenate([kept_bc, reps[rescued]]),
+        )
+        spans.wrote(out_dir / "permit_freq.bin", out_dir / "permit_map.bin")
+    return int(rescued.sum())
+
+
+def _rescue(wl_sorted, uniq, counts, bclen, min_reads, num_reads, device):
+    """The kept barcodes and their counts after the rescue, the rescue's
+    candidates, their neighbours and which of them were rescued."""
     log.info("number of unfiltered bcs read = %d", len(wl_sorted))
     idx = np.minimum(np.searchsorted(wl_sorted, uniq), max(len(wl_sorted) - 1, 0))
     in_wl = wl_sorted[idx] == uniq if len(wl_sorted) else np.zeros(len(uniq), bool)
@@ -347,17 +372,7 @@ def rescue_and_write(
     )
     if num_corrected:
         np.add.at(kept_ct, np.searchsorted(kept_bc, reps[rescued]), rescue_ct[rescued])
-
-    if not write:
-        return num_corrected
-    bincodeio.write_permit_freq(out_dir / "permit_freq.bin", bclen, kept_bc, kept_ct)
-    # correction map: kept -> itself, rescued -> its unique neighbour
-    bincodeio.write_u64_map_file(
-        out_dir / "permit_map.bin",
-        np.concatenate([kept_bc, rescue_bc[rescued]]),
-        np.concatenate([kept_bc, reps[rescued]]),
-    )
-    return num_corrected
+    return kept_bc, kept_ct, rescue_bc, reps, rescued
 
 
 def _process_unfiltered(
@@ -373,14 +388,16 @@ def _process_unfiltered(
     """Keep permit-list barcodes with >= min_reads reads; rescue every
     other observed barcode that has a unique Hamming-1 kept neighbour
     (src/cellfilter.rs:105-333)."""
-    wl, first_bclen = read_barcode_file(opts.fmeth.path)
+    with spans.span("list_parse", "codec"):
+        wl, first_bclen = read_barcode_file(opts.fmeth.path)
+        wl = np.unique(wl)
     if first_bclen != bclen:
         log.warning(
             "provided permit list has barcodes of length %d but mapped reads "
             "have barcodes of length %d", first_bclen, bclen,
         )
     num_corrected = rescue_and_write(
-        np.unique(wl), uniq, counts, bclen, opts.fmeth.min_reads, num_reads,
+        wl, uniq, counts, bclen, opts.fmeth.min_reads, num_reads,
         opts.device, out_dir, write,
     )
     if write:
@@ -410,7 +427,8 @@ def _filtered_cells(meth: CellFilterMethod, uniq: np.ndarray, counts: np.ndarray
     the count of the ``n``-th most frequent one); in file order for an
     explicit list (docs/parity.md:48-53)."""
     if meth.kind == "explicit":
-        return read_barcode_file(meth.path, bclen)[0]
+        with spans.span("list_parse", "codec"):
+            return read_barcode_file(meth.path, bclen)[0]
     freq = np.sort(counts)[::-1]
     if meth.kind == "knee":
         min_freq = int(freq[get_knee(freq, 100)])
@@ -442,20 +460,23 @@ def _process_filtered(
     """Keep the filtered method's barcodes, map every 1-edit neighbour
     of a kept barcode to it, and correct the histogram through that map
     (src/cellfilter.rs:336-480)."""
-    map_keys, map_vals = bcops.generate_permitlist_map(
-        _filtered_cells(opts.fmeth, uniq, counts, bclen), bclen
-    )
-    # the keys come sorted and unique
-    idx = np.minimum(np.searchsorted(map_keys, uniq), max(len(map_keys) - 1, 0))
-    hit = map_keys[idx] == uniq if len(map_keys) else np.zeros(len(uniq), bool)
-    num_corrected = int(hit.sum())
-    perm_bc, inv = np.unique(map_vals[idx[hit]], return_inverse=True)
-    perm_ct = np.zeros(len(perm_bc), np.uint64)
-    np.add.at(perm_ct, inv, counts[hit])
+    cells = _filtered_cells(opts.fmeth, uniq, counts, bclen)
+    with spans.span("filter", "resolution"):
+        map_keys, map_vals = bcops.generate_permitlist_map(cells, bclen)
+        # the keys come sorted and unique
+        idx = np.minimum(np.searchsorted(map_keys, uniq), max(len(map_keys) - 1, 0))
+        hit = map_keys[idx] == uniq if len(map_keys) else np.zeros(len(uniq), bool)
+        num_corrected = int(hit.sum())
+        perm_bc, inv = np.unique(map_vals[idx[hit]], return_inverse=True)
+        perm_ct = np.zeros(len(perm_bc), np.uint64)
+        np.add.at(perm_ct, inv, counts[hit])
     if write:
-        bincodeio.write_permit_freq(out_dir / "permit_freq.bin", bclen, perm_bc, perm_ct)
-        bincodeio.write_permit_freq(out_dir / "all_freq.bin", bclen, uniq, counts)
-        bincodeio.write_u64_map_file(out_dir / "permit_map.bin", map_keys, map_vals)
+        with spans.span("write", "codec"):
+            bincodeio.write_permit_freq(out_dir / "permit_freq.bin", bclen, perm_bc, perm_ct)
+            bincodeio.write_permit_freq(out_dir / "all_freq.bin", bclen, uniq, counts)
+            bincodeio.write_u64_map_file(out_dir / "permit_map.bin", map_keys, map_vals)
+            spans.wrote(*(out_dir / n for n in ("permit_freq.bin", "all_freq.bin",
+                                                "permit_map.bin")))
         _write_gpl_json(opts, max_ambig, out_dir, "filtered")
     log.info("total number of distinct corrected barcodes: %d", num_corrected)
     return num_corrected

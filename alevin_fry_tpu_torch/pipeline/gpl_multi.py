@@ -30,6 +30,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from .. import spans
 from ..ops import barcodes as bcops
 from ..ops.knee import get_knee
 from ..parallel import dist
@@ -165,7 +166,8 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
     wl_sorted = None
     min_reads = 0
     if opts.fmeth.kind == "unfiltered":
-        wl_sorted = np.unique(read_barcode_file(opts.fmeth.path)[0])
+        with spans.span("list_parse", "codec"):
+            wl_sorted = np.unique(read_barcode_file(opts.fmeth.path)[0])
         min_reads = int(opts.fmeth.min_reads)
         log.info("Loaded %d cell barcodes from whitelist", len(wl_sorted))
 
@@ -175,6 +177,7 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
             np.asarray(list(permit.keys()), np.uint64),
             np.asarray(list(permit.values()), np.uint64),
         )
+        spans.wrote(out_dir / "sample_permit_map.bin")
 
     total_cells = 0
     sample_entries = []
@@ -199,6 +202,7 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
             bincodeio.write_u64_map_file(sample_dir / "permit_map.bin", map_keys, map_vals)
             bincodeio.write_permit_freq(sample_dir / "permit_freq.bin", cell_bc_len, kept_bc,
                                         kept_ct)
+            spans.wrote(sample_dir / "permit_map.bin", sample_dir / "permit_freq.bin")
         total_cells += len(kept_bc)
         entry.update(num_reads=int(kept_ct.sum()), num_cells=int(len(kept_bc)))
 

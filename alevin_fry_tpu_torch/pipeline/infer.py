@@ -20,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..ops.barcodes import pack_seqs
 from ..ops.em import em_cells
 from ..parallel.mesh import mesh_from_env
@@ -107,4 +108,5 @@ def infer(
         np.concatenate([v for _, v in results] or [np.zeros(0, np.float32)]),
         (len(kept), num_genes),
     )
+    spans.wrote(*(out_path / f"quants_mat{x}" for x in (".mtx", "_rows.txt", "_cols.txt")))
     log.info("finished quantifying %d cells.", len(kept))

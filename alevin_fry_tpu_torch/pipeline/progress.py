@@ -1,15 +1,12 @@
-"""Stage timing and throttled progress reporting.
+"""Throttled progress reporting.
 
 The reference surrounds every stage with an indicatif progress bar
 throttled to 5 Hz (cellfilter.rs:1629-1640, collate.rs:630-643,
-quant.rs:1500-1511) and logs wall-clock for the rescue phase.  Here:
-
-* :func:`stage_timer` wraps a pipeline stage, logging elapsed seconds
-  and records/s at INFO when the stage finishes;
-* :class:`Progress` emits in-place ``\\r``-style updates to stderr at
-  most every 0.2 s, only when stderr is a TTY or ``AFT_PROGRESS=1``
-  (``AFT_PROGRESS=0`` disables entirely — benches and tests stay
-  clean).
+quant.rs:1500-1511).  Here :class:`Progress` emits in-place
+``\\r``-style updates to stderr at most every 0.2 s, only when stderr
+is a TTY or ``AFT_PROGRESS=1`` (``AFT_PROGRESS=0`` disables entirely —
+benches and tests stay clean).  The stage's time is its spans'
+(``spans.py``), which the CLI logs when the stage ends.
 """
 
 from __future__ import annotations
@@ -17,7 +14,6 @@ from __future__ import annotations
 import os
 import sys
 import time
-from contextlib import contextmanager
 
 
 def _progress_enabled() -> bool:
@@ -28,7 +24,8 @@ def _progress_enabled() -> bool:
 
 
 class Progress:
-    """Throttled (5 Hz) in-place progress line on stderr."""
+    """Throttled (5 Hz) in-place progress line on stderr; as a context
+    manager, cleared at exit."""
 
     def __init__(self, label: str, unit: str = "records"):
         self.label = label
@@ -60,22 +57,8 @@ class Progress:
             sys.stderr.write("\r\x1b[K")
             sys.stderr.flush()
 
+    def __enter__(self) -> "Progress":
+        return self
 
-@contextmanager
-def stage_timer(log, stage: str, unit: str = "records"):
-    """Context manager: yields a Progress; logs elapsed + rate at exit."""
-    p = Progress(stage, unit)
-    t0 = time.perf_counter()
-    try:
-        yield p
-    finally:
-        p.finish()
-        dt = time.perf_counter() - t0
-        if p.count:
-            log.info(
-                "%s: %s %s in %.2fs (%s %s/s)",
-                stage, f"{p.count:,}", unit, dt,
-                f"{p.count / max(dt, 1e-9):,.0f}", unit,
-            )
-        else:
-            log.info("%s finished in %.2fs", stage, dt)
+    def __exit__(self, *exc) -> None:
+        self.finish()

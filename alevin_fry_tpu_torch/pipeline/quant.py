@@ -68,7 +68,7 @@ from ..radz.mtx import MtxStreamWriter, format_f32_list, write_matrix_market
 from ..radz.records import RecordSchema
 from ..radz.unmapped import UnmappedLookup
 
-from .. import __version__
+from .. import __version__, spans
 from ..ops import crlike, pug
 from ..ops.barcodes import unpack_seqs
 from ..ops.bootstrap import run_bootstraps
@@ -78,7 +78,7 @@ from ..parallel.mesh import mesh_from_env
 from ..utils import parse_tg_map, read_barcode_file, write_json
 from .collate import open_collated
 from .logging_ import get_logger
-from .progress import stage_timer
+from .progress import Progress
 
 log = get_logger("quant")
 
@@ -169,9 +169,10 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
         hdr.num_chunks, hdr.ref_count, rec_type.value,
     )
     sample_names = _read_sample_names(parent)
-    tid_to_gid, gene_names, gene_name_to_id, usa_mode = parse_tg_map(
-        Path(opts.tg_map), hdr.ref_names
-    )
+    with spans.span("t2g_read", "codec"):
+        tid_to_gid, gene_names, gene_name_to_id, usa_mode = parse_tg_map(
+            Path(opts.tg_map), hdr.ref_names
+        )
     if usa_mode and opts.num_bootstraps:
         # the reference's refusal (its assert), kept under python -O
         raise AssertionError("currently USA-mode analysis cannot be used with bootstrapping.")
@@ -192,10 +193,12 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
         num_genes, len(tid_to_gid), usa_mode,
     )
     barcode_len = int(ftm.get("cblen") or ftm.get("b1len") or ftm.get("b0len"))
-    unmapped = UnmappedLookup.from_file(parent / "unmapped_bc_count_collated.bin")
+    with spans.span("unmapped_read", "codec"):
+        unmapped = UnmappedLookup.from_file(parent / "unmapped_bc_count_collated.bin")
     listed = None
     if opts.filter_list is not None:
-        listed = np.unique(read_barcode_file(Path(opts.filter_list), barcode_len)[0])
+        with spans.span("list_parse", "codec"):
+            listed = np.unique(read_barcode_file(Path(opts.filter_list), barcode_len)[0])
 
     rank, world = dist.rank_world()
     chunk_range = None
@@ -213,7 +216,8 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
     parts: List[CellResult] = []
     empty = (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float32))
     try:
-        with stage_timer(log, "quant resolve", "reads") as pb:
+        with spans.span("resolve", "resolution"), \
+                Progress("quant resolve", "reads") as pb:
             for batch in iter_decoded_blocks(
                 br, schema, hdr.num_chunks, QUANT_BLOCK_RECORDS,
                 skip_read_fields=set(schema.barcode_fields), want_dirs=False,
@@ -229,26 +233,28 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
                 sink.add(res.rows, res.cols, res.vals, len(res.cells))
                 res.rows, res.cols, res.vals = empty
                 parts.append(res)
-        result = _merge_results(parts)
-        mtx_written = world > 1 or sink.spilled
+            result = _merge_results(parts)
+            mtx_written = world > 1 or sink.spilled
+            if not mtx_written:
+                result.rows, result.cols, result.vals = sink.concatenated()
         if sink.spilled:
             log.info("process %d: %d triplets spilled to the rank-local binary sidecar past "
                      "the %d in-memory bound; quants_mat.mtx streamed to disk", rank,
                      sink.nnz, QUANT_SPILL_TRIPLETS)
         if mtx_written:
-            _stream_merge_mtx(sink, len(result.cells), num_rows, mtx_path)
-        else:
-            result.rows, result.cols, result.vals = sink.concatenated()
+            with spans.span("write", "codec"):
+                _stream_merge_mtx(sink, len(result.cells), num_rows, mtx_path)
         if world > 1:
             result = _merge_hosts(result, opts,
                                   sample_names is not None and len(schema.barcode_fields) > 1)
     finally:
         sink.cleanup()
     if rank == 0:
-        _write_outputs(
-            opts, result, gene_names, usa_mode, num_rows, barcode_len, unmapped,
-            sample_names, mtx_written,
-        )
+        with spans.span("write", "codec"):
+            _write_outputs(
+                opts, result, gene_names, usa_mode, num_rows, barcode_len, unmapped,
+                sample_names, mtx_written,
+            )
     dist.barrier()
 
 
@@ -779,6 +785,14 @@ def _write_outputs(
         # small cells contribute no class (src/quant.rs:1269-1272), but
         # both files are written
         _write_eqc_counts(result.eqc, n_rows_out, num_rows, usa_mode, mat_path)
+    spans.wrote(
+        out_path / "featureDump.txt",
+        *(mat_path / f"quants_mat{x}" for x in (".mtx", "_rows.txt", "_cols.txt")),
+        *((mat_path / "bootstraps_mean.mtx", mat_path / "bootstraps_var.mtx")
+          if result.boot_mean is not None else ()),
+        *((mat_path / "geqc_counts.mtx", mat_path / "gene_eqclass.txt.gz")
+          if opts.dump_eq else ()),
+    )
     resolution = RESOLUTION_NAMES[opts.resolution]
     write_json(out_path / "quant.json", {
         "cmd": opts.cmdline,

@@ -22,7 +22,9 @@ from typing import BinaryIO, Dict, List
 
 import numpy as np
 
+from .. import spans
 from .constants import ORI_BIT_U32, REF_ID_MASK_U32
+from .prefetch import prefetched, read_spans
 from .records import RecordSchema
 from . import _native
 
@@ -155,15 +157,13 @@ def _walk_records_py(
     return rec_starts, num_aln
 
 
-def read_chunk_bodies(
-    fh: BinaryIO, num_chunks: int | None = None
-) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Read raw chunk bodies (chunk headers stripped) without decoding
-    fields.  Returns (buf[uint8], region_starts[int64], chunk_recs[int64])
-    — the inputs to the native byte-level record walk."""
+def _read_chunks(fh: BinaryIO, num_chunks: int | None) -> tuple[List[bytes], List[int]]:
+    """The next ``num_chunks`` chunks' bodies (headers stripped) and
+    record counts, or to EOF if None; counts the bytes as
+    ``bytes_read``."""
     chunk_bufs: List[bytes] = []
     chunk_recs: List[int] = []
-    n = 0
+    n = nread = 0
     while num_chunks is None or n < num_chunks:
         hdr = fh.read(8)
         if len(hdr) < 8:
@@ -176,15 +176,33 @@ def read_chunk_bodies(
             raise EOFError("truncated chunk body")
         chunk_bufs.append(body)
         chunk_recs.append(nrec)
+        nread += nbytes
         n += 1
-    if chunk_bufs:
-        buf = np.frombuffer(b"".join(chunk_bufs), dtype=np.uint8)
-    else:
-        buf = np.zeros(0, np.uint8)
+    spans.add("bytes_read", nread)
+    return chunk_bufs, chunk_recs
+
+
+def _join_regions(chunk_bufs: List[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    """The chunk bodies as one byte array, and where each starts."""
+    buf = (np.frombuffer(b"".join(chunk_bufs), dtype=np.uint8) if chunk_bufs
+           else np.zeros(0, np.uint8))
     sizes = np.asarray([len(b) for b in chunk_bufs], np.int64)
     region_starts = np.zeros(len(chunk_bufs), np.int64)
     if len(sizes) > 1:
         np.cumsum(sizes[:-1], out=region_starts[1:])
+    return buf, region_starts
+
+
+def read_chunk_bodies(
+    fh: BinaryIO, num_chunks: int | None = None
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Read raw chunk bodies (chunk headers stripped) without decoding
+    fields, inside a ``read`` span.  Returns (buf[uint8],
+    region_starts[int64], chunk_recs[int64]) — the inputs to the native
+    byte-level record walk."""
+    with spans.span("read", "codec"):
+        chunk_bufs, chunk_recs = _read_chunks(fh, num_chunks)
+        buf, region_starts = _join_regions(chunk_bufs)
     return buf, region_starts, np.asarray(chunk_recs, np.int64)
 
 
@@ -214,24 +232,8 @@ def decode_all_chunks(
     ``skip_read_fields`` names read-level columns to leave undecoded
     (gathered lazily via ReadBatch.barcode_at); ``want_dirs=False``
     skips materializing the per-alignment orientation booleans."""
-    chunk_bufs: List[bytes] = []
-    chunk_recs: List[int] = []
-    n = 0
-    while num_chunks is None or n < num_chunks:
-        hdr = fh.read(8)
-        if len(hdr) < 8:
-            if num_chunks is not None:
-                raise EOFError(
-                    f"expected {num_chunks} chunks but hit EOF after {n}"
-                )
-            break
-        nbytes, nrec = struct.unpack("<II", hdr)
-        body = fh.read(nbytes - 8)
-        if len(body) != nbytes - 8:
-            raise EOFError("truncated chunk body")
-        chunk_bufs.append(body)
-        chunk_recs.append(nrec)
-        n += 1
+    with spans.span("read", "codec"):
+        chunk_bufs, chunk_recs = _read_chunks(fh, num_chunks)
     return decode_chunk_bodies(
         chunk_bufs, chunk_recs, schema,
         skip_read_fields=skip_read_fields, want_dirs=want_dirs,
@@ -267,7 +269,7 @@ def _iter_raw_chunk_groups(
 
     first_chunk = start
     n = start
-    pending = 0
+    pending = nread = 0
     while (num_chunks is None or n < num_chunks) and (end is None or n < end):
         hdr = fh.read(8)
         if len(hdr) < 8:
@@ -281,21 +283,22 @@ def _iter_raw_chunk_groups(
         chunk_bufs.append(body)
         chunk_recs.append(nrec)
         pending += nrec
+        nread += nbytes
         n += 1
         if pending >= max_records:
+            spans.add("bytes_read", nread)
             yield first_chunk, chunk_bufs, chunk_recs
             first_chunk = n
-            chunk_bufs, chunk_recs, pending = [], [], 0
+            chunk_bufs, chunk_recs, pending, nread = [], [], 0, 0
     if chunk_bufs:
+        spans.add("bytes_read", nread)
         yield first_chunk, chunk_bufs, chunk_recs
 
 
 def _maybe_prefetched(groups, prefetch: bool):
-    if not prefetch:
-        return groups
-    from .prefetch import prefetched
-
-    return prefetched(groups)
+    """``groups`` read on a producer thread, or on this one; each
+    group's read is a ``read`` span either way."""
+    return prefetched(groups) if prefetch else read_spans(groups)
 
 
 def iter_decoded_blocks(
@@ -321,13 +324,10 @@ def iter_decoded_blocks(
         _iter_raw_chunk_groups(fh, num_chunks, max_records, chunk_range),
         prefetch,
     ):
-        batch = decode_chunk_bodies(
+        yield decode_chunk_bodies(
             chunk_bufs, chunk_recs, schema,
-            skip_read_fields=skip_read_fields, want_dirs=want_dirs,
+            skip_read_fields=skip_read_fields, want_dirs=want_dirs, first_chunk=first,
         )
-        batch.chunk_id += first
-        batch.first_chunk = first
-        yield batch
 
 
 def iter_raw_blocks(
@@ -344,11 +344,8 @@ def iter_raw_blocks(
         _iter_raw_chunk_groups(fh, num_chunks, max_records, chunk_range),
         prefetch,
     ):
-        buf = np.frombuffer(b"".join(chunk_bufs), dtype=np.uint8)
-        sizes = np.asarray([len(b) for b in chunk_bufs], np.int64)
-        region_starts = np.zeros(len(chunk_bufs), np.int64)
-        if len(sizes) > 1:
-            np.cumsum(sizes[:-1], out=region_starts[1:])
+        with spans.span("decode", "codec"):
+            buf, region_starts = _join_regions(chunk_bufs)
         yield buf, region_starts, np.asarray(chunk_recs, np.int64)
 
 
@@ -358,24 +355,26 @@ def decode_chunk_bodies(
     schema: RecordSchema,
     skip_read_fields=None,
     want_dirs: bool = True,
+    first_chunk: int = 0,
 ) -> ReadBatch:
-    """Decode pre-read chunk bodies (without the 8-byte chunk headers)."""
-    skip_read_fields = skip_read_fields or set()
-    if chunk_bufs:
-        buf = np.frombuffer(b"".join(chunk_bufs), dtype=np.uint8)
-    else:
-        buf = np.zeros(0, np.uint8)
-    region_starts: List[int] = []
-    pos = 0
-    for b in chunk_bufs:
-        region_starts.append(pos)
-        pos += len(b)
+    """Decode pre-read chunk bodies (without the 8-byte chunk headers),
+    inside a ``decode`` span that counts the ``records``;
+    ``first_chunk`` is the global index of the first chunk."""
+    with spans.span("decode", "codec"):
+        batch = _decode_bodies(chunk_bufs, chunk_recs, schema, skip_read_fields or set(),
+                               want_dirs, first_chunk)
+        spans.add("records", batch.n_reads)
+    return batch
+
+
+def _decode_bodies(chunk_bufs, chunk_recs, schema, skip_read_fields, want_dirs,
+                   first_chunk) -> ReadBatch:
+    buf, region_starts = _join_regions(chunk_bufs)
 
     rb, ab = schema.read_bytes, schema.aln_bytes
     if _native.available():
         rec_starts, num_aln = _native.walk_records(
-            buf, np.asarray(region_starts, np.int64),
-            np.asarray(chunk_recs, np.int64), rb, ab,
+            buf, region_starts, np.asarray(chunk_recs, np.int64), rb, ab,
         )
     else:
         rec_starts, num_aln = _walk_records_py(buf, region_starts, chunk_recs, rb, ab)
@@ -433,8 +432,10 @@ def decode_chunk_bodies(
     np.cumsum(np.asarray(chunk_recs, np.int64), out=chunk_offsets[1:])
     batch.chunk_offsets = chunk_offsets
     batch.chunk_id = np.repeat(
-        np.arange(len(chunk_recs), dtype=np.int64), np.asarray(chunk_recs, np.int64)
+        np.arange(first_chunk, first_chunk + len(chunk_recs), dtype=np.int64),
+        np.asarray(chunk_recs, np.int64),
     )
+    batch.first_chunk = first_chunk
     return batch
 
 

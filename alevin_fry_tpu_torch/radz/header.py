@@ -21,6 +21,7 @@ from typing import BinaryIO, Dict, List
 
 import numpy as np
 
+from .. import spans
 from . import _native
 from .types import (
     SECTION_ALN,
@@ -229,8 +230,9 @@ class RadPrelude:
 
 
 def read_prelude(fh: BinaryIO):
-    """Read the prelude and file tag values; returns (prelude, file_tag_map,
-    data_start_offset)."""
-    prelude = RadPrelude.from_bytes(fh)
-    ftm = prelude.parse_file_tag_values(fh)
-    return prelude, ftm, fh.tell()
+    """Read the prelude and file tag values, a ``header_read`` span;
+    returns (prelude, file_tag_map, data_start_offset)."""
+    with spans.span("header_read", "codec"):
+        prelude = RadPrelude.from_bytes(fh)
+        ftm = prelude.parse_file_tag_values(fh)
+        return prelude, ftm, fh.tell()

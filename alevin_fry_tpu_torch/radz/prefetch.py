@@ -11,6 +11,11 @@ queue.
 
 ``AFT_PREFETCH`` env knob: ``0`` disables (synchronous iteration),
 any positive integer sets the queue depth (default 2).
+
+Each block's read is a ``read`` span (``spans.py``), on the producer
+thread with the consumer's root span as its parent, or on the
+consumer's thread when synchronous; the consumer's time blocked on the
+queue is a ``wait`` span.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import os
 import queue
 import threading
 from typing import Iterable, Iterator, TypeVar
+
+from .. import spans
 
 T = TypeVar("T")
 
@@ -32,6 +39,17 @@ def prefetch_depth() -> int:
         return 2
 
 
+def read_spans(it: Iterable[T], parent=None) -> Iterator[T]:
+    """``it``'s items, each fetched inside a ``read`` span."""
+    it = iter(it)
+    while True:
+        with spans.span("read", "codec", parent):
+            item = next(it, _SENTINEL)
+        if item is _SENTINEL:
+            return
+        yield item
+
+
 def prefetched(it: Iterable[T], depth: int | None = None) -> Iterator[T]:
     """Run ``it`` in a producer thread, yielding items through a
     bounded queue.  Exceptions in the producer propagate to the
@@ -40,15 +58,16 @@ def prefetched(it: Iterable[T], depth: int | None = None) -> Iterator[T]:
     if depth is None:
         depth = prefetch_depth()
     if depth <= 0:
-        yield from it
+        yield from read_spans(it)
         return
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     err: list[BaseException] = []
     stop = threading.Event()
+    parent = spans.root()
 
     def run() -> None:
         try:
-            for item in it:
+            for item in read_spans(it, parent):
                 while not stop.is_set():
                     try:
                         q.put(item, timeout=0.1)
@@ -71,7 +90,8 @@ def prefetched(it: Iterable[T], depth: int | None = None) -> Iterator[T]:
     t.start()
     try:
         while True:
-            item = q.get()
+            with spans.span("wait", "wait"):
+                item = q.get()
             if item is _SENTINEL:
                 if err:
                     raise err[0]
@@ -79,3 +99,5 @@ def prefetched(it: Iterable[T], depth: int | None = None) -> Iterator[T]:
             yield item
     finally:
         stop.set()
+        # the producer's last read span closes (and counts) inside the stage
+        t.join()

@@ -12,6 +12,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from . import spans
 from .ops.barcodes import pack_seqs
 
 # bio_types::strand::Strand symbols: Forward "+", Reverse "-", Unknown "."
@@ -208,5 +209,9 @@ def is_velo_mode(input_dir: Path) -> bool:
 
 
 def write_json(path: Path, obj: dict) -> None:
-    with open(path, "w") as fh:
-        json.dump(obj, fh, indent=2)
+    """Write a stage's JSON inside a ``write`` span that counts its
+    bytes."""
+    with spans.span("write", "codec"):
+        with open(path, "w") as fh:
+            json.dump(obj, fh, indent=2)
+        spans.wrote(path)

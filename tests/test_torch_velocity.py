@@ -43,6 +43,9 @@ CPU = ["-t", "2", "--device", "cpu"]
 VELO = "velo.map.collated.rad"
 SIDECARS = ("gpl/unmapped_bc_count_collated.bin",)
 SNAPPY_MAGIC = b"\xff\x06\x00\x00sNaPpY"
+# variables the port reads that a reference test module in the same
+# process may have set
+POLICY_ENV = ("AFT_RESCUE_BACKEND", "AFT_COORDINATOR", "AFT_NUM_PROCESSES", "AFT_PROCESS_ID")
 
 
 @pytest.fixture(autouse=True)
@@ -50,8 +53,7 @@ def _no_policy_env(monkeypatch):
     """The port reads AFT_RESCUE_BACKEND, where ``host`` raises, and a
     coordinator; a reference test module in the same process may have
     set them."""
-    for var in ("AFT_RESCUE_BACKEND", "AFT_COORDINATOR", "AFT_NUM_PROCESSES",
-                "AFT_PROCESS_ID"):
+    for var in POLICY_ENV:
         monkeypatch.delenv(var, raising=False)
 
 
@@ -136,14 +138,19 @@ def test_gpl_velo_mode_json_matches_reference(hard_data, tmp_path, path, velo_mo
 @pytest.fixture(scope="module")
 def velo_gpl(hard_data, tmp_path_factory):
     """The port's velocity-mode gpl -u of hard_data, and the bytes a plain
-    in-memory collate writes from the same permit files without the flag."""
+    in-memory collate writes from the same permit files without the flag.
+    A module fixture runs before ``_no_policy_env``, so it clears the
+    same variables itself."""
     tmp = tmp_path_factory.mktemp("velo_gpl")
-    port_gpl(hard_data, tmp / "velo", "unfiltered", True, "alevin-fry-tpu gpl")
-    shutil.copytree(tmp / "velo", tmp / "plain")
-    js = tmp / "plain" / "generate_permit_list.json"
-    js.write_text(json.dumps({**json.loads(js.read_text()), "velo_mode": False}))
-    assert port_main(["collate", "-i", str(tmp / "plain"), "-r", str(hard_data / "rad"),
-                      *CPU]) == 0
+    with pytest.MonkeyPatch.context() as mp:
+        for var in POLICY_ENV:
+            mp.delenv(var, raising=False)
+        port_gpl(hard_data, tmp / "velo", "unfiltered", True, "alevin-fry-tpu gpl")
+        shutil.copytree(tmp / "velo", tmp / "plain")
+        js = tmp / "plain" / "generate_permit_list.json"
+        js.write_text(json.dumps({**json.loads(js.read_text()), "velo_mode": False}))
+        assert port_main(["collate", "-i", str(tmp / "plain"), "-r", str(hard_data / "rad"),
+                          *CPU]) == 0
     return tmp / "velo", (tmp / "plain" / "map.collated.rad").read_bytes()
 
 
