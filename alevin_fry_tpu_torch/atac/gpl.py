@@ -42,7 +42,7 @@ from ..radz import KnownRecordType, bincodeio, read_prelude, record_type_from_pr
 from ..radz.chunkio import iter_decoded_blocks
 from ..radz.constants import ATAC_BIN_SIZE
 from ..radz.records import RecordSchema
-from ..utils import read_barcode_file, write_json
+from ..utils import read_barcode_file, sorted_unique, write_json
 
 log = get_logger("atac.gpl")
 
@@ -79,7 +79,7 @@ def _whitelist(opts: AtacGplOpts) -> np.ndarray:
         wl, wl_len = read_barcode_file(opts.unfiltered_pl)
         if opts.rc:
             wl = bcops.revcomp_packed(wl, wl_len)
-        return np.unique(wl)
+        return sorted_unique(wl)
 
 
 def generate_permit_list(opts: AtacGplOpts) -> int:
@@ -133,7 +133,10 @@ def generate_permit_list(opts: AtacGplOpts) -> int:
                 )
                 bcs = batch.barcode()
                 if mesh is None:
-                    np.add.at(bins, bin_idx, 1)
+                    cnt = np.bincount(bin_idx, minlength=tot_bins)
+                    if len(cnt) != tot_bins:
+                        raise ValueError(f"a bin index lies past the {tot_bins} bins")
+                    bins += cnt.astype(np.uint64)
                 else:
                     if len(bin_idx):
                         bins += sharded_bin_histogram(mesh, bin_idx, tot_bins).astype(np.uint64)

@@ -30,6 +30,11 @@ for _b, _v in zip(b"acgt", range(4)):
 _ASCII_TO_2BIT[ord("N")] = 0
 _ASCII_TO_2BIT[ord("n")] = 0
 
+# two bytes read as one little-endian uint16 -> the first's code times 4
+# plus the second's
+_PAIR_TO_4BIT = (_ASCII_TO_2BIT[np.arange(65536) & 255].astype(np.uint16) * 4
+                 + _ASCII_TO_2BIT[np.arange(65536) >> 8])
+
 _BASES = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -48,10 +53,30 @@ def pack_seqs(lines: Iterable[bytes | str], length: int | None = None) -> np.nda
         return np.zeros(0, np.uint64)
     if length is None:
         length = len(rows[0])
-    mat = np.frombuffer(b"".join(rows), np.uint8).reshape(-1, length)
-    codes = _ASCII_TO_2BIT[mat].astype(np.uint64)
-    shifts = np.uint64(2) * np.arange(length - 1, -1, -1, dtype=np.uint64)
-    return (codes << shifts[None, :]).sum(axis=1, dtype=np.uint64)
+    return pack_rows(np.frombuffer(b"".join(rows), np.uint8).reshape(-1, length))
+
+
+def pack_rows(mat: np.ndarray) -> np.ndarray:
+    """Pack an (n, length) uint8 ASCII matrix into a uint64 array: each
+    base's 2-bit code at its place, the first base highest, summed
+    modulo 2**64 (a byte outside ``ACGTacgtNn`` adds its code 255 the
+    same way).  Bases are joined in pairs by ``_PAIR_TO_4BIT``, pairs in
+    fours (exact in uint16), and those in order."""
+    n, length = mat.shape
+    half = length // 2
+    pairs = _PAIR_TO_4BIT[mat[:, :2 * half].view("<u2")]
+    fours = pairs[:, 0:half - half % 2:2] * np.uint16(16) + pairs[:, 1:half:2]
+    out = np.zeros(n, np.uint64)
+    for j in range(fours.shape[1]):
+        out <<= np.uint64(8)
+        out += fours[:, j]
+    if half % 2:
+        out <<= np.uint64(4)
+        out += pairs[:, -1]
+    if length % 2:
+        out <<= np.uint64(2)
+        out += _ASCII_TO_2BIT[mat[:, -1]]
+    return out
 
 
 def unpack_seq(bc: int, length: int) -> str:

@@ -53,7 +53,7 @@ from ..parallel import dist
 from ..parallel.mesh import mesh_from_env, sharded_histogram
 from ..utils import (
     STRAND_BOTH, STRAND_FW, read_barcode_file, read_strand_mask,
-    record_layout, strand_from_ori_arg, write_json,
+    record_layout, sorted_unique, strand_from_ori_arg, write_json,
 )
 from .logging_ import get_logger
 from .progress import Progress
@@ -235,7 +235,7 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
             mesh = mesh_from_env("AFT_GPL_MESH", opts.device)
         if mesh is not None:
             with spans.span("list_parse", "codec"):
-                wl_mesh = np.unique(read_barcode_file(opts.fmeth.path)[0])
+                wl_mesh = sorted_unique(read_barcode_file(opts.fmeth.path)[0])
             wl_counts = np.zeros(len(wl_mesh), np.int64)
         with spans.span("histogram", "resolution"), \
                 Progress("generate-permit-list histogram", "reads") as pb:
@@ -390,7 +390,7 @@ def _process_unfiltered(
     (src/cellfilter.rs:105-333)."""
     with spans.span("list_parse", "codec"):
         wl, first_bclen = read_barcode_file(opts.fmeth.path)
-        wl = np.unique(wl)
+        wl = sorted_unique(wl)
     if first_bclen != bclen:
         log.warning(
             "provided permit list has barcodes of length %d but mapped reads "

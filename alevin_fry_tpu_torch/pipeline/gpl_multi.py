@@ -35,7 +35,9 @@ from ..ops import barcodes as bcops
 from ..ops.knee import get_knee
 from ..parallel import dist
 from ..radz import bincodeio
-from ..utils import read_barcode_file, read_strand_mask, strand_from_ori_arg, write_json
+from ..utils import (
+    read_barcode_file, read_strand_mask, sorted_unique, strand_from_ori_arg, write_json,
+)
 from .gpl import _histogram, _merge_histograms, merge_rank_histograms
 from .logging_ import get_logger
 
@@ -167,7 +169,7 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
     min_reads = 0
     if opts.fmeth.kind == "unfiltered":
         with spans.span("list_parse", "codec"):
-            wl_sorted = np.unique(read_barcode_file(opts.fmeth.path)[0])
+            wl_sorted = sorted_unique(read_barcode_file(opts.fmeth.path)[0])
         min_reads = int(opts.fmeth.min_reads)
         log.info("Loaded %d cell barcodes from whitelist", len(wl_sorted))
 
@@ -268,7 +270,7 @@ def _filter_sample_cells(
                 np.concatenate([kept_bc, reps[rescued]]))
 
     if meth.kind == "explicit":
-        vset = np.unique(read_barcode_file(meth.path, cell_bc_len)[0])
+        vset = sorted_unique(read_barcode_file(meth.path, cell_bc_len)[0])
         sel = np.zeros(len(uniq), bool)
         if len(vset):
             idx = np.minimum(np.searchsorted(vset, uniq), len(vset) - 1)

@@ -75,7 +75,7 @@ from ..ops.bootstrap import run_bootstraps
 from ..ops.em import class_weights_from_prob_rows, em_cells
 from ..parallel import dist
 from ..parallel.mesh import mesh_from_env
-from ..utils import parse_tg_map, read_barcode_file, write_json
+from ..utils import parse_tg_map, read_barcode_file, sorted_unique, write_json
 from .collate import open_collated
 from .logging_ import get_logger
 from .progress import Progress
@@ -198,7 +198,7 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
     listed = None
     if opts.filter_list is not None:
         with spans.span("list_parse", "codec"):
-            listed = np.unique(read_barcode_file(Path(opts.filter_list), barcode_len)[0])
+            listed = sorted_unique(read_barcode_file(Path(opts.filter_list), barcode_len)[0])
 
     rank, world = dist.rank_world()
     chunk_range = None

@@ -16,7 +16,7 @@ reading and parsing input, encoding and writing output), ``resolution``
 blocked on the prefetch queue).  ``add(key, n)`` adds a count to the
 innermost open span of the calling thread; when a span closes its
 counts are added to its parent's, so a root holds its stage's totals
-(``records``, ``bytes_read``, ``bytes_written``).
+(``records``, ``bytes_read``, ``bytes_written``, ``listed``).
 
 Spans are coarse, one a phase or a block of millions of records, so a
 stage records tens to hundreds.  Closed spans are kept in ``SPANS``, in
@@ -153,14 +153,16 @@ def self_seconds(root_span: Span) -> Dict[str, float]:
 
 
 def summary(root_span: Span) -> str:
-    """The stage's line: records and seconds, each phase's self seconds
-    on the main thread (largest first), the root's own, and the bytes
-    read and written."""
+    """The stage's line: records (and barcode-list entries parsed) and
+    seconds, each phase's self seconds on the main thread (largest
+    first), the root's own, and the bytes read and written."""
     selfs = self_seconds(root_span)
     own = selfs.pop("unspanned", 0.0)
     phases = ", ".join(f"{n} {s:.2f}" for n, s in sorted(selfs.items(), key=lambda kv: -kv[1]))
     a = root_span.attrs
-    return (f"{root_span.name}: {a.get('records', 0):,} records in {root_span.seconds:.2f} s; "
+    listed = f", {a['listed']:,} listed" if "listed" in a else ""
+    return (f"{root_span.name}: {a.get('records', 0):,} records{listed} in "
+            f"{root_span.seconds:.2f} s; "
             f"{phases + ', ' if phases else ''}unspanned {own:.2f} s; "
             f"read {a.get('bytes_read', 0) / 1e6:.1f} MB, "
             f"wrote {a.get('bytes_written', 0) / 1e6:.1f} MB")

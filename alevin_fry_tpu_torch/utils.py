@@ -13,12 +13,16 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from . import spans
-from .ops.barcodes import pack_seqs
+from .ops.barcodes import pack_rows
 
 # bio_types::strand::Strand symbols: Forward "+", Reverse "-", Unknown "."
 STRAND_FW = "+"
 STRAND_RC = "-"
 STRAND_BOTH = "."
+
+# the bytes that ``bytes.strip()`` strips: space, \t, \n, \v, \f, \r
+_ASCII_SPACE = np.zeros(256, bool)
+_ASCII_SPACE[list(b" \t\n\x0b\x0c\r")] = True
 
 
 def strand_from_ori_arg(ori: str) -> str:
@@ -180,27 +184,62 @@ def _parse_tg(fh, rname_to_id, ref_count, usa: bool):
 
 # --- misc --------------------------------------------------------------------
 
-def open_maybe_gz(path: Path):
-    with open(path, "rb") as probe:
-        magic = probe.read(2)
-    if magic == b"\x1f\x8b":
-        return gzip.open(path, "rb")
-    return open(path, "rb")
-
-
 def read_barcode_file(path: Path, bclen: int | None = None) -> Tuple[np.ndarray, int]:
     """One barcode per line (optionally gzipped) -> (packed uint64
-    array in file order, barcode length).  Every barcode must have
-    ``bclen`` bases when it is given, else the first one's."""
-    with open_maybe_gz(path) as fh:
-        lines = [l.strip() for l in fh if l.strip()]
-    if not lines:
+    array in file order, barcode length).  Lines end at ``\n``; each is
+    stripped of ASCII whitespace as ``bytes.strip`` strips it, and blank
+    ones are skipped.  Every barcode must have ``bclen`` bases when it is
+    given, else the first one's.
+
+    The whole file is parsed in bulk.  Adjacent whitespace bytes form
+    runs; a line starts after the run that holds the newline before it
+    and ends where the run that holds its own newline starts.  The
+    parsed entries are counted as ``listed`` on the open span."""
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    if raw[:2] == b"\x1f\x8b":  # gzip's magic
+        raw = gzip.decompress(raw)
+    # a newline before the first line and one after the last
+    data = np.empty(len(raw) + 2, np.uint8)
+    data[1:-1] = np.frombuffer(raw, np.uint8)
+    data[0] = data[-1] = ord("\n")
+    del raw
+    # every whitespace byte is <= 32
+    ws = np.flatnonzero(data <= 32)
+    ws = ws[_ASCII_SPACE[data[ws]]]
+    # the non-whitespace bytes before each whitespace byte: one value a run
+    before = ws - np.arange(len(ws))
+    new_run = np.empty(len(ws), bool)
+    new_run[0] = True
+    np.not_equal(before[1:], before[:-1], out=new_run[1:])
+    run_first = np.flatnonzero(new_run)
+    run_end = np.append(run_first[1:], len(ws))
+    run_of = np.cumsum(new_run) - 1
+    nl = np.flatnonzero(data[ws] == ord("\n"))
+    run = run_of[nl]
+    # line i lies between newlines i and i + 1, stripped
+    start = before[nl] + run_end[run]
+    lens = before[nl[1:]] + run_first[run[1:]] - start[:-1]
+    kept = np.flatnonzero(lens > 0)
+    spans.add("listed", len(kept))
+    if not len(kept):
         return np.zeros(0, np.uint64), bclen or 0
-    length = bclen or len(lines[0])
-    for l in lines:
-        if len(l) != length:
-            raise ValueError(f"found barcodes of different lengths {length} and {len(l)}")
-    return pack_seqs(lines, length), length
+    start, lens = start[kept], lens[kept]
+    length = bclen or int(lens[0])
+    bad = np.flatnonzero(lens != length)
+    if len(bad):
+        raise ValueError(f"found barcodes of different lengths {length} and {lens[bad[0]]}")
+    return pack_rows(np.lib.stride_tricks.sliding_window_view(data, length)[start]), length
+
+
+def sorted_unique(a: np.ndarray) -> np.ndarray:
+    """``np.unique(a)`` of a 1-D array, by a sort and a compare of
+    neighbours: NumPy 2.3 finds a plain ``np.unique`` through a hash
+    table, which takes seconds on a list's millions of barcodes."""
+    a = np.sort(a)
+    first = np.ones(len(a), bool)
+    np.not_equal(a[1:], a[:-1], out=first[1:])
+    return a[first]
 
 
 def is_velo_mode(input_dir: Path) -> bool:
