@@ -22,6 +22,11 @@ do_collate_multi_bc_fast, src/collate.rs:1160-1965).
   collate.rs:1413-1480) and each bucket is gathered as the single-barcode
   out-of-core collate gathers it.
 
+Each block's correction is a ``map_lookup`` span holding the ``tier``
+span (the per-sample cell correction and its counts); the composite
+order is an ``order`` span, the manifest a ``manifest`` span inside a
+``write``.
+
 Writes ``map.collated.rad`` (``.sz`` with ``-c``), ``collation_manifest.bin``,
 an empty multi-key ``unmapped_bc_count_collated.bin`` and ``collate.json``
 with ``multi_barcode`` and ``num_samples`` (and ``collation_mode`` in the
@@ -73,18 +78,52 @@ def _correct_block(batch, ctx):
     """Sample and cell correction of one decoded block -> (kept read
     indices, their cell ranks, their rewritten barcodes: barcodes[0] the
     manifest ordinal and barcodes[-1] the corrected cell, the
-    kept-alignment mask, alignments per kept read)."""
-    # sample correction
-    hit_s, corr_s = _lookup_map(ctx["smk"], ctx["smv"], batch.barcode(0))
-    si, known = _in_sorted(ctx["sb_sorted"], corr_s)
-    known &= hit_s
-    sample_idx = np.full(batch.n_reads, -1, np.int64)
-    sample_idx[known] = ctx["sb_sorted_idx"][si[known]]
+    kept-alignment mask, alignments per kept read).  Only the reads that
+    keep a sample and an alignment in the expected orientation go
+    through the cell tiers (a ``tier`` span); no other read is kept."""
+    with spans.span("map_lookup", "resolution"):
+        # sample correction
+        hit_s, corr_s = _lookup_map(ctx["smk"], ctx["smv"], batch.barcode(0))
+        si, known = _in_sorted(ctx["sb_sorted"], corr_s)
+        known &= hit_s
+        sample_idx = np.full(batch.n_reads, -1, np.int64)
+        sample_idx[known] = ctx["sb_sorted_idx"][si[known]]
+        # orientation filter of the alignments
+        keep_aln0 = aln_strand_mask(batch.dirs, ctx["expected_ori"])
+        kept_per_read = (
+            np.add.reduceat(keep_aln0.astype(np.int64), batch.aln_offsets[:-1])
+            if batch.n_reads else np.zeros(0, np.int64)
+        )
+        kept_per_read[np.diff(batch.aln_offsets) == 0] = 0
+        sample_idx[~(kept_per_read > 0)] = -1
+        with spans.span("tier", "resolution"):
+            corrected_cell, cell_ok = _tiers(batch.barcode(-1), sample_idx, ctx)
+        keep_read = cell_ok
 
-    # cell correction per sample
-    cbc = batch.barcode(-1)
-    corrected_cell = np.zeros(batch.n_reads, np.uint64)
-    cell_ok = np.zeros(batch.n_reads, bool)
+        rk = (sample_idx[keep_read].astype(np.uint64) << np.uint64(ctx["cell_bc_bits"])) \
+            | corrected_cell[keep_read]
+        pos, in_cells = _in_sorted(ctx["comp_sorted"], rk)
+        # every corrected read should hit a known cell; any other drops
+        kept_reads = np.flatnonzero(keep_read)[in_cells]
+        rank = ctx["comp_perm"][pos[in_cells]]
+        keep_read2 = np.zeros(batch.n_reads, bool)
+        keep_read2[kept_reads] = True
+        keep_aln = keep_aln0 & np.repeat(keep_read2, batch.num_aln_per_read)
+        fields = batch.schema.barcode_fields
+        rewrite = {fields[0]: ctx["ord_lut"][sample_idx[kept_reads]].astype(np.uint64),
+                   fields[-1]: corrected_cell[kept_reads]}
+    return kept_reads, rank, rewrite, keep_aln, kept_per_read[kept_reads]
+
+
+def _tiers(cbc, sample_idx, ctx):
+    """Each read's cell barcode corrected within its sample (``sample_idx``,
+    -1 for a read that goes through no tier) -> (corrected cells, which
+    reads were corrected).  The fast mode counts its reads:
+    ``tier_exact`` (a kept cell of the sample), ``tier_queries`` (sent to
+    K4), ``tier_rescued`` (exactly one kept cell one substitution away)
+    and ``tier_dropped`` (the other queries)."""
+    corrected_cell = np.zeros(len(cbc), np.uint64)
+    cell_ok = np.zeros(len(cbc), bool)
     for sidx in range(ctx["num_samples"]):
         sel = np.flatnonzero(sample_idx == sidx)
         if len(sel) == 0:
@@ -101,6 +140,7 @@ def _correct_block(batch, ctx):
         _, ident = _in_sorted(valid, q)
         corrected_cell[sel[ident]] = q[ident]
         cell_ok[sel[ident]] = True
+        spans.add("tier_exact", int(ident.sum()))
         # the 1-edit tier: none of these queries is a valid code, so a
         # count of 1 is a unique Hamming-1 neighbour
         rest = sel[~ident]
@@ -110,29 +150,11 @@ def _correct_block(batch, ctx):
             good = cnts == 1
             corrected_cell[rest[good]] = reps[good]
             cell_ok[rest[good]] = True
-
-    # orientation filter of the alignments
-    keep_aln0 = aln_strand_mask(batch.dirs, ctx["expected_ori"])
-    kept_per_read = (
-        np.add.reduceat(keep_aln0.astype(np.int64), batch.aln_offsets[:-1])
-        if batch.n_reads else np.zeros(0, np.int64)
-    )
-    kept_per_read[np.diff(batch.aln_offsets) == 0] = 0
-    keep_read = known & cell_ok & (kept_per_read > 0)
-
-    rk = (sample_idx[keep_read].astype(np.uint64) << np.uint64(ctx["cell_bc_bits"])) \
-        | corrected_cell[keep_read]
-    pos, in_cells = _in_sorted(ctx["comp_sorted"], rk)
-    # every corrected read should hit a known cell; any other drops
-    kept_reads = np.flatnonzero(keep_read)[in_cells]
-    rank = ctx["comp_perm"][pos[in_cells]]
-    keep_read2 = np.zeros(batch.n_reads, bool)
-    keep_read2[kept_reads] = True
-    keep_aln = keep_aln0 & np.repeat(keep_read2, batch.num_aln_per_read)
-    fields = batch.schema.barcode_fields
-    rewrite = {fields[0]: ctx["ord_lut"][sample_idx[kept_reads]].astype(np.uint64),
-               fields[-1]: corrected_cell[kept_reads]}
-    return kept_reads, rank, rewrite, keep_aln, kept_per_read[kept_reads]
+            n_good = int(good.sum())
+            spans.add("tier_queries", len(rest))
+            spans.add("tier_rescued", n_good)
+            spans.add("tier_dropped", len(rest) - n_good)
+    return corrected_cell, cell_ok
 
 
 def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_records: int,
@@ -140,27 +162,28 @@ def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_r
                      mode: str) -> None:
     if mode not in ("fast", "two-round"):
         raise ValueError(f"unknown collation mode {mode!r}")
-    with open(input_dir / "generate_permit_list.json") as fh:
-        expected_ori = json.load(fh)["expected_ori"]
-    with open(input_dir / "sample_info.json") as fh:
-        sample_info = json.load(fh)
-    num_samples = int(sample_info["num_samples"])
-    entries = sample_info["samples"]
-    sample_names = [e.get("name") or format(int(e["barcode"], 16), "x") for e in entries]
-    sample_bcs = np.asarray([int(e["barcode"], 16) for e in entries], np.uint64)
-    smk, smv = bincodeio.read_u64_map_file(input_dir / "sample_permit_map.bin")
+    with spans.span("map_read", "codec"):
+        with open(input_dir / "generate_permit_list.json") as fh:
+            expected_ori = json.load(fh)["expected_ori"]
+        with open(input_dir / "sample_info.json") as fh:
+            sample_info = json.load(fh)
+        num_samples = int(sample_info["num_samples"])
+        entries = sample_info["samples"]
+        sample_names = [e.get("name") or format(int(e["barcode"], 16), "x") for e in entries]
+        sample_bcs = np.asarray([int(e["barcode"], 16) for e in entries], np.uint64)
+        smk, smv = bincodeio.read_u64_map_file(input_dir / "sample_permit_map.bin")
 
-    # each sample's valid cell barcodes (sorted by the writer) and counts
-    per_sample_valid, per_sample_freq = [], []
-    cell_bc_len = None
-    for name in sample_names:
-        fp = input_dir / f"sample_{name}" / "permit_freq.bin"
-        if fp.exists():
-            cell_bc_len, k, v = bincodeio.read_permit_freq(fp)
-        else:
-            k, v = np.zeros(0, np.uint64), np.zeros(0, np.uint64)
-        per_sample_valid.append(k)
-        per_sample_freq.append(v)
+        # each sample's valid cell barcodes (sorted by the writer) and counts
+        per_sample_valid, per_sample_freq = [], []
+        cell_bc_len = None
+        for name in sample_names:
+            fp = input_dir / f"sample_{name}" / "permit_freq.bin"
+            if fp.exists():
+                cell_bc_len, k, v = bincodeio.read_permit_freq(fp)
+            else:
+                k, v = np.zeros(0, np.uint64), np.zeros(0, np.uint64)
+            per_sample_valid.append(k)
+            per_sample_freq.append(v)
     cell_bc_len = cell_bc_len or 16
     cell_bc_bits = 2 * cell_bc_len
     sample_id_bits = 0 if num_samples <= 1 else (num_samples - 1).bit_length()
@@ -171,21 +194,22 @@ def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_r
             "> 64-bit composite key capacity."
         )
 
-    # composite cells: samples ascending, then descending count, then barcode
-    comp_cells, comp_counts = [np.zeros(0, np.uint64)], [np.zeros(0, np.int64)]
-    for sidx, (v, f) in enumerate(zip(per_sample_valid, per_sample_freq)):
-        order = np.lexsort((v, -f.astype(np.int64)))
-        comp_cells.append((np.uint64(sidx) << np.uint64(cell_bc_bits)) | v[order])
-        comp_counts.append(f[order].astype(np.int64))
-    comp_cells = np.concatenate(comp_cells)
-    comp_counts = np.concatenate(comp_counts)
-    comp_perm = np.argsort(comp_cells, kind="stable")
-    comp_sample = (comp_cells >> np.uint64(cell_bc_bits)).astype(np.int64)
-    # the manifest ordinal: every kept read's (sample, cell) is a
-    # composite cell, so the present samples are those holding one
-    present = np.unique(comp_sample)
-    ord_lut = np.zeros(max(num_samples, 1), np.int64)
-    ord_lut[present] = np.arange(len(present))
+    with spans.span("order", "resolution"):
+        # composite cells: samples ascending, then descending count, then barcode
+        comp_cells, comp_counts = [np.zeros(0, np.uint64)], [np.zeros(0, np.int64)]
+        for sidx, (v, f) in enumerate(zip(per_sample_valid, per_sample_freq)):
+            order = np.lexsort((v, -f.astype(np.int64)))
+            comp_cells.append((np.uint64(sidx) << np.uint64(cell_bc_bits)) | v[order])
+            comp_counts.append(f[order].astype(np.int64))
+        comp_cells = np.concatenate(comp_cells)
+        comp_counts = np.concatenate(comp_counts)
+        comp_perm = np.argsort(comp_cells, kind="stable")
+        comp_sample = (comp_cells >> np.uint64(cell_bc_bits)).astype(np.int64)
+        # the manifest ordinal: every kept read's (sample, cell) is a
+        # composite cell, so the present samples are those holding one
+        present = np.unique(comp_sample)
+        ord_lut = np.zeros(max(num_samples, 1), np.int64)
+        ord_lut[present] = np.arange(len(present))
 
     sb_sorted_idx = np.argsort(sample_bcs, kind="stable")
     ctx = {
@@ -198,11 +222,13 @@ def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_r
     }
     if mode == "two-round":
         ctx["round2_maps"] = []
-        for name in sample_names:
-            mp = input_dir / f"sample_{name}" / "permit_map.bin"
-            if not mp.exists():
-                log.info("Round 2: skipping sample '%s' (no permit maps)", name)
-            ctx["round2_maps"].append(bincodeio.read_u64_map_file(mp) if mp.exists() else None)
+        with spans.span("map_read", "codec"):
+            for name in sample_names:
+                mp = input_dir / f"sample_{name}" / "permit_map.bin"
+                if not mp.exists():
+                    log.info("Round 2: skipping sample '%s' (no permit maps)", name)
+                ctx["round2_maps"].append(bincodeio.read_u64_map_file(mp) if mp.exists()
+                                          else None)
 
     rank, world = dist.rank_world()
     with open(rad_dir / "map.rad", "rb") as fh:
@@ -229,26 +255,30 @@ def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_r
     if mode == "two-round":
         cmeta["collation_mode"] = "two-round"
     write_json(input_dir / "collate.json", cmeta)
-    # the mapper's multi-key unmapped counts are not read: the sidecar is
-    # an empty (sample, cell) map, as the reference writes it
-    unmappedio.write_collated_multi(
-        input_dir / "unmapped_bc_count_collated.bin",
-        np.zeros(0, np.uint64), np.zeros(0, np.uint64), np.zeros(0, np.uint32),
-    )
-    spans.wrote(input_dir / "unmapped_bc_count_collated.bin")
-    # the present samples in ascending plate index; chunk ranges count
-    # the cells that wrote a chunk
-    manifest = CollationManifest(["sample", "cell"])
-    chunk_offset = 0
-    for sidx in present.tolist():
-        sel = comp_sample == sidx
-        nch = int((per_cell[sel] > 0).sum())
-        manifest.add_sample_group(SampleGroup(
-            key=int(sample_bcs[sidx]), name=sample_names[sidx], chunk_start=chunk_offset,
-            num_chunks=nch, num_records=int(per_cell[sel].sum()),
-        ))
-        chunk_offset += nch
-    manifest.write_to_file(input_dir / "collation_manifest.bin")
+    with spans.span("write", "codec"):
+        # the mapper's multi-key unmapped counts are not read: the sidecar is
+        # an empty (sample, cell) map, as the reference writes it
+        unmappedio.write_collated_multi(
+            input_dir / "unmapped_bc_count_collated.bin",
+            np.zeros(0, np.uint64), np.zeros(0, np.uint64), np.zeros(0, np.uint32),
+        )
+        spans.wrote(input_dir / "unmapped_bc_count_collated.bin")
+        with spans.span("manifest", "codec"):
+            # the present samples in ascending plate index; chunk ranges
+            # count the cells that wrote a chunk
+            manifest = CollationManifest(["sample", "cell"])
+            chunk_offset = 0
+            for sidx in present.tolist():
+                sel = comp_sample == sidx
+                nch = int((per_cell[sel] > 0).sum())
+                manifest.add_sample_group(SampleGroup(
+                    key=int(sample_bcs[sidx]), name=sample_names[sidx],
+                    chunk_start=chunk_offset, num_chunks=nch,
+                    num_records=int(per_cell[sel].sum()),
+                ))
+                chunk_offset += nch
+            manifest.write_to_file(input_dir / "collation_manifest.bin")
+            spans.wrote(input_dir / "collation_manifest.bin")
     dist.barrier()
     log.info(
         "Multi-barcode collation complete: %d output chunks across %d samples",
@@ -258,7 +288,8 @@ def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_r
 
 def _collate_multi_in_memory(batch, input_dir, prelude, ftm, ctx, n_cells, compress_out: bool):
     kept, rank, rewrite, keep_aln, nal = _correct_block(batch, ctx)
-    order, per_cell = collation_order(rank, n_cells, ctx["device"])
+    with spans.span("order", "resolution"):
+        order, per_cell = collation_order(rank, n_cells, ctx["device"])
     return write_collated(input_dir, compress_out, prelude, ftm, batch, kept, rewrite, nal,
                           keep_aln, order, per_cell), per_cell
 

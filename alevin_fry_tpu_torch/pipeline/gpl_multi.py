@@ -16,7 +16,12 @@ do_generate_permit_list_multi_bc, src/cellfilter.rs:563-1063).
 * writes ``sample_permit_map.bin``, ``sample_info.json`` and the
   ``generate_permit_list.json`` gate with ``multi_barcode: true``.
 
-Host NumPy apart from the rescue, as in the reference.  In a
+Host NumPy apart from the rescue, as in the reference.  Its spans
+(``spans.py``): ``sample_map`` (the map's build and each block's sample
+correction, inside ``histogram``, counting the compatible reads as
+``sample_exact``, ``sample_corrected`` or ``sample_dropped``), and one
+``filter`` a sample holding its ``rescue`` (counting
+``composite_cells``).  In a
 multi-process run (``parallel/dist.py``) the caller gives each rank the
 blocks of its chunk range; the composite histograms and the read
 counters merge over collectives, every rank filters every sample, and
@@ -111,47 +116,59 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
             "but --sample-bc-list was not provided."
         )
     reverse = opts.sample_bc_ori == "reverse"
-    canon_order, rot_to_canon, canon_to_name, sbc_len = load_sample_barcode_list(
-        Path(opts.sample_bc_list), reverse
-    )
-    if opts.sample_names is not None:
-        with open(opts.sample_names) as fh:
-            for line in fh:
-                parts = line.strip().split("\t")
-                if len(parts) >= 2:
-                    b = bcops.pack_seq(parts[0])
-                    canon_to_name[rot_to_canon.get(b, b)] = parts[1]
+    with spans.span("list_parse", "codec"):
+        canon_order, rot_to_canon, canon_to_name, sbc_len = load_sample_barcode_list(
+            Path(opts.sample_bc_list), reverse
+        )
+        if opts.sample_names is not None:
+            with open(opts.sample_names) as fh:
+                for line in fh:
+                    parts = line.strip().split("\t")
+                    if len(parts) >= 2:
+                        b = bcops.pack_seq(parts[0])
+                        canon_to_name[rot_to_canon.get(b, b)] = parts[1]
     sample_names = [canon_to_name.get(cb, f"{cb:x}") for cb in canon_order]
-    permit = build_sample_permit_map(rot_to_canon, opts.sample_correction_mode, sbc_len)
     num_samples = len(canon_order)
+    with spans.span("sample_map", "resolution"):
+        permit = build_sample_permit_map(rot_to_canon, opts.sample_correction_mode, sbc_len)
+        pk = np.asarray(sorted(permit), np.uint64)
+        pv = np.asarray([permit[int(k)] for k in pk], np.uint64)
+        # which keys are listed rotations, to count exact sample barcodes
+        pk_listed = np.isin(pk, np.asarray(list(rot_to_canon), np.uint64))
+        canon_arr = np.asarray(canon_order, np.uint64)
+        canon_perm = np.argsort(canon_arr, kind="stable")
+        canon_sorted = canon_arr[canon_perm]
 
     # the first pass: strand filter, sample correction, composite histogram
     strand = strand_from_ori_arg(opts.expected_ori)
-    pk = np.asarray(sorted(permit), np.uint64)
-    pv = np.asarray([permit[int(k)] for k in pk], np.uint64)
-    canon_arr = np.asarray(canon_order, np.uint64)
-    canon_perm = np.argsort(canon_arr, kind="stable")
-    canon_sorted = canon_arr[canon_perm]
     cbits = np.uint64(2 * cell_bc_len)
     h_key = np.zeros(0, np.uint64)
     h_ct = np.zeros(0, np.uint64)
     total_reads = matched_reads = unmatched_reads = 0
-    for batch in block_iter:
-        compat = read_strand_mask(batch.dirs, batch.aln_offsets, strand)
-        total_reads += batch.n_reads
-        sbc = batch.barcode(0)[compat]
-        cbc = batch.barcode(-1)[compat]
-        known = np.zeros(len(sbc), bool)
-        ci = np.zeros(len(sbc), np.int64)
-        if len(pk) and num_samples:
-            idx = np.minimum(np.searchsorted(pk, sbc), len(pk) - 1)
-            corrected = pv[idx]
-            ci = np.minimum(np.searchsorted(canon_sorted, corrected), num_samples - 1)
-            known = (pk[idx] == sbc) & (canon_sorted[ci] == corrected)
-        matched_reads += int(known.sum())
-        unmatched_reads += int((~known).sum())
-        comp = (canon_perm[ci[known]].astype(np.uint64) << cbits) | cbc[known]
-        h_key, h_ct = _merge_histograms(h_key, h_ct, *_histogram(comp))
+    with spans.span("histogram", "resolution"):
+        for batch in block_iter:
+            with spans.span("sample_map", "resolution"):
+                compat = read_strand_mask(batch.dirs, batch.aln_offsets, strand)
+                total_reads += batch.n_reads
+                sbc = batch.barcode(0)[compat]
+                cbc = batch.barcode(-1)[compat]
+                known = np.zeros(len(sbc), bool)
+                ci = np.zeros(len(sbc), np.int64)
+                n_exact = 0
+                if len(pk) and num_samples:
+                    idx = np.minimum(np.searchsorted(pk, sbc), len(pk) - 1)
+                    corrected = pv[idx]
+                    ci = np.minimum(np.searchsorted(canon_sorted, corrected), num_samples - 1)
+                    known = (pk[idx] == sbc) & (canon_sorted[ci] == corrected)
+                    n_exact = int((known & pk_listed[idx]).sum())
+                n_known = int(known.sum())
+                spans.add("sample_exact", n_exact)
+                spans.add("sample_corrected", n_known - n_exact)
+                spans.add("sample_dropped", len(sbc) - n_known)
+                matched_reads += n_known
+                unmatched_reads += len(sbc) - n_known
+                comp = (canon_perm[ci[known]].astype(np.uint64) << cbits) | cbc[known]
+            h_key, h_ct = _merge_histograms(h_key, h_ct, *_histogram(comp))
     rank, world = dist.rank_world()
     if world > 1:
         h_key, h_ct = merge_rank_histograms(h_key, h_ct)
@@ -174,12 +191,13 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
         log.info("Loaded %d cell barcodes from whitelist", len(wl_sorted))
 
     if write:
-        bincodeio.write_u64_map_file(
-            out_dir / "sample_permit_map.bin",
-            np.asarray(list(permit.keys()), np.uint64),
-            np.asarray(list(permit.values()), np.uint64),
-        )
-        spans.wrote(out_dir / "sample_permit_map.bin")
+        with spans.span("write", "codec"):
+            bincodeio.write_u64_map_file(
+                out_dir / "sample_permit_map.bin",
+                np.asarray(list(permit.keys()), np.uint64),
+                np.asarray(list(permit.values()), np.uint64),
+            )
+            spans.wrote(out_dir / "sample_permit_map.bin")
 
     total_cells = 0
     sample_entries = []
@@ -189,22 +207,26 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
         entry = {"name": name, "barcode": f"0x{canon_order[si]:x}",
                  "num_reads": 0, "num_cells": 0}
         sample_entries.append(entry)
-        sel = h_sample == si
-        # the composite keys come sorted, so each sample's cells do too
-        uniq = h_key[sel] & cell_mask
-        if len(uniq) == 0:
-            log.warning("Sample '%s' has no reads — skipping", name)
-            continue
-        kept_bc, kept_ct, map_keys, map_vals = _filter_sample_cells(
-            opts, uniq, h_ct[sel].astype(np.uint64), wl_sorted, min_reads, cell_bc_len, name
-        )
+        with spans.span("filter", "resolution"):
+            sel = h_sample == si
+            # the composite keys come sorted, so each sample's cells do too
+            uniq = h_key[sel] & cell_mask
+            if len(uniq) == 0:
+                log.warning("Sample '%s' has no reads — skipping", name)
+                continue
+            kept_bc, kept_ct, map_keys, map_vals = _filter_sample_cells(
+                opts, uniq, h_ct[sel].astype(np.uint64), wl_sorted, min_reads, cell_bc_len,
+                name
+            )
+            spans.add("composite_cells", len(kept_bc))
         if write:
-            sample_dir = out_dir / f"sample_{name}"
-            sample_dir.mkdir(parents=True, exist_ok=True)
-            bincodeio.write_u64_map_file(sample_dir / "permit_map.bin", map_keys, map_vals)
-            bincodeio.write_permit_freq(sample_dir / "permit_freq.bin", cell_bc_len, kept_bc,
-                                        kept_ct)
-            spans.wrote(sample_dir / "permit_map.bin", sample_dir / "permit_freq.bin")
+            with spans.span("write", "codec"):
+                sample_dir = out_dir / f"sample_{name}"
+                sample_dir.mkdir(parents=True, exist_ok=True)
+                bincodeio.write_u64_map_file(sample_dir / "permit_map.bin", map_keys, map_vals)
+                bincodeio.write_permit_freq(sample_dir / "permit_freq.bin", cell_bc_len, kept_bc,
+                                            kept_ct)
+                spans.wrote(sample_dir / "permit_map.bin", sample_dir / "permit_freq.bin")
         total_cells += len(kept_bc)
         entry.update(num_reads=int(kept_ct.sum()), num_cells=int(len(kept_bc)))
 
@@ -258,10 +280,11 @@ def _filter_sample_cells(
         kept_ct = counts[passing].copy()
         rescue_bc = uniq[~passing]
         rescue_ct = counts[~passing]
-        ncnt, reps = bcops.find_neighbors(rescue_bc, kept_bc, cell_bc_len, opts.device)
-        rescued = (ncnt == 1) & (reps != rescue_bc)
-        if rescued.any():
-            np.add.at(kept_ct, np.searchsorted(kept_bc, reps[rescued]), rescue_ct[rescued])
+        with spans.span("rescue", "resolution"):
+            ncnt, reps = bcops.find_neighbors(rescue_bc, kept_bc, cell_bc_len, opts.device)
+            rescued = (ncnt == 1) & (reps != rescue_bc)
+            if rescued.any():
+                np.add.at(kept_ct, np.searchsorted(kept_bc, reps[rescued]), rescue_ct[rescued])
         log.info(
             "  sample '%s': %d whitelist BCs pass min_reads=%d, %d rescued",
             name, len(kept_bc), min_reads, int(rescued.sum()),

@@ -168,7 +168,8 @@ def _do_quantify(br, prelude, ftm, opts: QuantOpts, parent: Path) -> None:
         "quantifying %d cells over %d references (record type %s)",
         hdr.num_chunks, hdr.ref_count, rec_type.value,
     )
-    sample_names = _read_sample_names(parent)
+    with spans.span("manifest_read", "codec"):
+        sample_names = _read_sample_names(parent)
     with spans.span("t2g_read", "codec"):
         tid_to_gid, gene_names, gene_name_to_id, usa_mode = parse_tg_map(
             Path(opts.tg_map), hdr.ref_names

@@ -1,0 +1,8 @@
+"""``hand_kernels_roofline`` in the Flex cell, where it names ``setup_s`` as the
+end-to-end metric it moves (the warm-up job's stages are set-up; the
+cell's rate is read per layer).  The same reader as
+``metrics/hand_kernels_roofline.py``."""
+
+from fry_bench.harness import metric_reader
+
+read = metric_reader("hand_kernels_roofline")
