@@ -2,13 +2,16 @@
 modes (port of ``alevin_fry_tpu/pipeline/collate_multi.py``, reference
 do_collate_multi_bc_fast, src/collate.rs:1160-1965).
 
-* sample barcodes correct through ``sample_permit_map.bin``;
-* cell barcodes correct per sample: in the fast mode an identity tier
-  against the sample's ``permit_freq.bin`` keys, then a 1-edit tier that
-  keeps a unique Hamming-1 neighbour among them (collate.rs:1486-1664),
-  searched by kernel K4 on the chosen device; in the two-round mode
-  through the sample's gpl-written ``permit_map.bin`` (collate.rs:
-  2277-2283);
+* sample barcodes correct through ``sample_permit_map.bin``: one hash
+  lookup a read, from the probe barcode to the dense sample;
+* cell barcodes correct within their sample through one hash lookup a
+  read of the composite key: in the fast mode into the composite cells
+  (the identity tier against the sample's ``permit_freq.bin`` keys,
+  which gives the cell's rank), then for the misses a 1-edit tier that
+  keeps a unique Hamming-1 neighbour among the sample's cells
+  (collate.rs:1486-1664), searched by kernel K4 on the chosen device
+  once a sample; in the two-round mode into the samples' gpl-written
+  ``permit_map.bin`` keys, merged (collate.rs:2277-2283);
 * the composite key ``(sample << 2·cell_bc_len) | cell``
   (collate.rs:1194-1198), refused past 64 bits;
 * output chunks grouped by present sample (ascending plate index), cells
@@ -65,15 +68,6 @@ from .progress import Progress
 log = get_logger("collate.multi")
 
 
-def _in_sorted(sorted_keys: np.ndarray, query: np.ndarray):
-    """(position of each query in ``sorted_keys``, clipped; whether it is
-    there)."""
-    if len(sorted_keys) == 0:
-        return np.zeros(len(query), np.int64), np.zeros(len(query), bool)
-    pos = np.minimum(np.searchsorted(sorted_keys, query), len(sorted_keys) - 1)
-    return pos, sorted_keys[pos] == query
-
-
 def _correct_block(batch, ctx):
     """Sample and cell correction of one decoded block -> (kept read
     indices, their cell ranks, their rewritten barcodes: barcodes[0] the
@@ -82,12 +76,9 @@ def _correct_block(batch, ctx):
     keep a sample and an alignment in the expected orientation go
     through the cell tiers (a ``tier`` span); no other read is kept."""
     with spans.span("map_lookup", "resolution"):
-        # sample correction
-        hit_s, corr_s = _lookup_map(ctx["smk"], ctx["smv"], batch.barcode(0))
-        si, known = _in_sorted(ctx["sb_sorted"], corr_s)
-        known &= hit_s
-        sample_idx = np.full(batch.n_reads, -1, np.int64)
-        sample_idx[known] = ctx["sb_sorted_idx"][si[known]]
+        # sample correction: each probe barcode straight to its dense sample
+        hit_s, sample_of = _lookup_map(ctx["sample_keys"], ctx["sample_of_key"],
+                                       batch.barcode(0))
         # orientation filter of the alignments
         keep_aln0 = aln_strand_mask(batch.dirs, ctx["expected_ori"])
         kept_per_read = (
@@ -95,66 +86,91 @@ def _correct_block(batch, ctx):
             if batch.n_reads else np.zeros(0, np.int64)
         )
         kept_per_read[np.diff(batch.aln_offsets) == 0] = 0
-        sample_idx[~(kept_per_read > 0)] = -1
+        reads = np.flatnonzero(hit_s & (kept_per_read > 0))
         with spans.span("tier", "resolution"):
-            corrected_cell, cell_ok = _tiers(batch.barcode(-1), sample_idx, ctx)
-        keep_read = cell_ok
-
-        rk = (sample_idx[keep_read].astype(np.uint64) << np.uint64(ctx["cell_bc_bits"])) \
-            | corrected_cell[keep_read]
-        pos, in_cells = _in_sorted(ctx["comp_sorted"], rk)
-        # every corrected read should hit a known cell; any other drops
-        kept_reads = np.flatnonzero(keep_read)[in_cells]
-        rank = ctx["comp_perm"][pos[in_cells]]
-        keep_read2 = np.zeros(batch.n_reads, bool)
-        keep_read2[kept_reads] = True
-        keep_aln = keep_aln0 & np.repeat(keep_read2, batch.num_aln_per_read)
+            kept_reads, rank = _tiers(batch.barcode(-1), reads, sample_of[reads], ctx)
+        keep_read = np.zeros(batch.n_reads, bool)
+        keep_read[kept_reads] = True
+        keep_aln = keep_aln0 & np.repeat(keep_read, batch.num_aln_per_read)
         fields = batch.schema.barcode_fields
-        rewrite = {fields[0]: ctx["ord_lut"][sample_idx[kept_reads]].astype(np.uint64),
-                   fields[-1]: corrected_cell[kept_reads]}
+        rewrite = {fields[0]: ctx["ord_lut"][ctx["comp_sample"][rank]].astype(np.uint64),
+                   fields[-1]: ctx["comp_cell"][rank]}
     return kept_reads, rank, rewrite, keep_aln, kept_per_read[kept_reads]
 
 
-def _tiers(cbc, sample_idx, ctx):
-    """Each read's cell barcode corrected within its sample (``sample_idx``,
-    -1 for a read that goes through no tier) -> (corrected cells, which
-    reads were corrected).  The fast mode counts its reads:
-    ``tier_exact`` (a kept cell of the sample), ``tier_queries`` (sent to
-    K4), ``tier_rescued`` (exactly one kept cell one substitution away)
-    and ``tier_dropped`` (the other queries)."""
-    corrected_cell = np.zeros(len(cbc), np.uint64)
-    cell_ok = np.zeros(len(cbc), bool)
-    for sidx in range(ctx["num_samples"]):
-        sel = np.flatnonzero(sample_idx == sidx)
-        if len(sel) == 0:
-            continue
-        q = cbc[sel]
-        if ctx["mode"] == "two-round":
-            if ctx["round2_maps"][sidx] is None:
-                continue
-            hit, corr = _lookup_map(*ctx["round2_maps"][sidx], q)
-            corrected_cell[sel[hit]] = corr[hit]
-            cell_ok[sel[hit]] = True
-            continue
-        valid = ctx["per_sample_valid"][sidx]
-        _, ident = _in_sorted(valid, q)
-        corrected_cell[sel[ident]] = q[ident]
-        cell_ok[sel[ident]] = True
-        spans.add("tier_exact", int(ident.sum()))
-        # the 1-edit tier: none of these queries is a valid code, so a
-        # count of 1 is a unique Hamming-1 neighbour
-        rest = sel[~ident]
-        if len(rest):
-            cnts, reps = bcops.find_neighbors(q[~ident], valid, ctx["cell_bc_len"],
-                                              ctx["device"])
+def _tiers(cbc, reads, sample, ctx):
+    """The cell correction of ``reads`` (ascending), each within its
+    ``sample`` (dense indices, u64) -> (the reads kept, ascending; their
+    cell ranks).  Each read's composite key ``(sample, cell barcode)``
+    goes through one hash lookup into the stage's table: in the fast
+    mode the composite cells,
+    so a hit is the identity tier and gives the rank; in the two-round
+    mode every sample's ``permit_map.bin`` keys, each to the rank of its
+    corrected cell.  The fast mode then keeps a unique Hamming-1
+    neighbour among the sample's cells for each miss (K4, one search a
+    sample) and counts its reads: ``tier_exact`` (a kept cell of the
+    sample), ``tier_queries`` (sent to K4), ``tier_rescued`` (exactly one
+    kept cell one substitution away) and ``tier_dropped`` (the other
+    queries)."""
+    bits = np.uint64(ctx["cell_bc_bits"])
+    hit, rank = _lookup_map(ctx["tier_keys"], ctx["tier_ranks"], (sample << bits) | cbc[reads])
+    if ctx["mode"] == "two-round" or len(reads) == 0:
+        return reads[hit], rank[hit].astype(np.int64)
+    spans.add("tier_exact", int(hit.sum()))
+    miss = np.flatnonzero(~hit)
+    if len(miss):
+        # the misses grouped by sample, in read order within each: none
+        # of them is a kept cell of its sample, so a count of 1 is a
+        # unique Hamming-1 neighbour
+        miss_sample = sample[miss].astype(np.int64)
+        by_sample = miss[np.argsort(miss_sample, kind="stable")]
+        bounds = np.zeros(ctx["num_samples"] + 1, np.int64)
+        np.cumsum(np.bincount(miss_sample, minlength=ctx["num_samples"]), out=bounds[1:])
+        rescued, rescued_keys = [np.zeros(0, np.int64)], [np.zeros(0, np.uint64)]
+        for sidx in np.flatnonzero(np.diff(bounds)).tolist():
+            m = by_sample[bounds[sidx]:bounds[sidx + 1]]
+            cnts, reps = bcops.find_neighbors(cbc[reads[m]], ctx["per_sample_valid"][sidx],
+                                              ctx["cell_bc_len"], ctx["device"])
             good = cnts == 1
-            corrected_cell[rest[good]] = reps[good]
-            cell_ok[rest[good]] = True
-            n_good = int(good.sum())
-            spans.add("tier_queries", len(rest))
-            spans.add("tier_rescued", n_good)
-            spans.add("tier_dropped", len(rest) - n_good)
-    return corrected_cell, cell_ok
+            rescued.append(m[good])
+            rescued_keys.append((np.uint64(sidx) << bits) | reps[good])
+        rescued = np.concatenate(rescued)
+        # each representative's composite cell gives the rank
+        found, r = _lookup_map(ctx["tier_keys"], ctx["tier_ranks"],
+                               np.concatenate(rescued_keys))
+        hit[rescued[found]] = True
+        rank[rescued[found]] = r[found]
+        spans.add("tier_queries", len(miss))
+        spans.add("tier_rescued", len(rescued))
+        spans.add("tier_dropped", len(miss) - len(rescued))
+    return reads[hit], rank[hit].astype(np.int64)
+
+
+def _two_round_table(input_dir: Path, sample_names, cell_bc_bits: int, comp_sorted,
+                     comp_rank):
+    """Every sample's ``permit_map.bin`` as one table: the composite key
+    of a raw cell barcode -> the rank of its corrected composite cell
+    (sorted keys; where a map repeats a key, its first entry; an entry
+    whose corrected cell is no composite cell is left out, so its reads
+    drop)."""
+    bits = np.uint64(cell_bc_bits)
+    keys, vals = [np.zeros(0, np.uint64)], [np.zeros(0, np.uint64)]
+    for sidx, name in enumerate(sample_names):
+        mp = input_dir / f"sample_{name}" / "permit_map.bin"
+        if not mp.exists():
+            log.info("Round 2: skipping sample '%s' (no permit maps)", name)
+            continue
+        mk, mv = bincodeio.read_u64_map_file(mp)
+        keys.append((np.uint64(sidx) << bits) | mk)
+        vals.append((np.uint64(sidx) << bits) | mv)
+    keys, vals = np.concatenate(keys), np.concatenate(vals)
+    order = np.argsort(keys, kind="stable")
+    keys, vals = keys[order], vals[order]
+    first = np.ones(len(keys), bool)
+    first[1:] = keys[1:] != keys[:-1]
+    keys, vals = keys[first], vals[first]
+    found, rank = _lookup_map(comp_sorted, comp_rank, vals)
+    return keys[found], rank[found]
 
 
 def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_records: int,
@@ -196,39 +212,41 @@ def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_r
 
     with spans.span("order", "resolution"):
         # composite cells: samples ascending, then descending count, then barcode
-        comp_cells, comp_counts = [np.zeros(0, np.uint64)], [np.zeros(0, np.int64)]
+        comp_cell, comp_sample, comp_counts = ([np.zeros(0, np.uint64)], [np.zeros(0, np.int64)],
+                                               [np.zeros(0, np.int64)])
         for sidx, (v, f) in enumerate(zip(per_sample_valid, per_sample_freq)):
             order = np.lexsort((v, -f.astype(np.int64)))
-            comp_cells.append((np.uint64(sidx) << np.uint64(cell_bc_bits)) | v[order])
+            comp_cell.append(v[order])
+            comp_sample.append(np.full(len(v), sidx, np.int64))
             comp_counts.append(f[order].astype(np.int64))
-        comp_cells = np.concatenate(comp_cells)
+        comp_cell = np.concatenate(comp_cell)
+        comp_sample = np.concatenate(comp_sample)
         comp_counts = np.concatenate(comp_counts)
+        comp_cells = (comp_sample.astype(np.uint64) << np.uint64(cell_bc_bits)) | comp_cell
         comp_perm = np.argsort(comp_cells, kind="stable")
-        comp_sample = (comp_cells >> np.uint64(cell_bc_bits)).astype(np.int64)
+        comp_sorted, comp_rank = comp_cells[comp_perm], comp_perm.astype(np.uint64)
         # the manifest ordinal: every kept read's (sample, cell) is a
         # composite cell, so the present samples are those holding one
         present = np.unique(comp_sample)
         ord_lut = np.zeros(max(num_samples, 1), np.int64)
         ord_lut[present] = np.arange(len(present))
+        # each sample-permit-map key to the dense index of its sample
+        sb_sorted_idx = np.argsort(sample_bcs, kind="stable")
+        known, sample_of_key = _lookup_map(sample_bcs[sb_sorted_idx],
+                                           sb_sorted_idx.astype(np.uint64), smv)
 
-    sb_sorted_idx = np.argsort(sample_bcs, kind="stable")
     ctx = {
         "num_samples": num_samples, "cell_bc_len": cell_bc_len,
-        "cell_bc_bits": cell_bc_bits, "smk": smk, "smv": smv,
-        "sb_sorted": sample_bcs[sb_sorted_idx], "sb_sorted_idx": sb_sorted_idx,
+        "cell_bc_bits": cell_bc_bits, "sample_keys": smk[known],
+        "sample_of_key": sample_of_key[known],
         "per_sample_valid": per_sample_valid, "mode": mode, "expected_ori": expected_ori,
-        "comp_sorted": comp_cells[comp_perm], "comp_perm": comp_perm, "ord_lut": ord_lut,
-        "round2_maps": None, "device": device,
+        "tier_keys": comp_sorted, "tier_ranks": comp_rank, "comp_sample": comp_sample,
+        "comp_cell": comp_cell, "ord_lut": ord_lut, "device": device,
     }
     if mode == "two-round":
-        ctx["round2_maps"] = []
         with spans.span("map_read", "codec"):
-            for name in sample_names:
-                mp = input_dir / f"sample_{name}" / "permit_map.bin"
-                if not mp.exists():
-                    log.info("Round 2: skipping sample '%s' (no permit maps)", name)
-                ctx["round2_maps"].append(bincodeio.read_u64_map_file(mp) if mp.exists()
-                                          else None)
+            ctx["tier_keys"], ctx["tier_ranks"] = _two_round_table(
+                input_dir, sample_names, cell_bc_bits, comp_sorted, comp_rank)
 
     rank, world = dist.rank_world()
     with open(rad_dir / "map.rad", "rb") as fh:

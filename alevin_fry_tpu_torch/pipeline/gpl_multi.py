@@ -43,6 +43,7 @@ from ..radz import bincodeio
 from ..utils import (
     read_barcode_file, read_strand_mask, sorted_unique, strand_from_ori_arg, write_json,
 )
+from .collate import _lookup_map
 from .gpl import _histogram, _merge_histograms, merge_rank_histograms
 from .logging_ import get_logger
 
@@ -131,13 +132,12 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
     num_samples = len(canon_order)
     with spans.span("sample_map", "resolution"):
         permit = build_sample_permit_map(rot_to_canon, opts.sample_correction_mode, sbc_len)
-        pk = np.asarray(sorted(permit), np.uint64)
-        pv = np.asarray([permit[int(k)] for k in pk], np.uint64)
-        # which keys are listed rotations, to count exact sample barcodes
-        pk_listed = np.isin(pk, np.asarray(list(rot_to_canon), np.uint64))
-        canon_arr = np.asarray(canon_order, np.uint64)
-        canon_perm = np.argsort(canon_arr, kind="stable")
-        canon_sorted = canon_arr[canon_perm]
+        # each key to its dense sample (the code's high bits) and whether
+        # it is a listed rotation (the low bit), to count exact barcodes
+        place = {cb: i for i, cb in enumerate(canon_order)}
+        sk = [k for k in sorted(permit) if permit[k] in place]
+        sv = np.asarray([(place[permit[k]] << 1) | (k in rot_to_canon) for k in sk], np.uint64)
+        sk = np.asarray(sk, np.uint64)
 
     # the first pass: strand filter, sample correction, composite histogram
     strand = strand_from_ori_arg(opts.expected_ori)
@@ -152,22 +152,16 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
                 total_reads += batch.n_reads
                 sbc = batch.barcode(0)[compat]
                 cbc = batch.barcode(-1)[compat]
-                known = np.zeros(len(sbc), bool)
-                ci = np.zeros(len(sbc), np.int64)
-                n_exact = 0
-                if len(pk) and num_samples:
-                    idx = np.minimum(np.searchsorted(pk, sbc), len(pk) - 1)
-                    corrected = pv[idx]
-                    ci = np.minimum(np.searchsorted(canon_sorted, corrected), num_samples - 1)
-                    known = (pk[idx] == sbc) & (canon_sorted[ci] == corrected)
-                    n_exact = int((known & pk_listed[idx]).sum())
-                n_known = int(known.sum())
+                known, code = _lookup_map(sk, sv, sbc)
+                code = code[known]
+                n_known = len(code)
+                n_exact = int(np.count_nonzero(code & np.uint64(1)))
                 spans.add("sample_exact", n_exact)
                 spans.add("sample_corrected", n_known - n_exact)
                 spans.add("sample_dropped", len(sbc) - n_known)
                 matched_reads += n_known
                 unmatched_reads += len(sbc) - n_known
-                comp = (canon_perm[ci[known]].astype(np.uint64) << cbits) | cbc[known]
+                comp = ((code >> np.uint64(1)) << cbits) | cbc[known]
             h_key, h_ct = _merge_histograms(h_key, h_ct, *_histogram(comp))
     rank, world = dist.rank_world()
     if world > 1:

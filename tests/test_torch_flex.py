@@ -27,18 +27,23 @@ import pytest
 from alevin_fry_tpu.ops.barcodes import find_neighbors_batch as ref_find_neighbors_batch
 from alevin_fry_tpu.ops.barcodes import unpack_seq
 from alevin_fry_tpu.pipeline.collate import collate as ref_collate
+from alevin_fry_tpu.radz import RadWriter
 from alevin_fry_tpu.radz import _native as ref_native
 from alevin_fry_tpu.radz import collation as ref_collation
 from alevin_fry_tpu.radz import unmapped as ref_unmapped
+from alevin_fry_tpu_torch import spans
 from alevin_fry_tpu_torch.cli import main as port_main
 from alevin_fry_tpu_torch.ops import barcodes as port_barcodes
 from alevin_fry_tpu_torch.pipeline import quant
-from alevin_fry_tpu_torch.radz import bincodeio, collation, unmapped
+from alevin_fry_tpu_torch.radz import _native as port_native
+from alevin_fry_tpu_torch.radz import bincodeio, collation, read_prelude, unmapped
+from alevin_fry_tpu_torch.radz.chunkio import decode_all_chunks
+from alevin_fry_tpu_torch.radz.records import RecordSchema
 from reference_host_path import (
     FLEX_STAGE_JSONS, artifact_mismatches, flex_artifacts, host_policies,
     make_flex_permit_list, run_reference_flex,
 )
-from synth import make_packed_bc, write_multi_bc_rad
+from synth import make_multi_bc_prelude, make_packed_bc, write_multi_bc_rad
 from synth_hard import make_hard_flex_dataset
 
 SAMPLE_BC_LEN, NUM_REFS = 8, 10
@@ -451,3 +456,181 @@ def test_k4_twin_equals_the_reference_collate_tier(length, native, monkeypatch):
     one = got_n == 1
     np.testing.assert_array_equal(got_rep[one], want_rep[one])
     assert {0, 1, 2} <= set(got_n.tolist())
+
+
+# --- the composite lookup: a hand-built case ----------------------------------
+
+CELL_BC_LEN, CASE_READS = 16, 100
+_X, _Y, _P, _Q, _R = (make_packed_bc(i, CELL_BC_LEN) for i in (11, 12, 13, 14, 15))
+# one substitution from X; two cells each one substitution from Y
+_X1, _Y1, _Y2 = _X ^ 1, _Y ^ (1 << 6), _Y ^ (2 << 20)
+_SAMPLES = [(n, make_packed_bc(100 + 37 * i, SAMPLE_BC_LEN))
+            for i, n in enumerate(("sample_a", "sample_b", "sample_c"))]
+_A, _B, _C = (bc for _n, bc in _SAMPLES)
+_B_EDIT = _B ^ (3 << 4)               # one substitution from B's probe barcode
+_UNLISTED = make_packed_bc(999, SAMPLE_BC_LEN)
+# (probe barcode, cell barcode, reads in hundreds, forward); gpl reads the
+# first list, collate both
+GPL_READS = [(_A, _X, 30, True), (_A, _P, 25, True), (_A, _R, 24, True), (_B, _X1, 30, True),
+             (_B, _Y1, 25, True), (_B, _Y2, 24, True), (_B, _Q, 20, True),
+             (_B_EDIT, _Q, 1.5, True), (_UNLISTED, _P, 4, True), (_A, _P, 3, False)]
+COLLATE_ONLY_READS = [
+    (_B, _X, 7, True),          # X is A's cell; in B only X1 is listed: rescued to X1
+    (_B, _Y, 6, True),          # Y1 and Y2 are both listed in B: dropped
+    (_B_EDIT, _X, 2, True),     # a corrected probe barcode, its cell rescued in B
+]
+# C had no reads in gpl, so it has no permit_freq.bin: its reads drop
+C_READS = [(_C, _P, 5, True), (_C, _X, 5, True)]
+# the counts the case must give (a hundred reads a unit)
+CASE_COUNTS = {"sample_exact": 17_800, "sample_corrected": 150, "sample_dropped": 400,
+               "tier_exact": 17_950, "tier_queries": 2_500, "tier_rescued": 900,
+               "tier_dropped": 1_600}
+CASE_ARTIFACTS = ("gpl/sample_permit_map.bin", "gpl/map.collated.rad",
+                  "gpl/collation_manifest.bin", "gpl/unmapped_bc_count_collated.bin",
+                  "gpl/sample_sample_a/permit_map.bin", "gpl/sample_sample_a/permit_freq.bin",
+                  "gpl/sample_sample_b/permit_map.bin", "gpl/sample_sample_b/permit_freq.bin")
+CASE_JSONS = ("gpl/generate_permit_list.json", "gpl/sample_info.json", "gpl/collate.json")
+
+
+def _write_case_rad(path: Path, groups) -> None:
+    prelude, ftv = make_multi_bc_prelude([f"gene_{i}" for i in range(NUM_REFS)],
+                                         SAMPLE_BC_LEN, CELL_BC_LEN, 12)
+    path.parent.mkdir(parents=True)
+    with open(path, "wb") as fh:
+        w = RadWriter(fh, prelude, ftv)
+        for g, (sbc, cbc, hundreds, forward) in enumerate(groups):
+            n = int(hundreds * CASE_READS)
+            w.write_chunk(
+                read_cols={"b0": np.full(n, sbc, np.uint64), "b1": np.full(n, cbc, np.uint64),
+                           "u": (np.arange(n, dtype=np.uint64) + np.uint64(g << 16))},
+                aln_offsets=np.arange(n + 1, dtype=np.int64),
+                refs=(np.arange(n) % NUM_REFS).astype(np.uint32),
+                dirs=np.full(n, forward, bool),
+            )
+        w.finalize()
+
+
+@pytest.fixture(scope="module")
+def case_data(tmp_path_factory) -> Path:
+    d = tmp_path_factory.mktemp("composite_case")
+    _write_case_rad(d / "rad_gpl" / "map.rad", GPL_READS)
+    _write_case_rad(d / "rad" / "map.rad", GPL_READS + COLLATE_ONLY_READS + C_READS)
+    _write_case_rad(d / "rad_ref" / "map.rad", GPL_READS + COLLATE_ONLY_READS)
+    (d / "samples.tsv").write_text("".join(
+        f"{unpack_seq(bc, SAMPLE_BC_LEN)}\t{name}\n" for name, bc in _SAMPLES))
+    return d
+
+
+def _run_case(d: Path, out: Path, mode: str, max_records=None) -> tuple:
+    """The port's gpl (``-f 4``, 1-edit sample correction) on ``d/rad_gpl``
+    and its collate on ``d/rad``; returns the command lines and the two
+    roots' counts."""
+    argvs = {
+        "gpl": ["generate-permit-list", "-i", str(d / "rad_gpl"), "-d", "fw", "-o",
+                str(out / "gpl"), "-f", "4", "--sample-bc-list", str(d / "samples.tsv"),
+                "--sample-correction-mode", "1-edit"],
+        "collate": ["collate", "-i", str(out / "gpl"), "-r", str(d / "rad"),
+                    "--collation-mode", mode,
+                    *(["-m", str(max_records)] if max_records else [])],
+    }
+    counts = {}
+    for argv in argvs.values():
+        argv += ["-t", "2", "--device", "cpu"]
+        n0 = len(spans.SPANS)
+        assert port_main(argv) == 0
+        root = spans.SPANS[-1]
+        assert root.parent is None and len(spans.SPANS) > n0
+        counts.update({k: v for k, v in root.attrs.items() if k in CASE_COUNTS})
+    return {k: "alevin-fry-tpu " + " ".join(v) for k, v in argvs.items()}, counts
+
+
+@pytest.fixture(scope="module")
+def case_default(case_data, tmp_path_factory):
+    """The default run of the case (K4, the native library) in each mode,
+    in memory and out of core: each mode's artifacts' bytes and counts."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("AFT_RESCUE_BACKEND", raising=False)
+        for mode in ("fast", "two-round"):
+            for max_records in (None, 5_000):
+                run = tmp_path_factory.mktemp(f"case_{mode}")
+                _cm, counts = _run_case(case_data, run, mode, max_records)
+                out[mode, max_records] = (
+                    {a: (run / a).read_bytes() for a in CASE_ARTIFACTS}, counts)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["fast", "two-round"])
+def test_composite_case_matches_reference(case_data, tmp_path, mode):
+    """A cell listed in sample A and read in sample B, where only its
+    1-edit neighbour is listed, is rescued to that neighbour within B; a
+    read of B with two listed 1-edit neighbours drops, and so do the
+    reads of a sample without ``permit_freq.bin`` and of a probe barcode
+    that maps to no sample: the port's gpl and collate, in memory and out
+    of core, write the reference's bytes, and the fast mode counts what
+    the case holds.  The reference's fast collate raises on reads of a
+    sample without ``permit_freq.bin`` (an empty identity search), so it
+    collates the reads without C's: all of those drop, so the bytes are
+    the same."""
+    assert port_native.available()
+    cm, counts = _run_case(case_data, tmp_path / "port", mode)
+    smk, _smv = bincodeio.read_u64_map_file(tmp_path / "port" / "gpl" / "sample_permit_map.bin")
+    assert _B_EDIT in set(smk.tolist()) and _UNLISTED not in set(smk.tolist())
+    assert not (tmp_path / "port" / "gpl" / "sample_sample_c").exists()
+    with host_policies():
+        from alevin_fry_tpu.pipeline.gpl import (
+            CellFilterMethod, GenPermitListOpts, generate_permit_list,
+        )
+
+        generate_permit_list(GenPermitListOpts(
+            input_dir=case_data / "rad_gpl", output_dir=tmp_path / "ref" / "gpl",
+            fmeth=CellFilterMethod("force", count=4), expected_ori="fw", threads=2,
+            cmdline=cm["gpl"], sample_bc_list=case_data / "samples.tsv",
+            sample_correction_mode="1-edit",
+        ))
+        ref_collate(tmp_path / "ref" / "gpl", case_data / "rad_ref", 2, cmdline=cm["collate"],
+                    collation_mode=mode)
+    assert artifact_mismatches(tmp_path / "port", tmp_path / "ref", CASE_ARTIFACTS,
+                               CASE_JSONS) == []
+    want = dict(CASE_COUNTS)
+    if mode == "two-round":
+        want = {k: v for k, v in want.items() if k.startswith("sample_")}
+    assert counts == want
+    # X1 took the reads of X in B; no read kept Y or sample C
+    with open(tmp_path / "port" / "gpl" / "map.collated.rad", "rb") as fh:
+        prelude, _ftm, _ = read_prelude(fh)
+        batch = decode_all_chunks(fh, RecordSchema.from_prelude(prelude),
+                                  prelude.hdr.num_chunks)
+    keys, n = np.unique(np.stack([batch.barcode(0), batch.barcode(-1)], 1), axis=0,
+                        return_counts=True)
+    pairs = {(int(s), int(c)): int(k) for (s, c), k in zip(keys, n)}
+    assert pairs[1, _X1] == 3_900
+    assert _Y not in {c for _s, c in pairs} and {s for s, _c in pairs} == {0, 1}
+    # out of core: the same bytes
+    assert port_main(["collate", "-i", str(tmp_path / "port" / "gpl"), "-r",
+                      str(case_data / "rad"), "--collation-mode", mode, "-m", "5000",
+                      "--device", "cpu"]) == 0
+    assert artifact_mismatches(tmp_path / "port", tmp_path / "ref", CASE_ARTIFACTS,
+                               CASE_JSONS[:2]) == []
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("backend", [None, "pallas"])
+@pytest.mark.parametrize("mode", ["fast", "two-round"])
+def test_composite_case_is_the_same_under_each_rescue_backend_and_lookup(
+        case_data, case_default, tmp_path, mode, backend, native, monkeypatch):
+    """K4 or K5 (``AFT_RESCUE_BACKEND=pallas``) in the 1-edit tier, and the
+    native hash or its binary-search fallback for every lookup: the same
+    bytes and counts as the default run, in memory and out of core."""
+    if backend:
+        monkeypatch.setenv("AFT_RESCUE_BACKEND", backend)
+    if not native:
+        monkeypatch.setattr(port_native, "_LIB", None)
+        monkeypatch.setattr(port_native, "_TRIED", True)
+    assert port_native.available() == native
+    for max_records in (None, 5_000):
+        run = tmp_path / f"run_{max_records}"
+        _cm, counts = _run_case(case_data, run, mode, max_records)
+        arts, want = case_default[mode, max_records]
+        assert {a: (run / a).read_bytes() for a in CASE_ARTIFACTS} == arts
+        assert counts == want

@@ -17,6 +17,7 @@ counts on the same reads, and each root must be at least 99% covered by
 its main thread's spans."""
 
 
+import numpy as np
 import pytest
 
 from alevin_fry_tpu_torch import spans
@@ -24,6 +25,7 @@ from alevin_fry_tpu_torch.cli import main as port_main
 from fry_bench import harness
 from fry_bench.gen import flex_hard
 from fry_bench.reference import flex_gpl
+from fry_bench.reference.rescue import _lookup, unique_neighbour
 
 CPU = ["-t", "2", "--device", "cpu"]
 # large enough that the roots' own time (argument handling, log lines)
@@ -69,7 +71,7 @@ def traced(tmp_path_factory):
     base = tmp_path_factory.mktemp("flex_spans")
     sizes = dict(harness.load_cell("flex_16plex.main").config["sizes"], **SIZES)
     data = flex_hard.make(base / "data", 19, **sizes)
-    state = {"counts": {}}
+    state = {"counts": {}, "bc": data["bc"], "bc_len": data["bc_len"]}
     flex_gpl.expect(data, {"expected_ori": "fw", "min_reads": 10,
                            "sample_correction_mode": "1-edit"}, state)
     out = {}
@@ -136,3 +138,54 @@ def test_tier_counts_add_up_to_the_corrected_reads(traced):
     tiers = [sp for sp in tree if sp.name == "tier"]
     for key in ("tier_exact", "tier_queries", "tier_rescued", "tier_dropped"):
         assert sum(sp.attrs.get(key, 0) for sp in tiers) == a[key]
+
+
+def test_each_correction_lies_in_its_span(traced):
+    """collate corrects each block inside one ``map_lookup`` holding one
+    ``tier``, which holds every tier count; gpl corrects each block
+    inside a ``sample_map`` of the ``histogram``, which holds every
+    sample count."""
+    (groot, gtree), (croot, ctree) = traced[0]["generate-permit-list"], traced[0]["collate"]
+    lookups = [sp for sp in ctree if sp.name == "map_lookup"]
+    tiers = [sp for sp in ctree if sp.name == "tier"]
+    assert lookups and len(tiers) == len(lookups)
+    assert {id(sp.parent) for sp in tiers} == {id(sp) for sp in lookups}
+    for key in ("tier_exact", "tier_queries", "tier_rescued", "tier_dropped"):
+        assert sum(sp.attrs.get(key, 0) for sp in tiers) == croot.attrs[key]
+        # a span's counts roll up into its parent's
+        assert [sp.attrs.get(key, 0) for sp in lookups] == [sp.attrs.get(key, 0) for sp in tiers]
+    histogram = [sp for sp in gtree if sp.name == "histogram"]
+    blocks = [sp for sp in gtree if sp.name == "sample_map" and sp.parent.name == "histogram"]
+    assert len(histogram) == 1 and blocks
+    for key in ("sample_exact", "sample_corrected", "sample_dropped"):
+        assert sum(sp.attrs.get(key, 0) for sp in blocks) == groot.attrs[key]
+        assert histogram[0].attrs[key] == groot.attrs[key]
+
+
+def test_the_seven_flex_counts_equal_the_reference(traced):
+    """The sample counts of gpl and the tier counts of collate, read for
+    read, as the plain reference works them out: a compatible read of a
+    corrected sample is exact where (sample, cell) is a kept cell, else
+    a query, rescued where exactly one of its sample's cells lies one
+    substitution away."""
+    (groot, _g), (croot, _c) = traced[0]["generate-permit-list"], traced[0]["collate"]
+    state = traced[1]
+    cbits = np.uint64(2 * state["bc_len"])
+    cell_mask = np.uint64((1 << (2 * state["bc_len"])) - 1)
+    comp = np.sort(np.concatenate([(np.uint64(si) << cbits) | cells
+                                   for si, (cells, _ct) in enumerate(state["cells_of"])]))
+    reads = np.flatnonzero((state["sample"] >= 0) & state["compat"])
+    key = (state["sample"][reads].astype(np.uint64) << cbits) | state["bc"][reads]
+    exact, _ = _lookup(comp, key)
+    miss, n_reads = np.unique(key[~exact], return_counts=True)
+    rescued = 0
+    for si, (cells, _ct) in enumerate(state["cells_of"]):
+        sel = (miss >> cbits) == np.uint64(si)
+        one, _rep = unique_neighbour(miss[sel] & cell_mask, cells, state["bc_len"])
+        rescued += int(n_reads[sel][one].sum())
+    want = dict(state["counts"], tier_exact=int(exact.sum()), tier_queries=int((~exact).sum()),
+                tier_rescued=rescued, tier_dropped=int((~exact).sum()) - rescued)
+    for key_ in ("sample_exact", "sample_corrected", "sample_dropped"):
+        assert groot.attrs[key_] == want[key_] > 0, key_
+    for key_ in ("tier_exact", "tier_queries", "tier_rescued", "tier_dropped"):
+        assert croot.attrs[key_] == want[key_] > 0, key_
