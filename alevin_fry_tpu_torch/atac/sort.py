@@ -36,9 +36,8 @@ import torch
 
 from .. import __version__, spans
 from ..ops.atac_device import sort_rle
-from ..ops.barcodes import revcomp_packed, unpack_seqs
+from ..ops.barcodes import revcomp_packed
 from ..parallel import dist
-from ..pipeline.collate import _lookup_map
 from ..pipeline.logging_ import get_logger
 from ..pipeline.progress import Progress
 from ..radz import _native, bincodeio, read_prelude
@@ -61,7 +60,7 @@ SPILL_DTYPE = np.dtype({
 def format_bed_rows(ref_names, chrs, starts, frag_lens, bcs, counts, bc_len: int,
                     rc: bool, n_threads: int = 1) -> bytes:
     """Deduplicated fragments shorter than MAX_ATAC_FRAG_LEN as BED
-    bytes; native formatter when the codec loads, NumPy otherwise."""
+    bytes, by the native formatter."""
     keep = frag_lens < MAX_ATAC_FRAG_LEN
     chrs, starts, frag_lens = chrs[keep], starts[keep], frag_lens[keep]
     bcs, counts = bcs[keep], counts[keep]
@@ -69,18 +68,9 @@ def format_bed_rows(ref_names, chrs, starts, frag_lens, bcs, counts, bc_len: int
         return b""
     if rc:
         bcs = revcomp_packed(bcs, bc_len)
-    ends = starts + frag_lens
-    if _native.available():
-        return _native.format_bed(
-            list(ref_names), chrs, starts, ends, bcs, bc_len, counts, n_threads
-        )
-    tab = np.full(len(chrs), "\t", dtype="U1")
-    bcstr = unpack_seqs(bcs, bc_len).view(f"S{bc_len}").ravel().astype(f"U{bc_len}")
-    line = np.asarray(list(ref_names), dtype="U")[chrs]
-    for piece in (tab, starts.astype("U20"), tab, ends.astype("U20"), tab, bcstr, tab,
-                  counts.astype("U20"), np.full(len(chrs), "\n", dtype="U1")):
-        line = np.char.add(line, piece)
-    return "".join(line.tolist()).encode()
+    return _native.format_bed(
+        list(ref_names), chrs, starts, starts + frag_lens, bcs, bc_len, counts, n_threads
+    )
 
 
 @contextlib.contextmanager
@@ -115,7 +105,7 @@ def _plan_buckets(bins: np.ndarray, max_records: int) -> np.ndarray:
 def _extract_cols(batch, map_keys, map_vals) -> np.ndarray:
     """The (chr, start, frag_len, corrected barcode) rows of one decoded
     block's uniquely mapped reads with a correctable barcode."""
-    hit, corrected = _lookup_map(map_keys, map_vals, batch.barcode())
+    hit, corrected = _native.lookup_u64(map_keys, map_vals, batch.barcode())
     keep = hit & (batch.num_aln_per_read == 1)
     first_aln = batch.aln_offsets[:-1][keep]
     rows = np.empty(int(keep.sum()), SPILL_DTYPE)

@@ -279,6 +279,9 @@ def _dispatch(ap, args, cmdline) -> int:
     from .parallel import dist
     from .radz import _native
 
+    # every subcommand needs the native codec: a missing library stops
+    # the run here, before any file is read or written
+    _native.load()
     # -t/--threads also governs the native codec's thread pool
     if getattr(args, "threads", None) is not None:
         _native.set_threads(args.threads)

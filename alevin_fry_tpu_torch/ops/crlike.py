@@ -73,8 +73,8 @@ def _segments_of_sorted(col: np.ndarray):
 def _sort_unique_counts(key: np.ndarray, seg_offsets=None):
     """Sort + run-length encode a uint64 key array -> (unique keys,
     run counts); the native segmented kernel when the segments are
-    known."""
-    if seg_offsets is not None and _native.available() and len(key) > 4096:
+    known, else one NumPy sort."""
+    if seg_offsets is not None:
         return _native.sort_rle_u64_segments(
             np.ascontiguousarray(key, np.uint64), seg_offsets
         )

@@ -1,8 +1,8 @@
 """cr-like winner-take-all (WTA) resolution on the device.
 
 Port of ``alevin_fry_tpu/ops/crlike_device.py``: ``_kernel`` (:200),
-``_kernel_usa`` (:335, both branches), ``resolve_crlike_wta_device``
-(:915) and ``sharded_crlike_wta`` (:971, over a device mesh).  One pass over packed
+``_kernel_usa`` (:335, both branches) and ``resolve_crlike_wta_device``
+(:915).  One pass over packed
 (cell, umi, gene) keys — sort, run-length aggregate, segmented argmax
 with tie sets, then gene-unique counting (plain) or the USA
 spliced / unspliced / ambiguous slot rules — with the segmented sums,
@@ -215,28 +215,3 @@ def resolve_crlike_wta_words(
     if len(cell) == 0:
         return _empty_coo()
     return _resolve(_sorted_words(cell, umi, gene), gbits, n_rows, usa, prefer_ambig)
-
-
-def sharded_crlike_wta(mesh, keys_per_shard: np.ndarray, ubits: int, gbits: int, n_rows: int,
-                       usa: bool = False, prefer_ambig: bool = False):
-    """The WTA data-parallel over a device mesh (``parallel/mesh.py``;
-    the reference's ``sharded_crlike_wta``, crlike_device.py:971).
-    ``keys_per_shard`` is (shards, L) int64, each row one shard's packed
-    keys padded with PAD, split at cell boundaries (a cell's triplets in
-    one row).  Each row is resolved on its shard's device (K1-K3 there),
-    every shard launched before any is read back; cells are independent,
-    so there is no collective.  Returns (words, counts), (shards, L)
-    int64 each: a shard's counted ``cell * n_rows + column`` words in
-    order, then PAD (count 0)."""
-    keys = np.ascontiguousarray(keys_per_shard).view(np.int64)
-    if keys.ndim != 2 or len(keys) != mesh.size:
-        raise ValueError(f"one key row a shard: {keys.shape} for {mesh.size} shards")
-    runs = [_counts(_sorted_packed(torch.from_numpy(row).to(dev), ubits, gbits), gbits, n_rows,
-                    usa, prefer_ambig)
-            for dev, row in zip(mesh.devices, keys)]
-    ok = np.full(keys.shape, PAD, np.int64)
-    oc = np.zeros(keys.shape, np.int64)
-    for s, (uniq, cnt) in enumerate(runs):
-        ok[s, :len(uniq)] = uniq.cpu().numpy()
-        oc[s, :len(cnt)] = cnt.cpu().numpy()
-    return ok, oc

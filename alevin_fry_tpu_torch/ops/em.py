@@ -170,10 +170,7 @@ _PLAN_ARRAYS = ("cell_cls", "lab_off", "lab_loc", "countf", "dict_off", "p1", "p
 
 def _sort_segments(keys: np.ndarray, seg_off: np.ndarray) -> np.ndarray:
     """``keys`` (uint64) sorted within each segment of ``seg_off``."""
-    if _native.available():
-        return _native.sort_u64_segments(keys, seg_off)
-    seg = np.repeat(np.arange(len(seg_off) - 1), np.diff(seg_off))
-    return keys[np.lexsort((keys, seg))]
+    return _native.sort_u64_segments(keys, seg_off)
 
 
 def _partners(ids: np.ndarray, uoff: int, aoff: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -17,7 +17,7 @@ codec builds every cell's graph on the host and exports it as CSR
 components run on the device (kernel K7, ``ops/pug_device.py``; its twin
 for the CPU), and the native cover finishes each cell from the component
 labels (``radc_pug_cover``).  No cell's components leave the device, and
-a failure raises, as does a run without the native codec.  Long-read
+a failure raises.  Long-read
 records (alignment probabilities) take the per-cell host path below,
 copied from the JAX package as it is, with its own union-find.
 """
@@ -514,9 +514,6 @@ def resolve_parsimony_cells(
     offs = sub["offs"]
     cells = np.unique(cell)
     if aln_probs is None:
-        if not _native.available():
-            raise RuntimeError("the parsimony resolutions need the native codec "
-                               "(csrc/libradc.so) to build and cover the UMI graphs")
         return _resolve_parsimony_split(cell, umi, refs, offs, cells, tid_to_gid,
                                         pug_exact_umi, large_graph_thresh, gene_level, device)
 

@@ -327,25 +327,11 @@ def _connected_components_cuda(n_nodes, n_entries, deg, nbrs):
 
 
 def cc_labels(n_nodes: np.ndarray, deg: np.ndarray, nbrs: np.ndarray,
-              device: torch.device, mesh=None) -> np.ndarray:
+              device: torch.device) -> np.ndarray:
     """Component labels (cell-local smallest node index, int32) of every
     exported graph, computed on ``device`` and read back into pinned host
-    memory.  With ``mesh`` (``parallel/mesh.py``; the reference's
-    ``connected_components_batched(mesh=...)``, :122) the cells split
-    into contiguous ranges of about equal nodes and adjacency entries,
-    one a shard, each on its shard's device; labels are cell-local, so
-    they are those of one device."""
-    if mesh is None:
-        return _read_back(connected_components(*upload_csr(n_nodes, deg, nbrs, device))[0])
-    n_nodes = np.asarray(n_nodes, np.int64)
-    node_off = np.concatenate(([0], np.cumsum(n_nodes)))
-    entry_off = np.concatenate(([0], np.cumsum(deg)))[node_off]
-    cuts = _kernels.ranges(node_off + entry_off, mesh.size)
-    runs = [connected_components(*upload_csr(
-                n_nodes[a:b], deg[node_off[a]:node_off[b]],
-                nbrs[entry_off[a]:entry_off[b]], dev))[0]
-            for dev, a, b in zip(mesh.devices, cuts[:-1], cuts[1:]) if b > a]
-    return np.concatenate([_read_back(r) for r in runs] or [np.zeros(0, np.int32)])
+    memory."""
+    return _read_back(connected_components(*upload_csr(n_nodes, deg, nbrs, device))[0])
 
 
 def _read_back(labels: torch.Tensor) -> np.ndarray:

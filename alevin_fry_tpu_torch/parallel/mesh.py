@@ -2,21 +2,23 @@
 
 The reference's mesh is the devices of one JAX process (``make_mesh``
 over ``jax.devices()``); its programs are ``shard_map`` bodies whose
-collectives (a psum, an all-to-all) run between the chips.  Here a
-:class:`Mesh` is a tuple of ``torch.device`` shards that one process
-drives from one host thread, one shard after the other: launches are
-asynchronous, so the shards' work overlaps on their cards all the same.
-Shard ``s`` lies on ``cuda:{s % device count}``, so several shards may
-share a card (as the reference's tests put 8 virtual devices on one
-CPU); on the CPU every shard is the CPU.
+collectives run between the chips.  Here a :class:`Mesh` is a tuple of
+``torch.device`` shards that one process drives from one host thread,
+one shard after the other: launches are asynchronous, so the shards'
+work overlaps on their cards all the same.  Shard ``s`` lies on
+``cuda:{s % device count}``, so several shards may share a card (as the
+reference's tests put 8 virtual devices on one CPU); on the CPU every
+shard is the CPU.
 
-A collective is a copy between the shards' cards: ``Tensor.to`` is a
-peer copy over NVLink where two shards' cards differ and a copy on the
-card where they are the same.
-
-* psum: the partials are summed on shard 0, in shard order; they are
-  integers, so the sum is exact in any order;
-* all-to-all: each bin is copied to the shard that owns it.
+The stages call three programs on a mesh: gpl's barcode histogram
+(:func:`sharded_histogram`), ATAC gpl's genomic-bin histogram
+(:func:`sharded_bin_histogram`), both under ``AFT_GPL_MESH``, and the
+EM (``ops/em.py::em_cells(mesh=...)``, under ``AFT_EM_MESH``).  The one
+collective, a psum, sums the shards' integer partials on shard 0 in
+shard order, so the sum is exact in any order; each partial is a copy
+between the shards' cards: ``Tensor.to`` is a peer copy over NVLink
+where two shards' cards differ and a copy on the card where they are
+the same.
 
 ``MOVED_BYTES`` counts the bytes the collectives move from one shard to
 another: what NVLink carries where each shard has a card of its own
@@ -191,89 +193,3 @@ def sharded_bin_histogram(mesh: Mesh, idx: np.ndarray, n_bins: int) -> np.ndarra
             raise ValueError(f"a bin index lies past the {n_bins} bins")
         parts.append(cnt)
     return _psum(mesh, parts).cpu().numpy()
-
-
-def sharded_em_step(mesh: Mesh):
-    """One padded EM round with the cell batch split over the shards:
-    gather alpha over the labels, normalize by the class totals,
-    scatter-add (the inner loop of the reference's
-    ``em_cells_batched``).  The returned ``step(labels (B, E, L), lens
-    (B, E), counts (B, E), alphas (B, R + 1), R)`` takes arrays whose
-    label R pads, and returns the new (B, R + 1) float32 alphas on the
-    host, column R zero."""
-
-    def one(labels, lens, counts, alphas, R):
-        B, E, L = labels.shape
-        lmask = torch.arange(L, device=labels.device)[None, None, :] < lens[:, :, None]
-        ab = torch.gather(alphas, 1, labels.reshape(B, -1)).reshape(labels.shape)
-        ab = torch.where(lmask, ab, torch.zeros_like(ab))
-        denom = ab.sum(2)
-        single = lens == 1
-        multi = (lens > 0) & ~single
-        inv = torch.where((denom > 0) & multi, counts / torch.clamp(denom, min=1e-30),
-                          torch.zeros_like(denom))
-        contrib = torch.where(multi[:, :, None], ab * inv[:, :, None], torch.zeros_like(ab))
-        out = torch.zeros_like(alphas)
-        out.scatter_add_(1, torch.where(lmask, labels, R).reshape(B, -1), contrib.reshape(B, -1))
-        out.scatter_add_(1, torch.where(single, labels[:, :, 0], R),
-                         torch.where(single, counts, torch.zeros_like(counts)))
-        out[:, R] = 0
-        return out
-
-    def step(labels, lens, counts, alphas, R: int) -> np.ndarray:
-        arrays = [np.array(a) for a in (labels, lens, counts, alphas)]
-        cuts = _even(len(arrays[0]), mesh.size)
-        outs = []
-        for s, dev in enumerate(mesh.devices):
-            lab, ln, ct, al = (torch.from_numpy(np.ascontiguousarray(a[cuts[s]:cuts[s + 1]]))
-                               .to(dev) for a in arrays)
-            outs.append(one(lab.long(), ln.long(), ct.float(), al.float(), int(R)))
-        return np.concatenate([o.cpu().numpy() for o in outs])
-
-    return step
-
-
-def sharded_collate_shuffle(mesh: Mesh, ranks: np.ndarray, payload: np.ndarray, n_cells: int,
-                            capacity: int):
-    """The collate shuffle over the mesh (the reference's all-to-all):
-    shard ``s`` holds the ``s``-th of equal row ranges of (``ranks``,
-    ``payload``) (both in [0, 2**31), in file order) and owns the ranks
-    in ``[s * ceil(n_cells / S), (s + 1) * ...)`` (the last shard those
-    above too).  Each shard bins its rows by owner in row order, keeps
-    the first ``capacity`` rows of each bin and copies each bin to its
-    owner; each owner sorts what it received by (rank, payload).
-    Returns ``(ranks_out, payload_out, n_dropped)``: int32 arrays of
-    shape (S, S * capacity), row ``s`` shard ``s``'s rows, the empty
-    slots rank ``n_cells`` and payload 0 in their sorted place;
-    ``n_dropped`` counts the rows past a bin's capacity (a psum)."""
-    S, n, C = mesh.size, len(ranks), int(capacity)
-    if n % S:
-        raise ValueError(f"{n} rows do not split evenly over {S} shards")
-    cps = max(1, -(-n_cells // S))
-    per = n // S
-    words = (np.asarray(ranks, np.int64) << 32) | np.asarray(payload, np.int64)
-    inbox: List[list] = [[] for _ in range(S)]
-    drops = []
-    for s, dev in enumerate(mesh.devices):
-        w = torch.from_numpy(words[s * per:(s + 1) * per]).to(dev)
-        dest = torch.clamp((w >> 32) // cps, max=S - 1)
-        order = torch.argsort(dest, stable=True)
-        cnt = torch.bincount(dest, minlength=S)
-        keep = torch.clamp(cnt, max=C)
-        drops.append((cnt - keep).sum().view(1))
-        w = w[order]
-        start = 0
-        for o, (c, k) in enumerate(zip(cnt.tolist(), keep.tolist())):
-            part = w[start:start + k]
-            start += c
-            inbox[o].append(part if o == s else _moved(part, dev, mesh.devices[o]))
-    n_drop = int(_psum(mesh, drops).item())
-    r_out = np.empty((S, S * C), np.int32)
-    p_out = np.empty((S, S * C), np.int32)
-    for s, (dev, parts) in enumerate(zip(mesh.devices, inbox)):
-        fill = torch.full((S * C - sum(len(x) for x in parts),), n_cells << 32,
-                          dtype=torch.int64, device=dev)
-        w = torch.sort(torch.cat([*parts, fill])).values.cpu().numpy()
-        r_out[s] = w >> 32
-        p_out[s] = w & 0xFFFFFFFF
-    return r_out, p_out, n_drop

@@ -6,8 +6,9 @@ orientation drop, and reads left without alignments drop.  The
 surviving reads are ordered by cell rank (cells by descending read
 count, src/collate.rs:180-182) with a stable ``torch.sort`` on the
 chosen device.  The byte-level path then gathers whole records with
-the native codec; where that codec does not load, a columnar
-path decodes, reorders and re-encodes the records instead.
+the native codec; on a schema it refuses (no ref field, or a strand
+filter on a ref field other than 4 bytes wide), a columnar path
+decodes, reorders and re-encodes the records instead.
 
 When the records exceed ``--max-records`` the collation goes out of
 core (src/collate.rs:584-905): corrected records spill to buckets of
@@ -54,8 +55,8 @@ from ..radz import (
 from ..radz import _native
 from ..radz import unmapped as unmappedio
 from ..radz.chunkio import (
-    ReadBatch, _gather_uint, _walk_records_py, decode_all_chunks, encode_records,
-    iter_decoded_blocks, read_chunk_bodies, write_cell_chunks,
+    ReadBatch, decode_all_chunks, encode_records, iter_decoded_blocks, read_chunk_bodies,
+    write_cell_chunks,
 )
 from ..radz.records import RecordSchema
 from ..radz.snappyz import SnappyFrameReader, SnappyFrameWriter
@@ -73,26 +74,13 @@ log = get_logger("collate")
 COLLATE_BLOCK_RECORDS = 4_000_000
 
 
-def _lookup_map(keys_sorted: np.ndarray, vals: np.ndarray, query: np.ndarray):
-    """Map lookup -> (hit mask, mapped values); the native hash table
-    when available, binary search otherwise."""
-    if len(keys_sorted) == 0:
-        return np.zeros(len(query), bool), np.zeros(len(query), np.uint64)
-    if _native.available() and len(query) > 4096:
-        return _native.lookup_u64(keys_sorted, vals, query)
-    idx = np.searchsorted(keys_sorted, query)
-    idx_c = np.minimum(idx, len(keys_sorted) - 1)
-    hit = (idx < len(keys_sorted)) & (keys_sorted[idx_c] == query)
-    return hit, vals[idx_c]
-
-
 def correct_and_filter(
     batch: ReadBatch, map_keys: np.ndarray, map_vals: np.ndarray, expected_ori: str,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Correct barcodes and filter alignments by orientation ->
     (corrected barcode per read, kept-read mask, kept-alignment mask,
     alignment offsets of the kept reads)."""
-    hit, corrected = _lookup_map(map_keys, map_vals, batch.barcode())
+    hit, corrected = _native.lookup_u64(map_keys, map_vals, batch.barcode())
     keep_aln = aln_strand_mask(batch.dirs, expected_ori)
     n = batch.n_reads
     kept_per_read = (
@@ -189,8 +177,6 @@ def _collate_in_memory_native(
     pass.  Returns False when the schema is not eligible.  The ATAC
     collation (``expect_atac``, ``expected_ori='.'``) is the same
     gather keyed by barcode alone (atac/collate.rs:586-595)."""
-    if not _native.available():
-        return False
     with open(rad_dir / "map.rad", "rb") as fh:
         prelude, ftm, _ = read_prelude(fh)
         _check_record_type(prelude, ftm, expect_atac)
@@ -210,7 +196,7 @@ def _collate_in_memory_native(
         )
         n = len(rec_starts)
         spans.add("records", n)
-        bcs = _gather_uint(buf, rec_starts + 4 + bc_off, bc_width)
+        bcs = _native.gather_uint(buf, rec_starts + 4 + bc_off, bc_width)
         if ori_mode == 0:
             kept_per_read = num_aln
         else:
@@ -234,8 +220,8 @@ def _collate_in_memory_native(
         # below, so the entries leave the lookup (the columnar path never
         # looks them up)
         is_cell = cell_sorted[mpos] == map_vals
-        hit, rank = _lookup_map(map_keys[is_cell],
-                                sort_perm[mpos[is_cell]].astype(np.uint64), bcs)
+        hit, rank = _native.lookup_u64(map_keys[is_cell],
+                                       sort_perm[mpos[is_cell]].astype(np.uint64), bcs)
         kept_idx = np.flatnonzero(hit & (kept_per_read > 0))
         corrected = (
             cell_bcs[np.where(hit, rank, 0).astype(np.int64)]
@@ -355,15 +341,10 @@ def _gather_bucket_payload(rec_bytes, ranks, schema, n_cells, device):
     """One spill bucket's final bytes: its re-encoded records in stable
     cell-rank order (ordered on ``device``), an 8-byte chunk header in
     front of each cell.  Returns (bytes, number of chunks)."""
-    if _native.available():
-        rec_starts, num_aln = _native.walk_records(
-            rec_bytes, np.asarray([0], np.int64), np.asarray([len(ranks)], np.int64),
-            schema.read_bytes, schema.aln_bytes,
-        )
-    else:
-        rec_starts, num_aln = _walk_records_py(
-            rec_bytes, [0], [len(ranks)], schema.read_bytes, schema.aln_bytes,
-        )
+    rec_starts, num_aln = _native.walk_records(
+        rec_bytes, np.asarray([0], np.int64), np.asarray([len(ranks)], np.int64),
+        schema.read_bytes, schema.aln_bytes,
+    )
     sizes = 4 + schema.read_bytes + num_aln * schema.aln_bytes
     order, _per_cell = collation_order(ranks.astype(np.int64), n_cells, device)
     out_sizes = sizes[order]
@@ -376,13 +357,7 @@ def _gather_bucket_payload(rec_bytes, ranks, schema, n_cells, device):
     np.cumsum(out_sizes, out=dst[1:])
     rec_dst = dst[:-1] + 8 * np.cumsum(newc)
     out_buf = np.empty(int(dst[-1]) + 8 * len(starts), np.uint8)
-    if _native.available():
-        _native.gather_records(rec_bytes, rec_starts, sizes, order, rec_dst, out_buf)
-    else:
-        within = np.arange(int(dst[-1])) - np.repeat(dst[:-1], out_sizes)
-        out_buf[np.repeat(rec_dst, out_sizes) + within] = rec_bytes[
-            np.repeat(rec_starts[order], out_sizes) + within
-        ]
+    _native.gather_records(rec_bytes, rec_starts, sizes, order, rec_dst, out_buf)
     # chunk headers: [nbytes:u32][nrec:u32] in front of each cell
     hdr_pos = rec_dst[starts] - 8
     for field, off in (((dst[ends] - dst[starts] + 8), 0), ((ends - starts), 4)):
@@ -586,7 +561,7 @@ def _write_collate_sidecars(input_dir, rad_dir, map_keys, map_vals, compress_out
         cb = np.zeros(0, np.uint64)
         agg = np.zeros(0, np.uint64)
         if len(bcs_u):
-            hit, corr = _lookup_map(map_keys, map_vals, bcs_u)
+            hit, corr = _native.lookup_u64(map_keys, map_vals, bcs_u)
             cb, inv = np.unique(corr[hit], return_inverse=True)
             agg = np.zeros(len(cb), np.uint64)
             np.add.at(agg, inv, cts_u[hit].astype(np.uint64))

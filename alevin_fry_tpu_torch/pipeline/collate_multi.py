@@ -52,15 +52,14 @@ import torch
 from .. import spans
 from ..ops import barcodes as bcops
 from ..parallel import dist
-from ..radz import bincodeio, read_prelude
+from ..radz import _native, bincodeio, read_prelude
 from ..radz import unmapped as unmappedio
 from ..radz.chunkio import decode_all_chunks, iter_decoded_blocks
 from ..radz.collation import CollationManifest, SampleGroup
 from ..radz.records import RecordSchema
 from ..utils import aln_strand_mask, write_json
 from .collate import (
-    COLLATE_BLOCK_RECORDS, _gather_rank_buckets, _lookup_map, collation_order, spill_records,
-    write_collated,
+    COLLATE_BLOCK_RECORDS, _gather_rank_buckets, collation_order, spill_records, write_collated,
 )
 from .logging_ import get_logger
 from .progress import Progress
@@ -77,8 +76,8 @@ def _correct_block(batch, ctx):
     through the cell tiers (a ``tier`` span); no other read is kept."""
     with spans.span("map_lookup", "resolution"):
         # sample correction: each probe barcode straight to its dense sample
-        hit_s, sample_of = _lookup_map(ctx["sample_keys"], ctx["sample_of_key"],
-                                       batch.barcode(0))
+        hit_s, sample_of = _native.lookup_u64(ctx["sample_keys"], ctx["sample_of_key"],
+                                              batch.barcode(0))
         # orientation filter of the alignments
         keep_aln0 = aln_strand_mask(batch.dirs, ctx["expected_ori"])
         kept_per_read = (
@@ -113,7 +112,8 @@ def _tiers(cbc, reads, sample, ctx):
     kept cell one substitution away) and ``tier_dropped`` (the other
     queries)."""
     bits = np.uint64(ctx["cell_bc_bits"])
-    hit, rank = _lookup_map(ctx["tier_keys"], ctx["tier_ranks"], (sample << bits) | cbc[reads])
+    hit, rank = _native.lookup_u64(ctx["tier_keys"], ctx["tier_ranks"],
+                                   (sample << bits) | cbc[reads])
     if ctx["mode"] == "two-round" or len(reads) == 0:
         return reads[hit], rank[hit].astype(np.int64)
     spans.add("tier_exact", int(hit.sum()))
@@ -136,8 +136,8 @@ def _tiers(cbc, reads, sample, ctx):
             rescued_keys.append((np.uint64(sidx) << bits) | reps[good])
         rescued = np.concatenate(rescued)
         # each representative's composite cell gives the rank
-        found, r = _lookup_map(ctx["tier_keys"], ctx["tier_ranks"],
-                               np.concatenate(rescued_keys))
+        found, r = _native.lookup_u64(ctx["tier_keys"], ctx["tier_ranks"],
+                                      np.concatenate(rescued_keys))
         hit[rescued[found]] = True
         rank[rescued[found]] = r[found]
         spans.add("tier_queries", len(miss))
@@ -169,7 +169,7 @@ def _two_round_table(input_dir: Path, sample_names, cell_bc_bits: int, comp_sort
     first = np.ones(len(keys), bool)
     first[1:] = keys[1:] != keys[:-1]
     keys, vals = keys[first], vals[first]
-    found, rank = _lookup_map(comp_sorted, comp_rank, vals)
+    found, rank = _native.lookup_u64(comp_sorted, comp_rank, vals)
     return keys[found], rank[found]
 
 
@@ -232,8 +232,8 @@ def collate_multi_bc(input_dir: Path, rad_dir: Path, device: torch.device, max_r
         ord_lut[present] = np.arange(len(present))
         # each sample-permit-map key to the dense index of its sample
         sb_sorted_idx = np.argsort(sample_bcs, kind="stable")
-        known, sample_of_key = _lookup_map(sample_bcs[sb_sorted_idx],
-                                           sb_sorted_idx.astype(np.uint64), smv)
+        known, sample_of_key = _native.lookup_u64(sample_bcs[sb_sorted_idx],
+                                                  sb_sorted_idx.astype(np.uint64), smv)
 
     ctx = {
         "num_samples": num_samples, "cell_bc_len": cell_bc_len,

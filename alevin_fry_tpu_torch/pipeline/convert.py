@@ -5,10 +5,10 @@ Host and native code, as in the reference: the native scanner
 (``radc_bam_scan`` in csrc/libradc.so) walks the decompressed BAM
 records and returns NumPy columns (flag, ref id, 2-bit packed CR and UR,
 AS, whether the qname equals the previous kept record's); BGZF members
-inflate on the native thread pool (``radc_bgzf_inflate``).  Without the
-library a pure-Python scanner with the same contract reads a plain
-gzip stream.  SAM lines are parsed in Python into the same columns, so
-both inputs share one vectorized grouping and chunking engine.
+inflate on the native thread pool (``radc_bgzf_inflate``), and a BAM in
+plain gzip members decodes through ``gzip`` on one thread.  SAM lines
+are parsed in Python into the same columns, so both inputs share one
+vectorized grouping and chunking engine.
 
 Behaviour (the reference's):
 
@@ -62,10 +62,6 @@ BUF_LIMIT = 10_000  # reads a chunk
 AS_MISSING = np.int32(np.iinfo(np.int32).min)
 _SCAN_BUF = 1 << 22  # decompressed bytes a scan batch
 _SAM_BATCH = 1 << 16  # SAM lines a batch
-# the BAM aux value types that hold one number, as struct formats
-_AUX_NUMBER = {"c": "<b", "C": "<B", "s": "<h", "S": "<H", "i": "<i", "I": "<I", "f": "<f"}
-_COLUMNS = ("flags", "tid", "bc", "bclen", "bc_valid", "umi", "umilen", "umi_valid", "as",
-            "same_qname")
 
 
 def _pack_with_n(seq: str) -> Optional[int]:
@@ -75,87 +71,6 @@ def _pack_with_n(seq: str) -> Optional[int]:
     if "N" in s:
         return None
     return pack_seq(s)
-
-
-def _bam_scan_py(buf: bytes, qname_state: np.ndarray):
-    """The pure-Python scanner, with the native scanner's contract: the
-    same columns, the qname state carried in ``qname_state``, and the
-    bytes of the complete records consumed."""
-    pos, n = 0, len(buf)
-    recs: List[tuple] = []
-    prev_len = int(qname_state[:2].view(np.uint16)[0])
-    prev_q = qname_state[2:2 + prev_len].tobytes()
-    while pos + 4 <= n:
-        (block_size,) = struct.unpack_from("<I", buf, pos)
-        if block_size < 32:
-            raise ValueError("structurally invalid BAM record")
-        if pos + 4 + block_size > n:
-            break
-        r = buf[pos + 4:pos + 4 + block_size]
-        tid, _pos, l_qname, _mapq, _bin, n_cigar, flag, l_read = struct.unpack_from(
-            "<iiBBHHHi", r, 0)
-        off = 32 + l_qname + 4 * n_cigar + (l_read + 1) // 2 + l_read
-        if l_read < 0 or off > block_size:
-            raise ValueError("structurally invalid BAM record")
-        qname = r[32:32 + max(l_qname - 1, 0)]
-        same = qname == prev_q
-        if not flag & FLAG_SKIP:
-            prev_q = qname
-        cr, ur, as_score = _parse_bam_tags_py(r[off:])
-        b = _pack_with_n(cr) if cr is not None else None
-        u = _pack_with_n(ur) if ur is not None else None
-        recs.append((
-            flag, tid,
-            b or 0, len(cr) if cr is not None else -1, b is not None,
-            u or 0, len(ur) if ur is not None else -1, u is not None,
-            as_score if as_score is not None else int(AS_MISSING), same,
-        ))
-        pos += 4 + block_size
-    qname_state[:] = 0
-    qname_state[:2] = np.frombuffer(np.uint16(len(prev_q)).tobytes(), np.uint8)
-    qname_state[2:2 + len(prev_q)] = np.frombuffer(prev_q, np.uint8)
-    a = np.asarray(recs, object) if recs else np.zeros((0, len(_COLUMNS)), object)
-    dtypes = (np.uint16, np.int32, np.uint64, np.int32, bool, np.uint64, np.int32, bool,
-              np.int32, bool)
-    return {k: a[:, i].astype(t) for i, (k, t) in enumerate(zip(_COLUMNS, dtypes))}, pos
-
-
-def _parse_bam_tags_py(buf: bytes):
-    """CR and UR (strings) and AS (an integer) from a BAM record's aux
-    fields; an unknown value type ends the walk, as in the native
-    scanner."""
-    cr = ur = as_score = None
-    pos, n = 0, len(buf)
-    while pos + 3 <= n:
-        tag = buf[pos:pos + 2].decode("ascii", "replace")
-        vt = chr(buf[pos + 2])
-        pos += 3
-        if vt == "A":
-            val = chr(buf[pos])
-            pos += 1
-        elif vt in _AUX_NUMBER:
-            val = struct.unpack_from(_AUX_NUMBER[vt], buf, pos)[0]
-            pos += struct.calcsize(_AUX_NUMBER[vt])
-        elif vt in ("Z", "H"):
-            end = buf.index(b"\x00", pos)
-            val = buf[pos:end].decode("ascii", "replace")
-            pos = end + 1
-        elif vt == "B":
-            sub = chr(buf[pos])
-            cnt = struct.unpack_from("<i", buf, pos + 1)[0]
-            if cnt < 0:
-                raise ValueError("structurally invalid BAM record")
-            pos += 5 + cnt * struct.calcsize(_AUX_NUMBER[sub])
-            val = None
-        else:
-            break
-        if tag == "CR" and isinstance(val, str):
-            cr = val
-        elif tag == "UR" and isinstance(val, str):
-            ur = val
-        elif tag == "AS" and isinstance(val, int):
-            as_score = int(val)
-    return cr, ur, as_score
 
 
 class _BgzfReader:
@@ -252,23 +167,22 @@ class _BgzfReader:
 
 
 def _open_bam_stream(path: Path):
-    """The threaded BGZF reader when the native library is loaded and the
-    file is BGZF; a plain ``gzip`` stream otherwise (a BAM in one gzip
-    member decodes the same, on one thread)."""
+    """The threaded BGZF reader when the file is BGZF; a plain ``gzip``
+    stream otherwise (a BAM in one gzip member decodes the same, on one
+    thread)."""
     try:
         with open(path, "rb") as fh:
             head = fh.read(64)
     except OSError:
         head = b""
-    if native.available() and _BgzfReader.sniff(head):
+    if _BgzfReader.sniff(head):
         return _BgzfReader(path)
     return gzip.open(path, "rb")
 
 
 def iter_bam_columns(path: Path) -> Tuple[List[str], Iterator[dict]]:
     """The reference names and a generator of column batches of a BAM
-    file (the native scanner when the library is loaded, else the
-    Python one: the same columns)."""
+    file, from the native scanner."""
     fh = _open_bam_stream(path)
     if fh.read(4) != b"BAM\x01":
         fh.close()
@@ -283,7 +197,6 @@ def iter_bam_columns(path: Path) -> Tuple[List[str], Iterator[dict]]:
         fh.read(4)  # l_ref
 
     def gen():
-        scan = native.bam_scan if native.available() else _bam_scan_py
         qstate = np.zeros(258, np.uint8)
         carry = b""
         while True:
@@ -291,7 +204,7 @@ def iter_bam_columns(path: Path) -> Tuple[List[str], Iterator[dict]]:
             if not data:
                 break
             buf = carry + data
-            cols, consumed = scan(buf, qstate)
+            cols, consumed = native.bam_scan(buf, qstate)
             carry = buf[consumed:]
             if cols["flags"].size:
                 yield cols

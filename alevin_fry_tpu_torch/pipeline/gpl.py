@@ -43,7 +43,7 @@ from ..radz import (
     KnownRecordType, bincodeio, read_prelude, record_type_from_prelude,
 )
 from ..radz import _native
-from ..radz.chunkio import _gather_uint, iter_decoded_blocks, iter_raw_blocks
+from ..radz.chunkio import iter_decoded_blocks, iter_raw_blocks
 from ..radz.records import RecordSchema
 
 from .. import __version__, spans
@@ -124,14 +124,10 @@ def _serialize_opts(opts: GenPermitListOpts) -> dict:
 
 
 def _histogram(bcs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Sorted (barcode, count) histogram; native hash counting when
-    available."""
+    """Sorted (barcode, count) histogram, by native hash counting."""
     if len(bcs) == 0:
         return np.zeros(0, np.uint64), np.zeros(0, np.uint64)
-    if _native.available() and len(bcs) > 16384:
-        return _native.count_u64(bcs)
-    uniq, counts = np.unique(bcs, return_counts=True)
-    return uniq, counts.astype(np.uint64)
+    return _native.count_u64(bcs)
 
 
 def _merge_histograms(a_bc, a_ct, b_bc, b_ct):
@@ -153,14 +149,14 @@ def _merge_histograms(a_bc, a_ct, b_bc, b_ct):
 def _iter_block_barcodes(fh, schema, num_chunks, strand, chunk_range=None):
     """Yield (barcodes u64, strand-compatible mask, alignments per read)
     per streamed block of the chunks ``chunk_range`` (all when None):
-    byte-level through the native codec, else through the columnar
-    decoder."""
+    byte-level, else (a strand filter on a ref field other than 4 bytes
+    wide) through the columnar decoder."""
     ori_mode = {STRAND_BOTH: 0, STRAND_FW: 1}.get(strand, 2)
     ref_width = (
         dict(schema.aln_fields).get(schema.ref_field)
         if schema.ref_field is not None else None
     )
-    if _native.available() and (ori_mode == 0 or ref_width == 4):
+    if ori_mode == 0 or ref_width == 4:
         bc_off, bc_width, ref_off = record_layout(schema)
         for buf, region_starts, chunk_recs in iter_raw_blocks(
             fh, num_chunks, GPL_BLOCK_RECORDS, prefetch=True, chunk_range=chunk_range,
@@ -170,7 +166,7 @@ def _iter_block_barcodes(fh, schema, num_chunks, strand, chunk_range=None):
                     buf, region_starts, chunk_recs, schema.read_bytes, schema.aln_bytes,
                 )
                 spans.add("records", len(rec_starts))
-                bcs = _gather_uint(buf, rec_starts + 4 + bc_off, bc_width)
+                bcs = _native.gather_uint(buf, rec_starts + 4 + bc_off, bc_width)
                 if ori_mode == 0:
                     compat = num_aln > 0
                 else:

@@ -39,11 +39,10 @@ from .. import spans
 from ..ops import barcodes as bcops
 from ..ops.knee import get_knee
 from ..parallel import dist
-from ..radz import bincodeio
+from ..radz import _native, bincodeio
 from ..utils import (
     read_barcode_file, read_strand_mask, sorted_unique, strand_from_ori_arg, write_json,
 )
-from .collate import _lookup_map
 from .gpl import _histogram, _merge_histograms, merge_rank_histograms
 from .logging_ import get_logger
 
@@ -152,7 +151,7 @@ def do_generate_permit_list_multi_bc(opts, block_iter, info: dict) -> int:
                 total_reads += batch.n_reads
                 sbc = batch.barcode(0)[compat]
                 cbc = batch.barcode(-1)[compat]
-                known, code = _lookup_map(sk, sv, sbc)
+                known, code = _native.lookup_u64(sk, sv, sbc)
                 code = code[known]
                 n_known = len(code)
                 n_exact = int(np.count_nonzero(code & np.uint64(1)))

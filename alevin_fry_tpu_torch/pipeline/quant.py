@@ -55,7 +55,7 @@ from __future__ import annotations
 import gzip
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -838,13 +838,7 @@ def _write_eqc_counts(eqc: Optional[tuple], n_cells: int, num_rows: int, usa_mod
     rows, lens, labels, counts = eqc
     offs = np.zeros(len(lens) + 1, np.int64)
     np.cumsum(lens, out=offs[1:])
-    if _native.available():
-        ids, rep = _native.intern_label_sets(labels.astype(np.uint64), offs)
-    else:
-        first_id: Dict[bytes, int] = {}
-        ids = np.array([first_id.setdefault(labels[offs[i]:offs[i + 1]].tobytes(), len(first_id))
-                        for i in range(len(lens))], np.int64)
-        rep = np.unique(ids, return_index=True)[1] if len(ids) else np.zeros(0, np.int64)
+    ids, rep = _native.intern_label_sets(labels.astype(np.uint64), offs)
     write_matrix_market(mat_path / "geqc_counts.mtx", rows, ids, counts.astype(np.float32),
                         (n_cells, len(rep)))
 
@@ -857,13 +851,7 @@ def _write_eqc_counts(eqc: Optional[tuple], n_cells: int, num_rows: int, usa_mod
     if usa_mode:
         # written with the USA relabelling (src/quant.rs:286-338)
         new_off, tok = crlike.usa_transform_labels(rep_off, tok, num_rows)
-    if _native.available():
-        body = _native.format_eqc_rows(tok.astype(np.uint64), new_off)
-    else:
-        body = "".join(
-            "\t".join(str(int(t)) for t in tok[new_off[i]:new_off[i + 1]]) + f"\t{i}\n"
-            for i in range(len(rep))
-        ).encode()
+    body = _native.format_eqc_rows(tok.astype(np.uint64), new_off)
     # mtime=0: the file's bytes do not depend on when it was written
     with open(mat_path / "gene_eqclass.txt.gz", "wb") as raw:
         with gzip.GzipFile(fileobj=raw, mode="wb", mtime=0) as fh:

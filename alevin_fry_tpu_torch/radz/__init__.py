@@ -7,8 +7,9 @@ pipeline stages (permit_freq.bin / permit_map.bin / bincode maps /
 unmapped counts) and the MatrixMarket output, and writes convert's RAD
 files (:class:`RadWriter`), byte for byte as the
 reference package's codec does.  It is host code (NumPy plus the
-ctypes-bound ``csrc/libradc.so``, with a pure-NumPy fallback) and
-imports neither torch nor JAX.
+ctypes-bound ``csrc/libradc.so``, which it requires: ``_native.load``
+raises when the library does not open) and imports neither torch nor
+JAX.
 
 Decoding produces *columnar* NumPy arrays (one array per field, with a
 CSR alignment offset array) rather than per-record objects, so the

@@ -4,9 +4,10 @@ from ``csrc/radc.cpp`` with ``make -C csrc``).
 The only inherently sequential part of RAD decoding is walking the
 variable-length record boundaries (each record's size depends on its
 ``num_aln`` field).  That walk, field extraction, the collated emit and
-the text formatting of the outputs run here in C++; the callers keep a
-pure-NumPy path for when the library does not load.  Only the entry
-points the port calls are bound.
+the text formatting of the outputs run here in C++.  The library is
+required: the port has no other path for these operations, and
+:func:`load` raises ``RuntimeError`` when it does not open.  Only the
+entry points the port calls are bound.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ from pathlib import Path
 import numpy as np
 
 _LIB = None
-_TRIED = False
 
 
 def _find_lib():
@@ -52,14 +52,16 @@ def _open(path: str) -> ctypes.CDLL:
     return ctypes.CDLL(path)
 
 
-def _load():
-    global _LIB, _TRIED
-    if _TRIED:
+def load() -> ctypes.CDLL:
+    """The bound library, opened on the first call; raises
+    ``RuntimeError`` naming the file when it does not load."""
+    global _LIB
+    if _LIB is not None:
         return _LIB
-    _TRIED = True
     path = _find_lib()
     if path is None:
-        return None
+        raise RuntimeError("the native RAD codec csrc/libradc.so was not found "
+                           "(nor AFT_RADC_LIB); the port cannot run without it")
     try:
         lib = _open(path)
         lib.radc_walk_records.restype = ctypes.c_int64
@@ -251,14 +253,11 @@ def _load():
             ctypes.c_void_p, ctypes.c_int64,   # in, len
             ctypes.c_void_p, ctypes.c_int64,   # out, out_cap
         ]
-        _LIB = lib
-    except OSError:
-        _LIB = None
-    return _LIB
-
-
-def available() -> bool:
-    return _load() is not None
+    except OSError as err:
+        raise RuntimeError(f"the native RAD codec csrc/libradc.so did not load "
+                           f"from {path}: {err}") from err
+    _LIB = lib
+    return lib
 
 
 def walk_records(
@@ -268,7 +267,7 @@ def walk_records(
     read_bytes: int,
     aln_bytes: int,
 ):
-    lib = _load()
+    lib = load()
     total = int(region_counts.sum())
     rec_starts = np.empty(total, np.int64)
     num_aln = np.empty(total, np.int64)
@@ -304,7 +303,7 @@ def ori_counts(
 ) -> np.ndarray:
     """Per-record surviving-alignment counts under the orientation
     filter (ori_mode 1=fw, 2=rc)."""
-    lib = _load()
+    lib = load()
     n = len(rec_starts)
     kept = np.empty(n, np.int64)
     buf = np.ascontiguousarray(buf)
@@ -334,7 +333,7 @@ def set_threads(n: int) -> None:
 
 def gather_uint(buf: np.ndarray, starts: np.ndarray, width: int) -> np.ndarray:
     """Gather little-endian uints of ``width`` bytes at ``starts``."""
-    lib = _load()
+    lib = load()
     buf = np.ascontiguousarray(buf)
     starts = np.ascontiguousarray(starts, np.int64)
     out = np.empty(len(starts), np.uint64)
@@ -350,7 +349,7 @@ def gather_uint(buf: np.ndarray, starts: np.ndarray, width: int) -> np.ndarray:
 def sort_u64_segments(keys: np.ndarray, seg_offsets: np.ndarray) -> np.ndarray:
     """Sort u64 ``keys`` in place within each ``[seg_offsets[i],
     seg_offsets[i+1])`` segment (threaded).  Returns ``keys``."""
-    lib = _load()
+    lib = load()
     keys = np.ascontiguousarray(keys, np.uint64)
     seg_offsets = np.ascontiguousarray(seg_offsets, np.int64)
     lib.radc_sort_u64_segments(
@@ -363,7 +362,7 @@ def sort_rle_u64_segments(keys: np.ndarray, seg_offsets: np.ndarray):
     """Fused per-segment sort + run-length encode (threaded).
     Returns (uniq[u64], counts[int64]) over all segments in order.
     ``keys`` is sorted in place as a side effect."""
-    lib = _load()
+    lib = load()
     keys = np.ascontiguousarray(keys, np.uint64)
     seg_offsets = np.ascontiguousarray(seg_offsets, np.int64)
     n = len(keys)
@@ -391,7 +390,7 @@ def sort_rle_u64_segments(keys: np.ndarray, seg_offsets: np.ndarray):
 
 def count_u64(keys: np.ndarray, cap_hint: int = 0):
     """Hash-based distinct counting.  Returns (uniq sorted, counts)."""
-    lib = _load()
+    lib = load()
     keys = np.ascontiguousarray(keys, np.uint64)
     n = len(keys)
     cap = int(cap_hint) if cap_hint else n
@@ -422,7 +421,7 @@ def collate_emit2(
 ) -> np.ndarray:
     """Threaded byte-level collated emit over precomputed per-chunk
     record ranges and output offsets.  Returns the output byte buffer."""
-    lib = _load()
+    lib = load()
     out_cap = int(out_offsets[-1])
     out = np.empty(out_cap, np.uint8)
     buf = np.ascontiguousarray(buf)
@@ -459,7 +458,7 @@ def extract_fields2(
     ``read_keep``/``aln_keep`` are optional per-field booleans; skipped
     fields come back as None (no memory traffic spent on them).
     Returns (read_cols list, aln_cols list)."""
-    lib = _load()
+    lib = load()
     n = len(rec_starts)
     num_aln = np.ascontiguousarray(num_aln, np.int64)
     aln_offs = np.zeros(n + 1, np.int64)
@@ -488,7 +487,7 @@ def extract_fields2(
 
 def lookup_u64(keys: np.ndarray, vals: np.ndarray, queries: np.ndarray):
     """Batched u64 hash-map lookup.  Returns (hit[bool], mapped[u64])."""
-    lib = _load()
+    lib = load()
     keys = np.ascontiguousarray(keys, np.uint64)
     vals = np.ascontiguousarray(vals, np.uint64)
     queries = np.ascontiguousarray(queries, np.uint64)
@@ -505,7 +504,7 @@ def lookup_u64(keys: np.ndarray, vals: np.ndarray, queries: np.ndarray):
 def format_f32(vals: np.ndarray) -> list:
     """Format f32 values Rust-Display-style (shortest round-trip,
     positional). Returns a list of str, one per value."""
-    lib = _load()
+    lib = load()
     vals = np.ascontiguousarray(vals, np.float32)
     n = len(vals)
     if n == 0:
@@ -519,7 +518,7 @@ def scan_names(buf: np.ndarray, count: int):
     """Scan a [len:u16|utf8]*count name region.  Returns
     (region_nbytes, starts[int64 count+1]) or (-1, starts) when the
     buffer ends mid-region (read more and retry)."""
-    lib = _load()
+    lib = load()
     starts = np.empty(count + 1, np.int64)
     n = lib.radc_scan_names(
         buf.ctypes.data, len(buf), count, starts.ctypes.data
@@ -529,7 +528,7 @@ def scan_names(buf: np.ndarray, count: int):
 
 def format_triplets(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray) -> bytes:
     """Format integer COO triplets as 'r c v\\n' lines natively."""
-    lib = _load()
+    lib = load()
     rows = np.ascontiguousarray(rows, np.int64)
     cols = np.ascontiguousarray(cols, np.int64)
     vals = np.ascontiguousarray(vals, np.int64)
@@ -545,8 +544,8 @@ def format_triplets(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray) -> byt
 def format_triplets_f32(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray) -> bytes:
     """Format f32 COO triplets as 'r c v\\n' lines natively: values that
     are exact integers print as integers, the rest as Rust's Display
-    prints an f32 (the bytes of the NumPy path in radz/mtx.py)."""
-    lib = _load()
+    prints an f32."""
+    lib = load()
     rows = np.ascontiguousarray(rows, np.int64)
     cols = np.ascontiguousarray(cols, np.int64)
     vals = np.ascontiguousarray(vals, np.float32)
@@ -561,7 +560,7 @@ def format_triplets_f32(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray) ->
 def intern_label_sets(labels: np.ndarray, offsets: np.ndarray):
     """Number variable-length u64 label sets in order of first
     appearance.  Returns (id per set, index of each id's first set)."""
-    lib = _load()
+    lib = load()
     labels = np.ascontiguousarray(labels, np.uint64)
     offsets = np.ascontiguousarray(offsets, np.int64)
     n_sets = len(offsets) - 1
@@ -575,7 +574,7 @@ def intern_label_sets(labels: np.ndarray, offsets: np.ndarray):
 
 def format_eqc_rows(vals: np.ndarray, offsets: np.ndarray) -> bytes:
     """Render one '<v0>\\t<v1>...\\t<row>\\n' line per offsets segment."""
-    lib = _load()
+    lib = load()
     vals = np.ascontiguousarray(vals, np.uint64)
     offsets = np.ascontiguousarray(offsets, np.int64)
     n_rows = len(offsets) - 1
@@ -597,7 +596,7 @@ def pug_graph_build(
     adjacency.  Returns (handle, nodes per cell [int64], degree per node
     [int64], neighbours [int32, cell-local ids]); the handle goes to
     :func:`pug_cover`, then to :func:`pug_free`."""
-    lib = _load()
+    lib = load()
     cell_read_offsets = np.ascontiguousarray(cell_read_offsets, np.int64)
     umi = np.ascontiguousarray(umi, np.uint64)
     refs = np.ascontiguousarray(refs, np.uint32)
@@ -634,7 +633,7 @@ def pug_cover(
     greedy cover, or the cr-like fallback for a component larger than
     ``large_thresh``.  Returns (classes per cell, whether each cell took
     the fallback, class counts, class label lengths, flat labels)."""
-    lib = _load()
+    lib = load()
     cell_read_offsets = np.ascontiguousarray(cell_read_offsets, np.int64)
     aln_offsets = np.ascontiguousarray(aln_offsets, np.int64)
     tid_to_gid = np.ascontiguousarray(tid_to_gid, np.uint32)
@@ -678,7 +677,7 @@ def pug_cover(
 
 
 def pug_free(handle) -> None:
-    _load().radc_pug_free(handle)
+    load().radc_pug_free(handle)
 
 
 def encode_records_native(
@@ -691,7 +690,7 @@ def encode_records_native(
     aln_cols,
 ) -> None:
     """Encode columnar records into ``out_buf`` at ``rec_starts``."""
-    lib = _load()
+    lib = load()
     rw = np.asarray(read_widths, np.int64)
     aw = np.asarray(aln_widths, np.int64)
     rec_starts = np.ascontiguousarray(rec_starts, np.int64)
@@ -713,7 +712,7 @@ def format_bed(
 ) -> bytes:
     """Render ``chr\tstart\tend\tbarcode\tcount`` BED rows natively;
     ``ref_names`` is a sequence of str."""
-    lib = _load()
+    lib = load()
     encoded = [s.encode() for s in ref_names]
     name_offs = np.zeros(len(encoded) + 1, np.int64)
     np.cumsum([len(s) for s in encoded], out=name_offs[1:])
@@ -742,7 +741,7 @@ def gather_records(
 ) -> None:
     """``out[dst_off[i]:][:sizes[order[i]]]`` = the bytes of record
     ``order[i]`` (threaded memcpy gather)."""
-    lib = _load()
+    lib = load()
     # locals keep every converted buffer alive through the call
     buf = np.ascontiguousarray(buf, np.uint8)
     rec_starts = np.ascontiguousarray(rec_starts, np.int64)
@@ -763,7 +762,7 @@ def _bytes_view(data) -> np.ndarray:
 
 def crc32c(data, init: int = 0) -> int:
     """CRC-32C (Castagnoli) of a byte buffer."""
-    lib = _load()
+    lib = load()
     arr = _bytes_view(data)
     return int(lib.radc_crc32c(arr.ctypes.data, arr.nbytes, init))
 
@@ -771,7 +770,7 @@ def crc32c(data, init: int = 0) -> int:
 def snappy_compress(data) -> bytes:
     """One snappy block of ``data`` (the framing splits the stream into
     chunks of at most 64 KiB)."""
-    lib = _load()
+    lib = load()
     arr = _bytes_view(data)
     out = np.empty(int(lib.radc_snappy_max_compressed(arr.nbytes)), np.uint8)
     n = lib.radc_snappy_compress(arr.ctypes.data, arr.nbytes, out.ctypes.data)
@@ -780,7 +779,7 @@ def snappy_compress(data) -> bytes:
 
 def snappy_uncompress(data, max_out: int) -> bytes:
     """Decode one snappy block of at most ``max_out`` bytes."""
-    lib = _load()
+    lib = load()
     arr = _bytes_view(data)
     out = np.empty(max_out, np.uint8)
     n = lib.radc_snappy_uncompress(arr.ctypes.data, arr.nbytes, out.ctypes.data, max_out)
@@ -795,7 +794,7 @@ def bgzf_inflate(buf: np.ndarray, offs: np.ndarray, lens: np.ndarray, out_offs: 
     into ``out[out_offs[i]:][:isizes[i]]``) on the thread pool, checking
     each member's size and CRC32 trailer; raises ValueError on a corrupt
     member."""
-    lib = _load()
+    lib = load()
     crcs = np.ascontiguousarray(crcs, np.uint32)
     rc = lib.radc_bgzf_inflate(
         np.ascontiguousarray(buf, np.uint8).ctypes.data,
@@ -814,7 +813,7 @@ def bam_scan(buf, qname_state: np.ndarray):
     bytes consumed).  ``qname_state`` (258 bytes, zero before the first
     call) carries the last kept record's qname from call to call.
     Raises ValueError on a structurally invalid record."""
-    lib = _load()
+    lib = load()
     arr = np.ascontiguousarray(np.frombuffer(buf, np.uint8))
     n_max = arr.nbytes // 36 + 1  # a record takes at least 36 bytes
     cols = {

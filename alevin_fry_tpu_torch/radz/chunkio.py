@@ -9,9 +9,9 @@ plus a CSR offset array for the ragged alignment lists.  This is the
 boundary between the host-side byte format and the device array programs —
 everything downstream operates on these columns.
 
-The per-record offset walk (the only sequential part) runs in native C++
-(csrc/radc.cpp) when available; field extraction is vectorized NumPy
-byte-gathering either way.
+The per-record offset walk (the only sequential part), the field
+extraction and the encode run in the native codec (csrc/radc.cpp,
+``_native.py``).
 """
 
 from __future__ import annotations
@@ -101,60 +101,11 @@ class ReadBatch:
                 break
             off += w
         assert width is not None, name
-        return _gather_uint(self.raw_buf, self.rec_starts[idx] + off, width)
+        return _native.gather_uint(self.raw_buf, self.rec_starts[idx] + off, width)
 
     @property
     def umi(self) -> np.ndarray:
         return self.read_cols[self.schema.umi_field]
-
-
-def _gather_uint(buf: np.ndarray, starts: np.ndarray, width: int) -> np.ndarray:
-    """Gather little-endian unsigned ints of ``width`` bytes starting at
-    ``starts`` from a uint8 buffer (native single pass when available)."""
-    if _native.available() and len(starts) > 16384:
-        return _native.gather_uint(buf, starts, width)
-    out = np.zeros(len(starts), dtype=np.uint64)
-    for k in range(width):
-        out |= buf[starts + k].astype(np.uint64) << np.uint64(8 * k)
-    return out
-
-
-def _scatter_uint(
-    buf: np.ndarray, starts: np.ndarray, width: int, values: np.ndarray
-) -> None:
-    v = values.astype(np.uint64)
-    for k in range(width):
-        buf[starts + k] = ((v >> np.uint64(8 * k)) & np.uint64(0xFF)).astype(np.uint8)
-
-
-def _walk_records_py(
-    buf: np.ndarray, rec_region_starts: List[int], rec_region_counts: List[int],
-    read_bytes: int, aln_bytes: int
-):
-    """Pure-Python fallback for the sequential record-offset walk.
-
-    Returns (rec_starts[int64], num_aln[int64]) over all chunks."""
-    total = int(sum(rec_region_counts))
-    rec_starts = np.empty(total, np.int64)
-    num_aln = np.empty(total, np.int64)
-    mv = buf  # uint8 ndarray
-    i = 0
-    u32 = np.uint32
-    del u32
-    for start, count in zip(rec_region_starts, rec_region_counts):
-        off = start
-        for _ in range(count):
-            na = int(
-                mv[off]
-                | (int(mv[off + 1]) << 8)
-                | (int(mv[off + 2]) << 16)
-                | (int(mv[off + 3]) << 24)
-            )
-            rec_starts[i] = off
-            num_aln[i] = na
-            off += 4 + read_bytes + na * aln_bytes
-            i += 1
-    return rec_starts, num_aln
 
 
 def _read_chunks(fh: BinaryIO, num_chunks: int | None) -> tuple[List[bytes], List[int]]:
@@ -371,58 +322,31 @@ def _decode_bodies(chunk_bufs, chunk_recs, schema, skip_read_fields, want_dirs,
                    first_chunk) -> ReadBatch:
     buf, region_starts = _join_regions(chunk_bufs)
 
-    rb, ab = schema.read_bytes, schema.aln_bytes
-    if _native.available():
-        rec_starts, num_aln = _native.walk_records(
-            buf, region_starts, np.asarray(chunk_recs, np.int64), rb, ab,
-        )
-    else:
-        rec_starts, num_aln = _walk_records_py(buf, region_starts, chunk_recs, rb, ab)
+    rec_starts, num_aln = _native.walk_records(
+        buf, region_starts, np.asarray(chunk_recs, np.int64), schema.read_bytes,
+        schema.aln_bytes,
+    )
 
     batch = ReadBatch(schema=schema)
     aln_offsets = np.zeros(len(rec_starts) + 1, np.int64)
     np.cumsum(num_aln, out=aln_offsets[1:])
-    total_aln = int(aln_offsets[-1])
 
-    if _native.available():
-        read_cols, aln_cols = _native.extract_fields2(
-            buf, rec_starts, num_aln,
-            [w for _, w in schema.read_fields],
-            [w for _, w in schema.aln_fields],
-            read_keep=[n not in skip_read_fields for n, _ in schema.read_fields],
-        )
-        for (name, _w), col in zip(schema.read_fields, read_cols):
-            if col is not None:
-                batch.read_cols[name] = col
-        for (name, _w), col in zip(schema.aln_fields, aln_cols):
-            if name == schema.ref_field:
-                if want_dirs:
-                    batch.dirs = (col & np.uint64(ORI_BIT_U32)) != 0
-                batch.refs = (col & np.uint64(REF_ID_MASK_U32)).astype(np.uint32)
-            else:
-                batch.aln_cols[name] = col
-    else:
-        # read-level fields
-        off = 4
-        for name, w in schema.read_fields:
-            if name not in skip_read_fields:
-                batch.read_cols[name] = _gather_uint(buf, rec_starts + off, w)
-            off += w
-        # flat start offset of each alignment entry
-        aln_base = np.repeat(rec_starts + 4 + rb, num_aln) + (
-            np.arange(total_aln, dtype=np.int64)
-            - np.repeat(aln_offsets[:-1], num_aln)
-        ) * ab
-        foff = 0
-        for name, w in schema.aln_fields:
-            col = _gather_uint(buf, aln_base + foff, w)
-            foff += w
-            if name == schema.ref_field:
-                if want_dirs:
-                    batch.dirs = (col & np.uint64(ORI_BIT_U32)) != 0
-                batch.refs = (col & np.uint64(REF_ID_MASK_U32)).astype(np.uint32)
-            else:
-                batch.aln_cols[name] = col
+    read_cols, aln_cols = _native.extract_fields2(
+        buf, rec_starts, num_aln,
+        [w for _, w in schema.read_fields],
+        [w for _, w in schema.aln_fields],
+        read_keep=[n not in skip_read_fields for n, _ in schema.read_fields],
+    )
+    for (name, _w), col in zip(schema.read_fields, read_cols):
+        if col is not None:
+            batch.read_cols[name] = col
+    for (name, _w), col in zip(schema.aln_fields, aln_cols):
+        if name == schema.ref_field:
+            if want_dirs:
+                batch.dirs = (col & np.uint64(ORI_BIT_U32)) != 0
+            batch.refs = (col & np.uint64(REF_ID_MASK_U32)).astype(np.uint32)
+        else:
+            batch.aln_cols[name] = col
     batch.aln_offsets = aln_offsets
     if skip_read_fields:
         batch.raw_buf = buf
@@ -447,7 +371,7 @@ def encode_records(
     dirs: np.ndarray | None,
     aln_cols: Dict[str, np.ndarray],
 ) -> np.ndarray:
-    """Vectorized encode of records (no chunk header) to a byte buffer."""
+    """Encode records (no chunk header) to a byte buffer."""
     n = len(aln_offsets) - 1
     num_aln = np.diff(aln_offsets)
     rb, ab = schema.read_bytes, schema.aln_bytes
@@ -458,45 +382,19 @@ def encode_records(
     buf = np.zeros(total, np.uint8)
     rec_starts = rec_starts[:-1]
 
-    if _native.available():
-        rcols = [read_cols[name] for name, _ in schema.read_fields]
-        acols = []
-        for name, _w in schema.aln_fields:
-            if name == schema.ref_field:
-                acols.append(
-                    refs.astype(np.uint64)
-                    | (dirs.astype(np.uint64) << np.uint64(31))
-                )
-            else:
-                acols.append(aln_cols[name])
-        _native.encode_records_native(
-            buf, rec_starts, num_aln,
-            [w for _, w in schema.read_fields],
-            [w for _, w in schema.aln_fields],
-            rcols, acols,
-        )
-        return buf
-
-    _scatter_uint(buf, rec_starts, 4, num_aln.astype(np.uint64))
-    off = 4
-    for name, w in schema.read_fields:
-        _scatter_uint(buf, rec_starts + off, w, read_cols[name])
-        off += w
-
-    total_aln = int(aln_offsets[-1])
-    aln_base = np.repeat(rec_starts + 4 + rb, num_aln) + (
-        np.arange(total_aln, dtype=np.int64) - np.repeat(aln_offsets[:-1], num_aln)
-    ) * ab
-    foff = 0
-    for name, w in schema.aln_fields:
+    rcols = [read_cols[name] for name, _ in schema.read_fields]
+    acols = []
+    for name, _w in schema.aln_fields:
         if name == schema.ref_field:
-            col = refs.astype(np.uint64) | (
-                dirs.astype(np.uint64) << np.uint64(31)
-            )
+            acols.append(refs.astype(np.uint64) | (dirs.astype(np.uint64) << np.uint64(31)))
         else:
-            col = aln_cols[name].astype(np.uint64)
-        _scatter_uint(buf, aln_base + foff, w, col)
-        foff += w
+            acols.append(aln_cols[name])
+    _native.encode_records_native(
+        buf, rec_starts, num_aln,
+        [w for _, w in schema.read_fields],
+        [w for _, w in schema.aln_fields],
+        rcols, acols,
+    )
     return buf
 
 

@@ -112,7 +112,7 @@ class RadHeader:
     def from_bytes(cls, fh: BinaryIO) -> "RadHeader":
         (is_paired,) = struct.unpack("<B", fh.read(1))
         (ref_count,) = struct.unpack("<Q", fh.read(8))
-        if _native.available() and ref_count:
+        if ref_count:
             # native boundary scan over bulk reads; names stay an
             # undecoded lazy blob until a stage actually needs them
             buf = b""
@@ -134,32 +134,7 @@ class RadHeader:
             hdr = cls(is_paired, names, 0)
             hdr._names_blob = buf[:n]
         else:
-            # pure-Python fallback: slurp the name region through an
-            # in-memory buffer (bulk reads, seek back past any over-read)
-            # instead of 2 tiny reads per name
-            buf = b""
-            pos = 0
-            names = []
-            for _ in range(ref_count):
-                while len(buf) - pos < 2:
-                    chunk = fh.read(1 << 18)
-                    if not chunk:
-                        raise EOFError("truncated RAD header")
-                    buf = buf[pos:] + chunk
-                    pos = 0
-                nlen = buf[pos] | (buf[pos + 1] << 8)
-                need = 2 + nlen
-                while len(buf) - pos < need:
-                    chunk = fh.read(1 << 18)
-                    if not chunk:
-                        raise EOFError("truncated RAD header")
-                    buf = buf[pos:] + chunk
-                    pos = 0
-                names.append(buf[pos + 2 : pos + need].decode("utf-8"))
-                pos += need
-            if len(buf) - pos:
-                fh.seek(-(len(buf) - pos), 1)
-            hdr = cls(is_paired, names, 0)
+            hdr = cls(is_paired, [], 0)
         (num_chunks,) = struct.unpack("<Q", fh.read(8))
         hdr.num_chunks = num_chunks
         return hdr

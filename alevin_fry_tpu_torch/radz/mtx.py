@@ -14,25 +14,13 @@ from typing import Tuple
 
 import numpy as np
 
-
-def rust_f32_str(x: float) -> str:
-    """Format an f32 the way Rust's ``Display`` does (shortest decimal
-    that round-trips, positional notation, NaN/inf spelled Rust-style)."""
-    v = np.float32(x)
-    if np.isnan(v):
-        return "NaN"
-    if np.isinf(v):
-        return "inf" if v > 0 else "-inf"
-    return np.format_float_positional(v, unique=True, trim="-")
+from . import _native
 
 
 def format_f32_list(vals: np.ndarray) -> list:
-    """Bulk Rust-Display f32 formatting (native when available)."""
-    from . import _native
-
-    if _native.available():
-        return _native.format_f32(np.asarray(vals, np.float32))
-    return [rust_f32_str(v) for v in np.asarray(vals, np.float32)]
+    """Format f32 values as Rust's ``Display`` does (shortest decimal
+    that round-trips, positional notation), one str each."""
+    return _native.format_f32(np.asarray(vals, np.float32))
 
 
 MTX_HEADER = (
@@ -49,39 +37,12 @@ def format_mtx_body(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray) -> byt
     rows = np.asarray(rows)
     cols = np.asarray(cols)
     vals = np.asarray(vals, np.float32)
-    # bulk formatting: integral values (the common case for count
-    # matrices) go through a fast vectorized integer path
     ivals = vals.astype(np.int64)
-    is_int = (vals == ivals) & np.isfinite(vals)
-    if is_int.all():
-        # pure-integer matrix: native C formatting
-        from . import _native
-
-        if _native.available():
-            return _native.format_triplets(rows + 1, cols + 1, ivals)
-        import pandas as pd
-
-        buf = pd.DataFrame(
-            {"r": rows + 1, "c": cols + 1, "v": ivals}
-        ).to_csv(sep=" ", header=False, index=False, lineterminator="\n")
-        return buf.encode()
-    # mixed int/float values (EM outputs): one native pass formats the
-    # whole body — the numpy char.mod/char.add chain below measured 8 s
-    # per 10M-read cr-like-em quant (r5 profile), ~25% of the stage
-    from . import _native
-
-    if _native.available():
-        return _native.format_triplets_f32(rows + 1, cols + 1, vals)
-    vstr = np.char.mod("%d", ivals).astype(object)
-    ni = np.flatnonzero(~is_int)
-    vstr[ni] = format_f32_list(vals[ni])
-    body = np.char.add(
-        np.char.add(
-            np.char.mod("%d ", rows + 1), np.char.mod("%d ", cols + 1)
-        ),
-        np.char.add(np.asarray(vstr, dtype=np.str_), "\n"),
-    )
-    return "".join(body.tolist()).encode()
+    if ((vals == ivals) & np.isfinite(vals)).all():
+        # a count matrix: the integer formatter
+        return _native.format_triplets(rows + 1, cols + 1, ivals)
+    # fractions (EM outputs): integral values still print as integers
+    return _native.format_triplets_f32(rows + 1, cols + 1, vals)
 
 
 def write_matrix_market(

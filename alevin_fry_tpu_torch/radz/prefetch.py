@@ -4,7 +4,7 @@ The reference overlaps input with compute via a reader thread feeding
 worker threads through a bounded crossbeam queue
 (src/collate.rs:646-763, src/quant.rs:1527-1743).  Here the analogous
 boundary is the block iterator (`iter_decoded_blocks`): decode of
-block k+1 (file read + native record walk + NumPy column extraction,
+block k+1 (file read + native record walk + native column extraction,
 all of which release the GIL) runs in a producer thread while the
 consumer resolves/collates block k, double-buffered through a bounded
 queue.

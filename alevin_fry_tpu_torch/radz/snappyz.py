@@ -7,11 +7,10 @@ with ``FrameDecoder``, src/quant.rs:372-382).  The port's copy of
 * Writing splits the whole uncompressed stream into chunks of 64 KiB,
   however it arrives in ``write`` calls, and stores each chunk
   block-compressed by the native codec (``csrc/libradc.so``) when that
-  shrinks it, else as it is.  Without the native codec every chunk is
-  stored as it is: still a valid framing stream.
-* Reading decodes compressed chunks with the native codec, or with the
-  pure-Python block decoder below when the codec does not load.  The
-  CRC-32C of each chunk is written, not checked.
+  shrinks it, else as it is.
+* Reading decodes compressed chunks with the native codec and takes
+  stored chunks as they are (the JAX package's pure path writes only
+  those).  The CRC-32C of each chunk is written, not checked.
 
 Framing spec: https://github.com/google/snappy/blob/main/framing_format.txt
 """
@@ -21,35 +20,15 @@ from __future__ import annotations
 import struct
 from typing import BinaryIO
 
-import numpy as np
-
 from . import _native
 
 _STREAM_ID = b"\xff\x06\x00\x00sNaPpY"
 _MAX_CHUNK = 65536
 _CHUNK_COMPRESSED, _CHUNK_STORED, _CHUNK_PADDING, _CHUNK_STREAM_ID = 0x00, 0x01, 0xFE, 0xFF
 
-_CRC_POLY = 0x82F63B78
-_CRC_TABLE = np.zeros(256, np.uint32)
-for _i in range(256):
-    _c = _i
-    for _ in range(8):
-        _c = (_c >> 1) ^ _CRC_POLY if _c & 1 else _c >> 1
-    _CRC_TABLE[_i] = _c
-
-
-def crc32c(data: bytes) -> int:
-    """CRC-32C (Castagnoli): the native codec's, else a table walk."""
-    if _native.available():
-        return _native.crc32c(data)
-    crc = 0xFFFFFFFF
-    for b in data:
-        crc = int(_CRC_TABLE[(crc ^ b) & 0xFF]) ^ (crc >> 8)
-    return crc ^ 0xFFFFFFFF
-
 
 def _masked_crc(data: bytes) -> int:
-    c = crc32c(data)
+    c = _native.crc32c(data)
     return ((((c >> 15) | (c << 17)) & 0xFFFFFFFF) + 0xA282EAD8) & 0xFFFFFFFF
 
 
@@ -65,48 +44,12 @@ def _read_varint(buf: bytes, pos: int):
 
 
 def block_decompress(buf: bytes) -> bytes:
-    """Decode one snappy block: literals and the three copy kinds."""
-    ulen, pos = _read_varint(buf, 0)
-    if _native.available():
-        return _native.snappy_uncompress(buf, ulen)
-    out = bytearray(ulen)
-    opos = 0
-    while pos < len(buf):
-        tag = buf[pos]
-        pos += 1
-        kind = tag & 3
-        if kind == 0:  # literal
-            ln = tag >> 2
-            if ln >= 60:
-                nb = ln - 59
-                ln = int.from_bytes(buf[pos:pos + nb], "little")
-                pos += nb
-            ln += 1
-            out[opos:opos + ln] = buf[pos:pos + ln]
-            pos += ln
-            opos += ln
-            continue
-        if kind == 1:
-            ln = ((tag >> 2) & 0x7) + 4
-            off = ((tag >> 5) << 8) | buf[pos]
-            pos += 1
-        else:
-            ln = (tag >> 2) + 1
-            nb = 2 if kind == 2 else 4
-            off = int.from_bytes(buf[pos:pos + nb], "little")
-            pos += nb
-        src = opos - off
-        if off >= ln:
-            out[opos:opos + ln] = out[src:src + ln]
-            opos += ln
-        else:  # an overlapping copy repeats the last ``off`` bytes
-            for _ in range(ln):
-                out[opos] = out[src]
-                opos += 1
-                src += 1
-    if opos != ulen:
+    """Decode one snappy block (its length leads as a varint)."""
+    ulen = _read_varint(buf, 0)[0]
+    out = _native.snappy_uncompress(buf, ulen)
+    if len(out) != ulen:
         raise ValueError("snappy block decodes to the wrong length")
-    return bytes(out)
+    return out
 
 
 class SnappyFrameWriter:
@@ -141,10 +84,9 @@ class SnappyFrameWriter:
         chunk = bytes(chunk)
         crc = struct.pack("<I", _masked_crc(chunk))
         body, ctype = chunk, _CHUNK_STORED
-        if _native.available():
-            comp = _native.snappy_compress(chunk)
-            if len(comp) < len(chunk):
-                body, ctype = comp, _CHUNK_COMPRESSED
+        comp = _native.snappy_compress(chunk)
+        if len(comp) < len(chunk):
+            body, ctype = comp, _CHUNK_COMPRESSED
         self.fh.write(struct.pack("<I", ((len(body) + 4) << 8) | ctype) + crc + body)
 
     def flush(self) -> None:

@@ -178,11 +178,9 @@ Phases, one line each:
    which takes no mesh), quant -r cr-like-em -d and infer --usa with
    AFT_EM_MESH=2 and atac gpl with AFT_GPL_MESH=2, each byte for byte
    against its one-card run of phases 3, 5 and 7; (a) each mesh program
-   on the inputs that path gave it (the barcode and bin histograms, the
-   collate shuffle on collate's 20M ranks, the EM's cells, phase 3's WTA
-   keys through K1-K3 and phase 8's UMI graphs through K7) against its
-   one-card result, with its seconds, the bytes its collectives moved
-   and its launches per card; (c) where there are two cards or more,
+   the stages call on the inputs that path gave it (the barcode and bin
+   histograms and the EM's cells) against its one-card result, with its
+   seconds, the bytes its collectives moved and its launches per card; (c) where there are two cards or more,
    (b) with the variables unset (one shard a card), K6 required on each
    card.
 
@@ -328,10 +326,8 @@ BAM_F_SEED, BAM_F_ALIGNMENTS = 19, 1_000_000
 MH_TIMEOUT = 300
 MH_SPILL, MH_MERGE = 1_000_000, 250_000
 # phase 13: the shards of the device mesh on the one card the script
-# needs (they share it), and the inputs it takes from earlier phases:
-# phase 3's WTA keys ("wta") and phase 8's largest UMI graphs ("graph")
+# needs (they share it)
 MESH_SHARDS = 2
-P13 = {}
 
 
 def card_line() -> str:
@@ -1735,12 +1731,6 @@ class K7Capture:
         pug_device.connected_components = self._orig
 
 
-def host_graph(graph) -> tuple:
-    """K7Capture's graphs as cc_labels takes them: (node counts,
-    degrees, neighbours) on the host."""
-    return graph[0], graph[2].cpu().numpy(), graph[3].cpu().numpy()
-
-
 def kernel_device_ms(fn, reps: int, pattern: str) -> float:
     """Mean device milliseconds a call of ``fn`` runs kernels whose names
     hold ``pattern`` (the union of their intervals: launches on side
@@ -1919,7 +1909,6 @@ def _parsimony_runs(work: Path, runs: dict, lr_stages: dict, chain: dict, card: 
               f"{name} {list(r.values())[0]:.2f} s" for name, r in zip(runs, ref_runs))
           + "; long-read " + ", ".join(f"{k} {v:.2f} s" for k, v in ref_runs[-1].items())
           + ")", flush=True)
-    P13["graph"] = host_graph(k7cap.largest)
     rows = [k7_replay(k7cap.largest, total["K7"], "rna-parsimony", "phase 8", card),
             k6_replay(k6cap.largest, total["K6"], "rna-parsimony-em", "phase 8", card),
             k6_replay(lr_k6.largest, lr_launches["K6"], "longread-em", "phase 8 long-read",
@@ -2605,14 +2594,13 @@ def multihost_phase(work: Path, data: Path, subset: Path, card: str) -> None:
 class Spy:
     """Records the arguments of the largest call (by its largest array)
     of ``alevin_fry_tpu_torch.<module>.<name>`` while entered, and counts
-    the calls; with ``copy`` it keeps copies of the tensor arguments in
-    host memory (so the device's peak holds no instrumentation)."""
+    the calls."""
 
-    def __init__(self, module: str, name: str, copy: bool = False):
+    def __init__(self, module: str, name: str):
         import importlib
 
         self.mod = importlib.import_module(f"alevin_fry_tpu_torch.{module}")
-        self.name, self.copy = name, copy
+        self.name = name
         self.args, self.kwargs, self.size, self.calls = None, None, -1, 0
 
     def __enter__(self):
@@ -2624,8 +2612,7 @@ class Spy:
                         for a in args if hasattr(a, "shape")), default=0)
             if size > self.size:
                 self.size = size
-                self.args = tuple(a.to("cpu", copy=True) if self.copy and hasattr(a, "to") else a
-                                  for a in args)
+                self.args = args
                 self.kwargs = dict(kwargs)
             return self._orig(*args, **kwargs)
 
@@ -2634,10 +2621,6 @@ class Spy:
 
     def __exit__(self, *exc):
         setattr(self.mod, self.name, self._orig)
-
-    def host(self) -> tuple:
-        """The recorded call's (arguments, keywords), tensors on the host."""
-        return tuple(a.cpu() if hasattr(a, "cpu") else a for a in self.args), self.kwargs
 
 
 def mesh_stages(work: Path, data: Path, out: Path, dev) -> dict:
@@ -2700,8 +2683,7 @@ def set_env(env: dict) -> dict:
 def mesh_runs(work: Path, data: Path, label: str, env: dict, card: str, dev) -> tuple:
     """Phase 13's CLI runs with the mesh variables ``env``, each held to
     its one-card run byte for byte.  Returns the Spies of the mesh
-    programs (each program's largest call; collate's order, which takes
-    no mesh, for the shuffle's input) and the launches per card and
+    programs (each program's largest call) and the launches per card and
     kernel of the runs."""
     from alevin_fry_tpu_torch import _kernels
     from alevin_fry_tpu_torch.parallel import mesh
@@ -2710,7 +2692,6 @@ def mesh_runs(work: Path, data: Path, label: str, env: dict, card: str, dev) -> 
     stages = mesh_stages(work, data, work / "p13" / label.strip("()"), dev)
     spies = {"hist": Spy("pipeline.gpl", "sharded_histogram"),
              "bins": Spy("atac.gpl", "sharded_bin_histogram"),
-             "order": Spy("pipeline.collate", "collation_order"),
              "em": Spy("pipeline.quant", "em_cells"), "infer": Spy("pipeline.infer", "em_cells")}
     secs, lines, start = {}, [], dict(_kernels.BY_CARD)
     saved = set_env(env)
@@ -2754,17 +2735,15 @@ def timed(fn) -> tuple:
 
 
 def mesh_programs(spies: dict, card: str, cuda) -> dict:
-    """Phase 13 (a): each mesh program on MESH_SHARDS shards of the card
-    against its result on one shard (or without a mesh), on the inputs the
-    path gave it: the barcode and bin histograms of (b)'s gpl runs, the
-    collate shuffle on the ranks of (b)'s collate, the EM of (b)'s quant,
-    the sharded WTA on phase 3's keys and the components on phase 8's
-    graphs.  Returns the launches per card and kernel."""
+    """Phase 13 (a): each mesh program the stages call on MESH_SHARDS
+    shards of the card against its result on one shard (or without a
+    mesh), on the inputs the path gave it: the barcode and bin histograms
+    of (b)'s gpl runs and the EM of (b)'s quant.  Returns the launches per
+    card and kernel."""
     import numpy as np
-    import torch
 
     from alevin_fry_tpu_torch import _kernels
-    from alevin_fry_tpu_torch.ops import crlike_device, em, pug_device
+    from alevin_fry_tpu_torch.ops import em
     from alevin_fry_tpu_torch.parallel import mesh
 
     two, one = mesh.make_mesh(MESH_SHARDS, cuda), mesh.make_mesh(1, cuda)
@@ -2795,25 +2774,6 @@ def mesh_programs(spies: dict, card: str, cuda) -> dict:
     held("sharded_bin_histogram", [len(idx), n_bins],
          lambda m, _s: mesh.sharded_bin_histogram(m, idx, n_bins), np.array_equal)
 
-    ranks, n_cells, _device = spies["order"].args
-    S = MESH_SHARDS
-    r = np.full(-(-len(ranks) // S) * S, n_cells, np.int64)
-    r[:len(ranks)] = ranks
-    owner = np.minimum(r // -(-n_cells // S), S - 1)
-    cap = int(np.bincount(np.repeat(np.arange(S), len(r) // S) * S + owner).max())
-
-    def shuffle(m, sharded):
-        # one shard holds every read in one bin
-        r_out, p_out, dropped = mesh.sharded_collate_shuffle(
-            m, r, np.arange(len(r)), n_cells, cap if sharded else len(r))
-        return None if dropped else p_out[r_out != n_cells]
-
-    held("sharded_collate_shuffle", [len(r), n_cells, cap], shuffle,
-         lambda a, b: a is not None and np.array_equal(a, b)
-         and np.array_equal(a, np.argsort(ranks, kind="stable")))
-    if not mesh.sharded_collate_shuffle(two, r, np.arange(len(r)), n_cells, cap - 1)[2]:
-        raise AssertionError("phase 13 (a): the shuffle one below the capacity dropped no read")
-
     args, kwargs = spies["em"].args, dict(spies["em"].kwargs)
     kwargs.pop("mesh", None)
 
@@ -2824,26 +2784,6 @@ def mesh_programs(spies: dict, card: str, cuda) -> dict:
     held("em_cells", [len(args[0]) - 1, len(args[1]) - 1, len(args[2])],
          lambda m, sharded: em.em_cells(*args, **kwargs, mesh=m if sharded else None),
          em_equal)
-
-    (key, *wta_args), wta_kw = P13["wta"]
-    ubits, gbits = wta_args[0], wta_args[1]
-    key = torch.sort(key.to(cuda)).values.cpu().numpy()
-    cell = key >> (ubits + gbits)
-    cut = int(np.searchsorted(cell, cell[len(key) // 2]))
-    blocks = np.full((S, max(cut, len(key) - cut)), crlike_device.PAD, np.int64)
-    blocks[0, :cut], blocks[1, :len(key) - cut] = key[:cut], key[cut:]
-
-    def wta(m, sharded):
-        ok, oc = crlike_device.sharded_crlike_wta(m, blocks if sharded else key[None, :],
-                                                  *wta_args, **wta_kw)
-        keep = ok != crlike_device.PAD
-        return ok[keep], oc[keep]
-
-    held("sharded_crlike_wta", [len(key), *wta_args], wta, arrays_equal)
-    graph = P13["graph"]
-    held("cc_labels", [len(graph[0]), len(graph[1]), len(graph[2])],
-         lambda m, sharded: pug_device.cc_labels(*graph, cuda, m if sharded else None),
-         np.array_equal)
     print("\n".join(lines), flush=True)
     return by_card(start)
 
@@ -2854,8 +2794,8 @@ def mesh_phase(work: Path, data: Path, card: str, dev) -> None:
     cuda:{s % cards}: all on the card of a one-card machine) and collate
     (which takes no mesh), each stage against its
     one-card run of phases 3, 5 and 7 (which phases 4, 5 and 7 hold to
-    the reference); (a) each mesh program on the inputs (b) and phases 3
-    and 8 gave it against its one-card result; (c) where there are two
+    the reference); (a) each mesh program on the inputs (b) gave it
+    against its one-card result; (c) where there are two
     cards or more, (b) with the variables unset, which means one shard a
     card, with each card's launches."""
     import torch
@@ -2879,7 +2819,7 @@ def mesh_phase(work: Path, data: Path, card: str, dev) -> None:
           f"program calls { {k: s.calls for k, s in spies.items()} }; launches by card "
           f"{launches}", flush=True)
     launches = mesh_programs(spies, card, dev)
-    if any(f"cuda:0 {k}" not in launches for k in ("K1", "K2", "K3", "K6", "K7")):
+    if "cuda:0 K6" not in launches:
         raise AssertionError(f"phase 13 (a): a kernel never launched: {launches}")
     if cards < 2:
         print(f"phase 13 (c): one card ({cards}), so no mesh of several cards ran", flush=True)
@@ -2915,8 +2855,8 @@ def main() -> int:
     from alevin_fry_tpu_torch.radz import _native
     from reference_host_path import artifact_mismatches
 
-    print(f"phase 0: native RAD codec loaded: {_native.available()}; glibc malloc "
-          f"tuning applied: {_host_tuning._applied}", flush=True)
+    _native.load()  # raises where the native RAD codec does not load
+    print(f"phase 0: glibc malloc tuning applied: {_host_tuning._applied}", flush=True)
     dev = torch.device("cuda")
 
     _kernels.build()
@@ -2940,10 +2880,8 @@ def main() -> int:
     gen_s = time.perf_counter() - t0
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    with Capture() as cap, Spy("ops.crlike", "resolve_crlike_wta_device", copy=True) as wta:
+    with Capture() as cap:
         secs, cmdlines = run_port(data, work / "port", args.profile)
-    P13["wta"] = wta.host()
-    del wta
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if not all(launches[k] > 0 for k in RNA_KERNELS):

@@ -26,7 +26,7 @@ from alevin_fry_tpu_torch.ops import hamming
 from alevin_fry_tpu_torch.ops.atac_device import sort_rle
 from alevin_fry_tpu_torch.ops.barcodes import pack_seq, revcomp_packed, unpack_seqs_to_strings
 from alevin_fry_tpu_torch.pipeline import collate
-from alevin_fry_tpu_torch.radz import _native, read_prelude
+from alevin_fry_tpu_torch.radz import read_prelude
 from reference_host_path import (
     ATAC_DATA_ARTIFACTS, ATAC_STAGE_JSONS, artifact_mismatches, move_sorted_bed,
     run_reference_atac,
@@ -159,11 +159,10 @@ def test_atac_path_matches_reference_with_zero_chunk_count(tmp_path, monkeypatch
 
 
 def test_atac_path_matches_reference_without_native_codec(tmp_path, monkeypatch):
-    """With the native codec unavailable both packages take their NumPy
-    paths (the columnar collate and the NumPy BED formatter)."""
-    for native in (_native, ref_native):
-        monkeypatch.setattr(native, "_LIB", None)
-        monkeypatch.setattr(native, "_TRIED", True)
+    """The reference without its native codec (its columnar collate and
+    NumPy BED formatter) writes the port's bytes."""
+    monkeypatch.setattr(ref_native, "_LIB", None)
+    monkeypatch.setattr(ref_native, "_TRIED", True)
     d = _atac_synth_data(tmp_path / "d")
     _check_against_reference(d, tmp_path, 10_000, 1, monkeypatch)
 

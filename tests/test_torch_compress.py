@@ -1,15 +1,18 @@
 """Compressed output (``-c``) of the port against the reference package:
 the snappy framing codec (alevin_fry_tpu_torch/radz/snappyz.py) against
-``alevin_fry_tpu/radz/snappyz.py`` with and without the native codec;
-RNA ``collate -c`` from the byte-level, columnar and out-of-core writers,
-and quant from the ``.sz``; the ATAC ``sort -c`` (``map.bed.gz``),
-``collate -c`` and deduplicate from the ``.sz``.
+``alevin_fry_tpu/radz/snappyz.py``, and against that package's pure
+path without its native codec; RNA ``collate -c`` from the byte-level,
+columnar and out-of-core writers, and quant from the ``.sz``; the ATAC
+``sort -c`` (``map.bed.gz``), ``collate -c`` and deduplicate from the
+``.sz``.
 
 Snappy streams and RAD files must match byte for byte, a gzip file in
 its decompressed bytes and its header apart from the MTIME field, and
 the stage JSONs field for field without the fields naming each run's
-directories (tests/reference_host_path.py).  Inputs come from numpy
-seeds (synth_hard, RandomState).
+directories (tests/reference_host_path.py).  The reference's pure path
+stores every snappy chunk as it is, where the port compresses: there
+the streams must be equal, and each side's reader must read the other's
+file.  Inputs come from numpy seeds (synth_hard, RandomState).
 """
 
 import gzip
@@ -39,10 +42,20 @@ def _port_rescue_env(monkeypatch):
     monkeypatch.delenv("AFT_RESCUE_BACKEND", raising=False)
 
 
-def _no_native(monkeypatch, *modules):
-    for native in modules:
-        monkeypatch.setattr(native, "_LIB", None)
-        monkeypatch.setattr(native, "_TRIED", True)
+def _no_ref_native(monkeypatch):
+    """The reference without its native codec: its pure paths."""
+    monkeypatch.setattr(ref_native, "_LIB", None)
+    monkeypatch.setattr(ref_native, "_TRIED", True)
+    assert not ref_native.available()
+
+
+def _read_across(port: bytes, ref: bytes) -> bytes:
+    """The stream of two framing files, the port's and the reference's,
+    read by each package's reader: all four reads must agree."""
+    got = {reader(io.BytesIO(f)).read() for f in (port, ref)
+           for reader in (snappyz.SnappyFrameReader, ref_snappyz.SnappyFrameReader)}
+    assert len(got) == 1
+    return got.pop()
 
 
 def _chunk_types(stream: bytes) -> list:
@@ -73,33 +86,42 @@ def _streams() -> dict:
 @pytest.mark.parametrize("case", list(_streams()))
 def test_snappy_frames_match_reference_codec(case, native, monkeypatch):
     """The same framing bytes as the reference's writer however the
-    stream is cut into writes, read back by both readers."""
+    stream is cut into writes, read back by both readers; against the
+    reference's pure path, which stores every chunk, the same chunking
+    and stream, each file read by the other side's reader."""
     data = _streams()[case]
     if not native:
-        _no_native(monkeypatch, _native, ref_native)
+        _no_ref_native(monkeypatch)
     want = io.BytesIO()
     ref_snappyz.frame_compress_stream(data, want)
     cuts = sorted(np.random.RandomState(len(data)).randint(0, len(data) + 1, 7).tolist())
+    outs = set()
     for bounds in ([0, len(data)], [0, *cuts, len(data)]):
         got = io.BytesIO()
         w = snappyz.SnappyFrameWriter(got)
         for a, b in zip(bounds[:-1], bounds[1:]):
             w.write(data[a:b])
         w.flush()
-        assert got.getvalue() == want.getvalue()
-    types = _chunk_types(want.getvalue())
-    assert types[0] == 0xFF and len(types) == 1 + -(-len(data) // 65536)
-    if native and case in ("records", "runs"):
+        outs.add(got.getvalue())
+    assert len(outs) == 1
+    port = outs.pop()
+    types, ref_types = _chunk_types(port), _chunk_types(want.getvalue())
+    assert types[0] == 0xFF and len(types) == 1 + -(-len(data) // 65536) == len(ref_types)
+    if case in ("records", "runs"):
         assert 0x00 in types  # block-compressed chunks
-    for reader in (snappyz.SnappyFrameReader, ref_snappyz.SnappyFrameReader):
-        assert reader(io.BytesIO(want.getvalue())).read() == data
+    if native:
+        assert port == want.getvalue()
+    else:
+        assert set(ref_types[1:]) <= {0x01}
+    assert _read_across(port, want.getvalue()) == data
 
 
 def test_snappy_reader_seeks_and_drops_history(monkeypatch):
     """Reads in pieces, a seek back within the history, forward seeks
     that decode further chunks, and no seek back once history is
-    dropped; the pure-Python block decoder decodes the native codec's
-    blocks (overlapping copies among them)."""
+    dropped; the reference's pure-Python block decoder decodes the
+    port's blocks (overlapping copies among them), and its CRC-32C table
+    gives the port's checksums."""
     data = _streams()["runs"] + _streams()["records"]
     big = data * 12  # past the 4 MiB the reader keeps before trimming
     buf = io.BytesIO()
@@ -114,10 +136,11 @@ def test_snappy_reader_seeks_and_drops_history(monkeypatch):
         r.seek(0)
     assert r.read() == big[at + 5:] and r.read(3) == b""
     blocks = [_native.snappy_compress(data[s:s + 65536]) for s in range(0, len(data), 65536)]
-    crcs = [snappyz.crc32c(data[:1000]), snappyz.crc32c(b"")]
-    _no_native(monkeypatch, _native)
     assert b"".join(snappyz.block_decompress(b) for b in blocks) == data
-    assert [snappyz.crc32c(data[:1000]), snappyz.crc32c(b"")] == crcs
+    crcs = [_native.crc32c(data[:1000]), _native.crc32c(b"")]
+    _no_ref_native(monkeypatch)
+    assert b"".join(ref_snappyz.block_decompress(b) for b in blocks) == data
+    assert [ref_snappyz.crc32c(data[:1000]), ref_snappyz.crc32c(b"")] == crcs
     assert snappyz.block_decompress(ref_snappyz.block_compress_literal(data[:70_000])) == \
         data[:70_000]
 
@@ -145,7 +168,8 @@ def _run_rna(d, out, collate_args) -> dict:
     return {k: "alevin-fry-tpu " + " ".join(v) for k, v in stages.items()}
 
 
-# writer -> (collate -m, the port's byte-level path off, no native codec)
+# writer -> (collate -m, the port's byte-level path off, the reference
+# without its native codec)
 RNA_WRITERS = {
     "byte-level": (30_000_000, False, False),
     "columnar": (30_000_000, True, False),
@@ -159,23 +183,28 @@ RNA_WRITERS = {
 def test_rna_collate_compressed_matches_reference(hard_data, tmp_path, writer, monkeypatch):
     """Each of the port's collate writers gives the reference's
     map.collated.rad.sz, and quant reads it to the reference's
-    matrices; without the native codec both store the chunks as they
-    are."""
+    matrices; the reference without its native codec stores the chunks
+    as they are, so there the two files hold the same stream, and each
+    side's reader reads the other's file."""
     max_records, columnar, no_native = RNA_WRITERS[writer]
     monkeypatch.setattr(collate, "COLLATE_BLOCK_RECORDS", 30_000)
     if columnar:
         monkeypatch.setattr(collate, "_collate_in_memory_native", lambda *a, **k: False)
     if no_native:
-        _no_native(monkeypatch, _native, ref_native)
+        _no_ref_native(monkeypatch)
     cmdlines = _run_rna(hard_data, tmp_path / "port", ["-c", "-m", str(max_records)])
     run_reference(hard_data, tmp_path / "ref", cmdlines, True, threads=2, compress=True,
                   max_records=max_records)
-    assert artifact_mismatches(tmp_path / "port", tmp_path / "ref",
-                               rna_artifacts(compressed=True), STAGE_JSONS) == []
+    sz = "gpl/map.collated.rad.sz"
+    names = [n for n in rna_artifacts(compressed=True) if not (no_native and n == sz)]
+    assert artifact_mismatches(tmp_path / "port", tmp_path / "ref", names, STAGE_JSONS) == []
     gpl = tmp_path / "port" / "gpl"
     assert not (gpl / "map.collated.rad").exists() and not (gpl / "_collate_tmp").exists()
-    types = _chunk_types((gpl / "map.collated.rad.sz").read_bytes())
-    assert len(types) > 10 and (0x00 in types) != no_native
+    port, ref = (tmp_path / "port" / sz).read_bytes(), (tmp_path / "ref" / sz).read_bytes()
+    types = _chunk_types(port)
+    assert len(types) > 10 and 0x00 in types
+    assert (0x00 in _chunk_types(ref)) != no_native
+    assert len(_read_across(port, ref)) > 0
 
 
 def test_quant_from_sz_equals_quant_from_rad(hard_data, tmp_path):
@@ -207,17 +236,23 @@ def atac_data(tmp_path_factory):
 def test_atac_compressed_matches_reference(atac_data, tmp_path, max_records, no_native,
                                            monkeypatch):
     """sort -c writes map.bed.gz, collate -c map.collated.rad.sz, and
-    deduplicate reads it: in memory, out of core and without the native
-    codec, equal to the reference (map.bed.gz up to its MTIME)."""
+    deduplicate reads it: in memory, out of core and against the
+    reference without its native codec (whose ``.sz`` stores its chunks:
+    the same stream, each side's reader reading the other's file),
+    equal to the reference (map.bed.gz up to its MTIME)."""
     monkeypatch.setattr(collate, "COLLATE_BLOCK_RECORDS", 7_000)
     if no_native:
-        _no_native(monkeypatch, _native, ref_native)
+        _no_ref_native(monkeypatch)
     cmdlines, stats = run_port_atac(atac_data, tmp_path / "port", max_records, 10,
                                     monkeypatch, compress=True)
     _secs, ref_stats = run_reference_atac(atac_data, tmp_path / "ref", cmdlines, 10,
                                           max_records, threads=2, compress=True)
-    assert artifact_mismatches(tmp_path / "port", tmp_path / "ref",
-                               atac_artifacts(compressed=True), ATAC_STAGE_JSONS) == []
+    sz = "gpl/map.collated.rad.sz"
+    names = [n for n in atac_artifacts(compressed=True) if not (no_native and n == sz)]
+    assert artifact_mismatches(tmp_path / "port", tmp_path / "ref", names,
+                               ATAC_STAGE_JSONS) == []
+    assert len(_read_across((tmp_path / "port" / sz).read_bytes(),
+                            (tmp_path / "ref" / sz).read_bytes())) > 0
     assert stats == ref_stats and all(stats.values())
     bed = gzip.decompress((tmp_path / "port" / "sort" / "map.bed.gz").read_bytes())
     assert bed.count(b"\n") > 100

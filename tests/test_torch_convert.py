@@ -3,12 +3,13 @@ package, byte for byte.
 
 Each case runs both packages on the same inputs: the cases of the
 reference's own tests (tests/test_tools.py: view, SAM with and without
-``--filter_best``, BAM in one gzip member, the pure-Python scanner,
-multi-member BGZF against plain gzip; a corrupt BAM, a corrupt BGZF
-member and a CRC mismatch raise), a seeded BAM of a few thousand
+``--filter_best``, BAM in one gzip member, the reference's pure-Python
+scanner, multi-member BGZF against plain gzip; a corrupt BAM, a corrupt
+BGZF member and a CRC mismatch raise), a seeded BAM of a few thousand
 records with every case convert must handle (tests/bam_cases.py) in
-BGZF, plain gzip and SAM, with and without ``-f``, through the port's
-native and Python scanners, across scan-batch and chunk boundaries;
+BGZF, plain gzip and SAM, with and without ``-f``, against the
+reference's native and pure-Python scanners, across scan-batch and
+chunk boundaries;
 the view of the goldens' dataset; convert -> generate-permit-list ->
 collate -> quant on the CPU against the reference's host path; and the
 two subcommands through ``python -m alevin_fry_tpu_torch``.
@@ -52,11 +53,12 @@ def _port_rescue_env(monkeypatch):
     monkeypatch.delenv("AFT_RESCUE_BACKEND", raising=False)
 
 
-def _without_native(monkeypatch, *natives):
-    for native in natives:
-        monkeypatch.setattr(native, "_LIB", None)
-        monkeypatch.setattr(native, "_TRIED", True)
-        assert not native.available()
+def _without_ref_native(monkeypatch):
+    """The reference without its native codec: its pure-Python scanner
+    and a plain gzip stream."""
+    monkeypatch.setattr(ref_native, "_LIB", None)
+    monkeypatch.setattr(ref_native, "_TRIED", True)
+    assert not ref_native.available()
 
 
 def _both(src: Path, tmp: Path, filter_best: bool = False) -> bytes:
@@ -119,7 +121,7 @@ def _tool_case(name: str, tmp: Path, monkeypatch) -> Path:
         return sam
     if name in ("bam", "bam-python"):
         if name == "bam-python":
-            _without_native(monkeypatch, _native, ref_native)
+            _without_ref_native(monkeypatch)
         p = tmp / "t.bam"
         with gzip.open(p, "wb") as fh:
             fh.write(_bam_payload([_tiny_bam_record(b"r1", 0, b"AAAA", b"CCC", 7)], ["tx_a"]))
@@ -276,10 +278,11 @@ def bam_inputs(tmp_path_factory):
                                          ("sam", "text")])
 def test_generated_input_matches_reference(bam_inputs, fmt, scanner, filter_best, tmp_path,
                                            monkeypatch):
-    """The port (either scanner) writes the reference's bytes, and the
-    BAM and SAM forms of the same records give the same RAD."""
+    """The port writes the reference's bytes (the reference scanning with
+    its native or its pure-Python scanner), and the BAM and SAM forms of
+    the same records give the same RAD."""
     if scanner == "python":
-        _without_native(monkeypatch, _native)
+        _without_ref_native(monkeypatch)
     got = _both(bam_inputs[fmt], tmp_path, filter_best)
     ref_convert.bam2rad(bam_inputs["sam"], tmp_path / "sam.rad", filter_best=filter_best)
     assert got == (tmp_path / "sam.rad").read_bytes()
@@ -291,13 +294,14 @@ def test_batch_and_chunk_boundaries_change_no_byte(bam_inputs, scan_buf, scanner
                                                    monkeypatch):
     """Scan batches of a few records (qname runs and skipped records
     carried across them and across BGZF members) and chunks of 97 reads
-    in both packages: the same bytes.  A chunk ends after the batch in
-    which it reached 97 reads, so the batch size is part of the bytes."""
+    in both packages (the reference with its native or its pure-Python
+    scanner): the same bytes.  A chunk ends after the batch in which it
+    reached 97 reads, so the batch size is part of the bytes."""
     for module in (convert, ref_convert):
         monkeypatch.setattr(module, "_SCAN_BUF", scan_buf)
         monkeypatch.setattr(module, "BUF_LIMIT", 97)
     if scanner == "python":
-        _without_native(monkeypatch, _native)
+        _without_ref_native(monkeypatch)
     for filter_best in (False, True):
         _both(bam_inputs["bgzf"], tmp_path, filter_best)
         with open(tmp_path / "port.rad", "rb") as fh:

@@ -68,13 +68,14 @@ def test_em_twin_on_a_cell_past_shared_memory(usa):
 
 @pytest.mark.parametrize("usa", [None, USA])
 def test_em_twin_without_native_codec(usa, monkeypatch):
-    """The layout's segmented sorts fall back to NumPy: same floats."""
+    """The reference's host EM without its native codec (its pure-NumPy
+    path): the twin's floats, bit for bit."""
     batch = em_batch(5, zero_len=True)
-    want = em.em_cells(*batch, R_PLAIN, usa, False, True, CPU)
-    monkeypatch.setattr(_native, "_LIB", None)
-    monkeypatch.setattr(_native, "_TRIED", True)
-    assert not _native.available()
-    assert_bit_equal(em.em_cells(*batch, R_PLAIN, usa, False, True, CPU), want)
+    got = em.em_cells(*batch, R_PLAIN, usa, False, True, CPU)
+    monkeypatch.setattr(ref_native, "_LIB", None)
+    monkeypatch.setattr(ref_native, "_TRIED", True)
+    assert not ref_native.available()
+    assert_bit_equal(got, em_cells_batched(*batch, R_PLAIN, usa, False, True, use_jax=False))
 
 
 @pytest.mark.parametrize("with_last_round", [True, False])
@@ -194,14 +195,14 @@ FRACTIONS = np.array([0.5, 1 / 3, 1e-7, 123456.79, 0.0099999, 0.01, 0.0100001, 3
 
 @pytest.mark.parametrize("native", [True, False])
 def test_fractional_mtx_matches_reference(tmp_path, monkeypatch, native):
-    """The fractional MTX writer (the EM's output): the reference's bytes
-    through the native codec and through the NumPy path."""
+    """The fractional MTX writer (the EM's output): the reference's bytes,
+    the reference writing through its native codec and through its NumPy
+    path."""
     rows = np.arange(len(FRACTIONS)) // 3
     cols = np.arange(len(FRACTIONS)) * 7 % 11
     if not native:
-        for lib in (_native, ref_native):
-            monkeypatch.setattr(lib, "_LIB", None)
-            monkeypatch.setattr(lib, "_TRIED", True)
+        monkeypatch.setattr(ref_native, "_LIB", None)
+        monkeypatch.setattr(ref_native, "_TRIED", True)
     body = mtx.format_mtx_body(rows, cols, FRACTIONS)
     assert body == ref_mtx.format_mtx_body(rows, cols, FRACTIONS)
     assert body.startswith(b"1 1 0.5\n1 8 0.33333334\n1 4 0.0000001\n")

@@ -35,7 +35,6 @@ from alevin_fry_tpu_torch import spans
 from alevin_fry_tpu_torch.cli import main as port_main
 from alevin_fry_tpu_torch.ops import barcodes as port_barcodes
 from alevin_fry_tpu_torch.pipeline import quant
-from alevin_fry_tpu_torch.radz import _native as port_native
 from alevin_fry_tpu_torch.radz import bincodeio, collation, read_prelude, unmapped
 from alevin_fry_tpu_torch.radz.chunkio import decode_all_chunks
 from alevin_fry_tpu_torch.radz.records import RecordSchema
@@ -521,6 +520,23 @@ def case_data(tmp_path_factory) -> Path:
     return d
 
 
+def _run_reference_case(d: Path, out: Path, mode: str, cm: dict) -> None:
+    """The reference's gpl and collate of the case into ``out/gpl``, with
+    the port's command lines ``cm``; its collate reads ``d/rad_ref``."""
+    with host_policies():
+        from alevin_fry_tpu.pipeline.gpl import (
+            CellFilterMethod, GenPermitListOpts, generate_permit_list,
+        )
+
+        generate_permit_list(GenPermitListOpts(
+            input_dir=d / "rad_gpl", output_dir=out / "gpl",
+            fmeth=CellFilterMethod("force", count=4), expected_ori="fw", threads=2,
+            cmdline=cm["gpl"], sample_bc_list=d / "samples.tsv",
+            sample_correction_mode="1-edit",
+        ))
+        ref_collate(out / "gpl", d / "rad_ref", 2, cmdline=cm["collate"], collation_mode=mode)
+
+
 def _run_case(d: Path, out: Path, mode: str, max_records=None) -> tuple:
     """The port's gpl (``-f 4``, 1-edit sample correction) on ``d/rad_gpl``
     and its collate on ``d/rad``; returns the command lines and the two
@@ -572,24 +588,11 @@ def test_composite_case_matches_reference(case_data, tmp_path, mode):
     sample without ``permit_freq.bin`` (an empty identity search), so it
     collates the reads without C's: all of those drop, so the bytes are
     the same."""
-    assert port_native.available()
     cm, counts = _run_case(case_data, tmp_path / "port", mode)
     smk, _smv = bincodeio.read_u64_map_file(tmp_path / "port" / "gpl" / "sample_permit_map.bin")
     assert _B_EDIT in set(smk.tolist()) and _UNLISTED not in set(smk.tolist())
     assert not (tmp_path / "port" / "gpl" / "sample_sample_c").exists()
-    with host_policies():
-        from alevin_fry_tpu.pipeline.gpl import (
-            CellFilterMethod, GenPermitListOpts, generate_permit_list,
-        )
-
-        generate_permit_list(GenPermitListOpts(
-            input_dir=case_data / "rad_gpl", output_dir=tmp_path / "ref" / "gpl",
-            fmeth=CellFilterMethod("force", count=4), expected_ori="fw", threads=2,
-            cmdline=cm["gpl"], sample_bc_list=case_data / "samples.tsv",
-            sample_correction_mode="1-edit",
-        ))
-        ref_collate(tmp_path / "ref" / "gpl", case_data / "rad_ref", 2, cmdline=cm["collate"],
-                    collation_mode=mode)
+    _run_reference_case(case_data, tmp_path / "ref", mode, cm)
     assert artifact_mismatches(tmp_path / "port", tmp_path / "ref", CASE_ARTIFACTS,
                                CASE_JSONS) == []
     want = dict(CASE_COUNTS)
@@ -619,18 +622,27 @@ def test_composite_case_matches_reference(case_data, tmp_path, mode):
 @pytest.mark.parametrize("mode", ["fast", "two-round"])
 def test_composite_case_is_the_same_under_each_rescue_backend_and_lookup(
         case_data, case_default, tmp_path, mode, backend, native, monkeypatch):
-    """K4 or K5 (``AFT_RESCUE_BACKEND=pallas``) in the 1-edit tier, and the
-    native hash or its binary-search fallback for every lookup: the same
-    bytes and counts as the default run, in memory and out of core."""
+    """K4 or K5 (``AFT_RESCUE_BACKEND=pallas``) in the 1-edit tier: the
+    same bytes and counts as the default run, in memory and out of core;
+    and the reference without its native codec (binary search for every
+    lookup, NumPy for its 1-edit tier) writes those bytes too."""
     if backend:
         monkeypatch.setenv("AFT_RESCUE_BACKEND", backend)
-    if not native:
-        monkeypatch.setattr(port_native, "_LIB", None)
-        monkeypatch.setattr(port_native, "_TRIED", True)
-    assert port_native.available() == native
     for max_records in (None, 5_000):
         run = tmp_path / f"run_{max_records}"
-        _cm, counts = _run_case(case_data, run, mode, max_records)
+        cm, counts = _run_case(case_data, run, mode, max_records)
         arts, want = case_default[mode, max_records]
         assert {a: (run / a).read_bytes() for a in CASE_ARTIFACTS} == arts
         assert counts == want
+        if max_records is None:
+            cm_in_memory = cm
+    if not native:
+        monkeypatch.setattr(ref_native, "_LIB", None)
+        monkeypatch.setattr(ref_native, "_TRIED", True)
+        assert not ref_native.available()
+        _run_reference_case(case_data, tmp_path / "ref", mode, cm_in_memory)
+        # the gpl JSON records each run's command line, so only the
+        # in-memory run's (the reference's) compares
+        for max_records, jsons in ((None, CASE_JSONS[:2]), (5_000, ())):
+            assert artifact_mismatches(tmp_path / f"run_{max_records}", tmp_path / "ref",
+                                       CASE_ARTIFACTS, jsons) == []

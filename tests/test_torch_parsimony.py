@@ -14,7 +14,8 @@ them against their JAX-package counterparts.
 * long-read records (alignment scores and 3' distances), through gpl,
   collate and quant ``-r parsimony`` / ``parsimony-em`` (the weighted
   EM): the dataset of tests/test_longread.py and a seeded larger one,
-  and the collate's bytes with and without the native codec;
+  and the collate's bytes against the reference with and without its
+  native codec;
 * K7's twin against ``connected_components_batched`` (dense and gather),
   ``_host_cc_labels`` and a union-find, on random graphs and on the
   graphs the native graph build exports;
@@ -55,6 +56,7 @@ from reference_host_path import (
 )
 from synth_hard import make_hard_dataset
 from test_longread import _dataset as longread_dataset
+from test_torch_native import make_native_unloadable
 
 DEV = ["-t", "2", "--device", "cpu"]
 
@@ -163,15 +165,14 @@ def test_parsimony_without_native_codec(collated, tmp_path, monkeypatch, cc_call
     on the CPU and on the card alike, rather than resolve the graphs on
     the host; no component labels are computed."""
     d, gpl = collated
-    monkeypatch.setattr(_native, "_LIB", None)
-    monkeypatch.setattr(_native, "_TRIED", True)
+    make_native_unloadable(monkeypatch, tmp_path)
     argv = ["quant", "-i", str(gpl), "-m", str(d / "t2g.tsv"), "-o", str(tmp_path / "quant"),
             *CASES["gene-em-d"][0], *DEV]
-    with pytest.raises(RuntimeError, match="native codec"):
+    with pytest.raises(RuntimeError, match="libradc.so"):
         port_main(argv)
     sub = {"cell": np.zeros(2, np.int64), "umi": np.arange(2, dtype=np.uint64),
            "refs": np.zeros(2, np.uint32), "offs": np.arange(3, dtype=np.int64)}
-    with pytest.raises(RuntimeError, match="native codec"):
+    with pytest.raises(RuntimeError, match="libradc.so"):
         pug.resolve_parsimony_cells(sub, np.zeros(1, np.uint32), False, 1000, False,
                                     torch.device("cuda"))
     assert cc_calls == []
@@ -211,13 +212,12 @@ def _longread_pair(kind: str, tmp: Path):
 @pytest.mark.parametrize("native", [True, False])
 @pytest.mark.parametrize("kind", ["small", "seeded"])
 def test_longread_collate_carries_alignment_fields(tmp_path, monkeypatch, kind, native):
-    """The port's collate (byte-level, or columnar without the native
-    codec) writes the reference's bytes for long-read records, and the
+    """The port's collate writes the reference's bytes for long-read
+    records (the reference with or without its native codec), and the
     collated records keep their as / start / end / tlen fields."""
     if not native:
-        for lib in (_native, ref_native):
-            monkeypatch.setattr(lib, "_LIB", None)
-            monkeypatch.setattr(lib, "_TRIED", True)
+        monkeypatch.setattr(ref_native, "_LIB", None)
+        monkeypatch.setattr(ref_native, "_TRIED", True)
     _t2g, gpl, ref_gpl_dir = _longread_pair(kind, tmp_path)
     for f in ("map.collated.rad", "permit_freq.bin", "permit_map.bin"):
         assert (gpl / f).read_bytes() == (ref_gpl_dir / f).read_bytes(), f

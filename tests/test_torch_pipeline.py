@@ -29,7 +29,7 @@ from alevin_fry_tpu_torch.cli import main as port_main
 from alevin_fry_tpu_torch.device import resolve_device
 from alevin_fry_tpu_torch.ops.barcodes import pack_seq, unpack_seq
 from alevin_fry_tpu_torch.pipeline import collate, gpl, quant
-from alevin_fry_tpu_torch.radz import _native, bincodeio
+from alevin_fry_tpu_torch.radz import bincodeio
 from reference_host_path import artifact_mismatches, host_policies, run_reference
 from bam_cases import make_bam_dataset
 from synth import make_packed_bc, write_multi_bc_rad, write_rna_rad
@@ -127,12 +127,11 @@ def test_slice_matches_reference_on_synth(tmp_path, usa):
 
 
 def test_slice_matches_reference_without_native_codec(tmp_path, monkeypatch):
-    """With the native codec unavailable both packages take their NumPy
-    paths (the port's columnar collate among them)."""
-    for native in (_native, ref_native):
-        monkeypatch.setattr(native, "_LIB", None)
-        monkeypatch.setattr(native, "_TRIED", True)
-        assert not native.available()
+    """The reference without its native codec (its NumPy record walk,
+    columnar collate and writers) writes the port's bytes."""
+    monkeypatch.setattr(ref_native, "_LIB", None)
+    monkeypatch.setattr(ref_native, "_TRIED", True)
+    assert not ref_native.available()
     _check_against_reference(_synth_data(tmp_path / "d"), tmp_path, True, min_reads=1)
 
 
@@ -336,17 +335,23 @@ def test_out_of_core_collate_matches_in_memory_and_reference(hard_data, tmp_path
 
 
 def test_out_of_core_collate_without_native_codec(tmp_path, monkeypatch):
-    """The NumPy record walk and gather of the out-of-core path write
-    the native path's bytes."""
+    """The port's out-of-core collate writes its in-memory bytes, and the
+    reference's out-of-core collate without its native codec (its NumPy
+    record walk and gather) writes them too."""
     d = _synth_data(tmp_path / "d")
-    _run_port(d, tmp_path / "out", True, min_reads=1)
+    cmdlines = _run_port(d, tmp_path / "out", True, min_reads=1)
     gpl_dir = tmp_path / "out" / "gpl"
     in_mem = (gpl_dir / "map.collated.rad").read_bytes()
-    monkeypatch.setattr(_native, "_LIB", None)
-    monkeypatch.setattr(_native, "_TRIED", True)
+    ref_dir = tmp_path / "ref_gpl"
+    shutil.copytree(gpl_dir, ref_dir)
     assert port_main(["collate", "-i", str(gpl_dir), "-r", str(d / "rad"), "-m", "7",
                       "--device", "cpu"]) == 0
     assert (gpl_dir / "map.collated.rad").read_bytes() == in_mem
+    monkeypatch.setattr(ref_native, "_LIB", None)
+    monkeypatch.setattr(ref_native, "_TRIED", True)
+    with host_policies():
+        ref_collate(ref_dir, d / "rad", 2, 7, cmdline=cmdlines["collate"])
+    assert (ref_dir / "map.collated.rad").read_bytes() == in_mem
 
 
 def test_gpl_records_sample_flags_on_plain_rna(tmp_path):

@@ -16,10 +16,8 @@ runs the port's one-process stages that phase 12 is held against (phase
 (b)'s subset and (c)'s -b 20 --summary-stat; phase 5's ATAC stages with
 their counters; phase 10 (a)'s Flex stages), then phase 12.  Phase 13: makes the data of
 phases 3 and 5 and runs the one-card stages phase 13 is held against
-(phase 3's gpl, collate and quant, whose WTA keys it keeps; phase 7's
-quant -r cr-like-em -d and infer --usa; phase 5's atac gpl), and phase
-8's quant -r parsimony, whose largest UMI graphs it keeps, then phase
-13.  Work files go to build/phase_<N>/ and are removed at the end.  The script needs a
+(phase 3's gpl, collate and quant; phase 7's quant -r cr-like-em -d and
+infer --usa; phase 5's atac gpl), then phase 13.  Work files go to build/phase_<N>/ and are removed at the end.  The script needs a
 CUDA device and exits non-zero without one, or when any check of the
 phase fails.
 """
@@ -92,17 +90,14 @@ def phase12_inputs(cs, work: Path, card: str) -> tuple:
 
 
 def phase13_inputs(cs, work: Path, card: str) -> Path:
-    """The data, one-card runs and kept inputs phase 13 takes, as the
-    whole script leaves them; returns phase 3's data."""
+    """The data and one-card runs phase 13 takes, as the whole script
+    leaves them; returns phase 3's data."""
     import os
 
     data, adata = work / "data", work / "atac_data"
     cs.helper(["make", str(data), "--n-cells", str(cs.N_CELLS), "--n-reads", str(cs.N_READS),
                "--n-genes", str(cs.N_GENES)])
-    with cs.Spy("ops.crlike", "resolve_crlike_wta_device", copy=True) as wta:
-        secs, _ = cs.run_port(data, work / "port")
-    cs.P13["wta"] = wta.host()
-    del wta
+    secs, _ = cs.run_port(data, work / "port")
     em = cs.em_port_argv(work, data)
     secs.update(cs.run_stages({k: em[k] for k in ("em-usa", "infer-usa")}, "prep"))
     cs.helper(["make-atac", str(adata), "--seed", str(cs.ATAC_SEED), "--n-cells",
@@ -117,10 +112,6 @@ def phase13_inputs(cs, work: Path, card: str) -> Path:
             str(cs.THREADS), "--device", "cuda"]}, "prep"))
     finally:
         os.environ.pop("AFT_RESCUE_BACKEND")
-    with cs.K7Capture() as k7:
-        secs.update(cs.run_stages(
-            {"parsimony": cs.parsimony_argv(work, data)["parsimony"]}, "prep"))
-    cs.P13["graph"] = cs.host_graph(k7.largest)
     print("one card: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
           + f" [{card}]", flush=True)
     return data
